@@ -12,9 +12,9 @@ Flags: `sm_90a` (Hopper), -O3, and `--fmad=false` for every source. Without
 it nvcc contracts a*b+c into one fused multiply-add, which rounds once where
 the plain PyTorch versions (one kernel per operation) round twice. That would
 move the tight-cull predicate of expand_pairs off bit-equality with its plain
-version, and flip composite_fwd's alpha >= 1/255 decisions on a few pixels
-(each flip is a ~1e-3 image difference). No `--use_fast_math`: `expf` and
-division stay IEEE-accurate, as in PyTorch.
+version, and flip composite_fwd's and composite_bwd's alpha >= 1/255
+decisions on a few pixels (each flip is a ~1e-3 image difference). No
+`--use_fast_math`: `expf` and division stay IEEE-accurate, as in PyTorch.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("expand_pairs", "composite_fwd")
+SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

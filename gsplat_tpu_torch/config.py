@@ -1,0 +1,54 @@
+"""The training step's configuration: the port's own copy of
+gsplat_tpu/config.py's `OptimizationParams` (upstream 3DGS hyperparameter
+names and defaults, verbatim) and of the `MeshParams` fields the step reads.
+
+The JAX package's config module imports no jax, but the port imports nothing
+of that package, so the dataclasses are copied here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class OptimizationParams:
+    """Upstream 3DGS optimisation hyperparameters (reference
+    src/arguments/params.h:50-91)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
+
+
+@dataclass
+class MeshParams:
+    """The render budgets and tiling of gsplat_tpu's `MeshParams` (the fields
+    the training step reads; the mesh axes, profiling and sharding fields
+    belong to slices not yet ported)."""
+
+    tile_size: int = 32          # pixels per tile side
+    chunk_size: int = 128        # pairs per compositing chunk
+    pair_budget: int = 1 << 20   # max (Gaussian, tile) pairs per render
+    kept_frac: float = -1.0      # post-sort sizing: -1 AUTO (fitted by the
+                                 # training loop; the step starts unsplit), 1 = no
+                                 # split, (0, 1) = fraction of pair_budget
+    sat_frac: float = -1.0       # saturation bound cull: -1 AUTO (starts
+                                 # off), 0 off, > 0 on (not ported: raises)
+    contrib_frac: float = -1.0   # backward d-table sizing: -1 AUTO (starts at
+                                 # the never-overflowing worst case), 1 =
+                                 # worst case, (0, 1) = fraction of pair_budget

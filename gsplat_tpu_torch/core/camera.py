@@ -29,6 +29,7 @@ class Camera:
     cam_center: torch.Tensor   # (3,)
     tan_fovx: torch.Tensor     # () tangent of half fov
     tan_fovy: torch.Tensor     # ()
+    image: Optional[torch.Tensor] = None  # (H,W,3) ground truth in [0,1], or None
     width: int = 0
     height: int = 0
     image_name: str = ""
@@ -50,13 +51,16 @@ def make_camera(
     fovy: float,
     width: int,
     height: int,
+    image: Optional[np.ndarray] = None,
     trans: np.ndarray = np.zeros(3),
     scale: float = 1.0,
     image_name: str = "",
     uid: int = 0,
     device: Optional[Union[str, torch.device]] = None,
 ) -> Camera:
-    """Build the precomputed-matrix camera on `device` (CUDA unless named)."""
+    """Build the precomputed-matrix camera on `device` (CUDA unless named).
+    `image`, the training target, is clipped to [0, 1] as float32, as the
+    reference clips it."""
     device = resolve_device(device)
     world_view = get_world2view_2(R, T, trans, scale).T
     proj = get_projection_matrix(ZNEAR, ZFAR, fovx, fovy).T
@@ -72,6 +76,7 @@ def make_camera(
         cam_center=f32(cam_center),
         tan_fovx=f32(math.tan(fovx * 0.5)),
         tan_fovy=f32(math.tan(fovy * 0.5)),
+        image=None if image is None else f32(np.clip(image, 0.0, 1.0)),
         width=width,
         height=height,
         image_name=image_name,

@@ -43,6 +43,36 @@ def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return build_rotation(q) * s[..., None, :]
 
 
+def get_expon_lr_func(
+    lr_init: float,
+    lr_final: float,
+    lr_delay_steps: int = 0,
+    lr_delay_mult: float = 1.0,
+    max_steps: int = 1_000_000,
+):
+    """Log-lerp LR schedule with an optional sine delay ramp: step (int or
+    tensor) -> () float32 tensor, computed in float32 as the reference
+    computes it on its traced step."""
+
+    def helper(step):
+        step_f = torch.as_tensor(step).to(torch.float32)
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step_f / lr_delay_steps, 0.0, 1.0)
+            )
+        else:
+            delay_rate = 1.0
+        t = torch.clamp(step_f / max_steps, 0.0, 1.0)
+        log_lerp = torch.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+        out = delay_rate * log_lerp
+        # 0 for step < 0, and for all-zero lr endpoints
+        if lr_init == 0.0 and lr_final == 0.0:
+            return torch.zeros_like(out)
+        return torch.where(step_f < 0, torch.zeros_like(out), out)
+
+    return helper
+
+
 def focal2fov(focal: float, pixels: float) -> float:
     return 2.0 * math.atan(pixels / (2.0 * focal))
 

@@ -39,8 +39,12 @@ def project_gaussians(
     cam: Camera,
     scaling_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
 ) -> Projection:
-    """Project all (capacity-padded) Gaussians into camera `cam`."""
+    """Project all (capacity-padded) Gaussians into camera `cam`.
+
+    mean2d_offset: optional (N,2) zeros whose gradient is the screen-space
+    position gradient densification reads (upstream's screenspace_points)."""
     xyz = g.get_xyz()
     x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
     FP = cam.full_proj  # row-vector convention
@@ -125,6 +129,8 @@ def project_gaussians(
     mean2d = torch.stack(
         [ndc2pix(px_ndc, cam.width), ndc2pix(py_ndc, cam.height)], dim=-1
     )
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
 
     if override_color is not None:
         rgb = override_color

@@ -1,15 +1,19 @@
-"""Forward tile compositing over the compact sorted pair layout.
+"""Tile compositing over the compact sorted pair layout, forward and backward.
 
-The wrapper of the CUDA kernel csrc/composite_fwd.cu, which replaces the TPU
-kernel gsplat_tpu/render/raster_pallas.py::_fwd_kernel, beside its plain
-PyTorch version. `composite_fwd` launches the kernel for CUDA tensors (or
-raises) and runs the plain version only for CPU tensors.
+The wrappers of the CUDA kernels csrc/composite_fwd.cu and
+csrc/composite_bwd.cu, which replace the TPU kernels
+gsplat_tpu/render/raster_pallas.py::_fwd_kernel and ::_bwd_kernel, beside
+their plain PyTorch versions. `composite_fwd` and `composite_bwd` launch the
+kernel for CUDA tensors (or raise) and run the plain version only for CPU
+tensors.
 
 Pair table layout: (P, 16) float32, ROW-major, one 64-byte row per sorted
 pair (the reference's (16, P) table transposed, so a pair's attributes are
 contiguous for the gather and for the kernel's staging load):
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c | 5..7 rgb |
   8 opacity | 9 gid as an f32 value | 10..15 zero.
+The backward's d-table has the same row layout: d{mean x, mean y, conic a,
+b, c, r, g, b, opacity} | the gid key | zero.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ ATTR_DIM = 16
 # the gid rides row 9 as an f32 VALUE (exact below 2^24); the backward's
 # invalid key sorts after every real id
 KEY_INVALID = float(1 << 30)
+KEY_COL = 9   # the gid column of the pair table and the key column of the d-table
+N_DCOLS = 9   # d-table columns carrying gradients: mean2d(2) conic(3) rgb(3) opacity(1)
 # tiles per step of the plain compositor: bounds its (tiles, chunk, pixels)
 # temporaries to a few hundred MB at tile 32, chunk 128
 _PLAIN_TILE_BATCH = 256
@@ -144,6 +150,163 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
 
 
 composite_fwd.launches = 0
+
+
+def d_table_prefilled(p_out: int, device) -> torch.Tensor:
+    """(p_out, 16) d-table of inert rows: zeros, key KEY_INVALID. The rows
+    no tile writes (the tail past the last region) must sort after every
+    real gid and carry nothing; `torch.empty` on the card holds garbage."""
+    d = torch.zeros((p_out, ATTR_DIM), dtype=torch.float32, device=device)
+    d[:, KEY_COL] = KEY_INVALID
+    return d
+
+
+def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
+                        g_tiles, *, tw, tile_size, chunk, p_out):
+    """Plain PyTorch version of the composite_bwd kernel (same signature),
+    over _PLAIN_TILE_BATCH tiles at a time: the reference's per-chunk
+    backward (raster_pallas.py::_bwd_kernel) with exact-f32 sums over the
+    pixels. Association: t_i = t_exc * t_run with t_exc the in-chunk
+    exclusive cumprod; pref = in-chunk inclusive cumsum of w*cg + the carried
+    prefix; total_cg from the forward's saved tile colour."""
+    dev = attrs.device
+    d = d_table_prefilled(p_out, dev)
+    num_tiles = tile_start.shape[0]
+    npix = tile_size * tile_size
+    h = tile_size // 2
+    pix = torch.arange(npix, device=dev)
+    px = (pix % tile_size - h).to(torch.float32)
+    py = (pix // tile_size - h).to(torch.float32)
+    # pixel basis of the power's gradient: [px^2, py^2, px*py, px, py, 1]
+    V = torch.stack([px * px, py * py, px * py, px, py, torch.ones_like(px)])
+    lane = torch.arange(chunk, device=dev)
+    for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
+        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=dev)
+        start = tile_start[t].to(torch.int64)
+        count = tile_count[t].to(torch.int64)
+        astart = (start // chunk) * chunk
+        head = start - astart
+        np_t = nproc[t].to(torch.int64)
+        cs = comp_start[t].to(torch.int64)
+        ox = ((t % tw) * tile_size + h).to(torch.float32)
+        oy = ((t // tw) * tile_size + h).to(torch.float32)
+        g_rgb = g_tiles[t, :3]                              # (B, 3, npix)
+        res = tiles[t]
+        total_cg = (res[:, 0] * g_rgb[:, 0] + res[:, 1] * g_rgb[:, 1]
+                    + res[:, 2] * g_rgb[:, 2])              # (B, npix)
+        tf_gt = res[:, 3] * g_tiles[t, 3]                   # t_final * g_t
+        t_run = torch.ones((t.shape[0], npix), dtype=torch.float32, device=dev)
+        prefix = torch.zeros_like(t_run)
+        for j in range(int(np_t.max()) if t.shape[0] else 0):
+            run = torch.nonzero(j < np_t).squeeze(1)
+            if run.numel() == 0:
+                break
+            idx = j * chunk + lane
+            a = attrs[astart[run, None] + idx]             # (R, chunk, 16)
+            ok = (idx >= head[run, None]) & (idx < (head + count)[run, None])
+            op = a[..., 8] * ok                            # (R, chunk)
+            mxl = a[..., 0] - ox[run, None]
+            myl = a[..., 1] - oy[run, None]
+            ca, cb, cc = a[..., 2], a[..., 3], a[..., 4]
+            dx = px - mxl[..., None]                       # (R, chunk, npix)
+            dy = py - myl[..., None]
+            power = -((0.5 * ca[..., None]) * (dx * dx) + cb[..., None] * (dx * dy)
+                      + (0.5 * cc[..., None]) * (dy * dy))
+            G = torch.exp(torch.where(power > 0.0, -100.0, power))
+            raw = op[..., None] * G
+            keep = raw >= ALPHA_MIN
+            alpha = torch.where(keep, torch.clamp(raw, max=ALPHA_MAX), 0.0)
+            chain = (keep & (raw <= ALPHA_MAX)).to(torch.float32)
+            cp = torch.cumprod(1.0 - alpha, dim=1)
+            t_exc = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
+            t_i = t_exc * t_run[run, None, :]
+            w = alpha * t_i
+            gr = g_rgb[run]                                # (R, 3, npix)
+            cg = (a[..., 5, None] * gr[:, None, 0] + a[..., 6, None] * gr[:, None, 1]
+                  + a[..., 7, None] * gr[:, None, 2])
+            pref = torch.cumsum(w * cg, dim=1) + prefix[run, None, :]
+            dalpha = t_i * cg - (total_cg[run, None, :] - pref
+                                 + tf_gt[run, None, :]) / (1.0 - alpha)
+            dalpha = dalpha * chain
+            d_rgb = torch.einsum("rcp,rkp->rkc", gr, w)    # (R, chunk, 3)
+            gda = G * dalpha
+            d_op = gda.sum(-1)
+            dpow = op[..., None] * gda
+            dU = torch.einsum("vp,rkp->rkv", V, dpow)      # (R, chunk, 6)
+            du0, du1, du2, du3, du4, du5 = dU.unbind(-1)
+            d_a = -0.5 * du0 + mxl * du3 - 0.5 * mxl * mxl * du5
+            d_c = -0.5 * du1 + myl * du4 - 0.5 * myl * myl * du5
+            d_b = -du2 + myl * du3 + mxl * du4 - mxl * myl * du5
+            d_mx = ca * du3 + cb * du4 - (ca * mxl + cb * myl) * du5
+            d_my = cb * du3 + cc * du4 - (cc * myl + cb * mxl) * du5
+            key = torch.where(ok, a[..., KEY_COL], KEY_INVALID)
+            rows = torch.stack([d_mx, d_my, d_a, d_b, d_c, d_rgb[..., 0], d_rgb[..., 1],
+                                d_rgb[..., 2], d_op, key], dim=-1)
+            dst = (cs[run, None] + j * chunk + lane).reshape(-1)
+            d[dst, :N_DCOLS + 1] = rows.reshape(-1, N_DCOLS + 1)
+            t_run[run] = t_run[run] * cp[:, -1]
+            prefix[run] = pref[:, -1]
+    return d
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+                 + [ctypes.c_void_p] * 2)
+
+
+def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles,
+                  *, tw, tile_size, chunk, p_out) -> torch.Tensor:
+    """The backward sweep of composite_fwd: attrs (P, 16) pair table,
+    tile_start/tile_count (num_tiles,) int32, comp_start/nproc (num_tiles,)
+    int32 (each tile's region offset and its chunks to replay), tiles (the
+    forward's output) and g_tiles (their cotangent), both (num_tiles, 4,
+    tile_size^2) f32 -> (p_out, 16) d-table: each replayed chunk's rows at
+    [comp_start[t] + j*chunk, +chunk) hold d{mean x, mean y, conic a, b, c,
+    r, g, b, opacity} and the pair's gid as the key (KEY_INVALID on rows
+    outside the segment); every other row is inert (zeros, KEY_INVALID)."""
+    if attrs.device.type == "cpu":
+        return composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc,
+                                   tiles, g_tiles, tw=tw, tile_size=tile_size,
+                                   chunk=chunk, p_out=p_out)
+    if attrs.device.type != "cuda":
+        raise ValueError(f"composite_bwd runs on cuda or cpu, not {attrs.device}")
+    if attrs.dtype != torch.float32 or attrs.shape[1:] != (ATTR_DIM,) \
+            or not attrs.is_contiguous():
+        raise ValueError("composite_bwd needs a contiguous float32 (P, 16) table")
+    if attrs.shape[0] % chunk or p_out % chunk:
+        raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
+                         f"be multiples of chunk {chunk}")
+    npix = tile_size * tile_size
+    if npix > 1024 or npix % 32:
+        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per "
+                         "pixel in whole warps, at most 1024")
+    num_tiles = tile_start.shape[0]
+    for tab in (tile_start, tile_count, comp_start, nproc):
+        if tab.dtype != torch.int32 or not tab.is_contiguous() \
+                or tab.device != attrs.device or tab.shape != (num_tiles,):
+            raise ValueError("tile tables must be contiguous (num_tiles,) int32 on "
+                             "the table's device")
+    for tab in (tiles, g_tiles):
+        if tab.dtype != torch.float32 or not tab.is_contiguous() \
+                or tab.device != attrs.device or tab.shape != (num_tiles, 4, npix):
+            raise ValueError("tiles and their cotangent must be contiguous float32 "
+                             "(num_tiles, 4, tile_size^2) on the table's device")
+    d = d_table_prefilled(p_out, attrs.device)
+    lib = _build.load("composite_bwd")
+    fn = lib.composite_bwd_launch
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(attrs.device):
+        err = fn(attrs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+                 comp_start.data_ptr(), nproc.data_ptr(), tiles.data_ptr(),
+                 g_tiles.data_ptr(), num_tiles, tw, tile_size, chunk, p_out,
+                 ALPHA_MIN, ALPHA_MAX, KEY_INVALID, d.data_ptr(),
+                 torch.cuda.current_stream(attrs.device).cuda_stream)
+    _build.check(lib, err, "composite_bwd launch")
+    composite_bwd.launches += 1
+    return d
+
+
+composite_bwd.launches = 0
 
 
 def untile_image(tiles: torch.Tensor, tw: int, th: int, tile_size: int,

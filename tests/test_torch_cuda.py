@@ -6,8 +6,11 @@ tests/conftest.py (which imports jax) cannot load:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys and
-gids must be bit-equal; images and tiles within 2e-5 abs."""
+Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys,
+gids and segment ends must be bit-equal; images and tiles within 2e-5 abs;
+composite_bwd's d columns within 1e-4 of each column's max (the kernel sums
+pixels in warp-shuffle order, the plain version in matmul order); render
+gradients within 2e-4 of each group's max of the CPU's."""
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 import torch_port_fixtures as F
 from gsplat_tpu_torch import _build
 from gsplat_tpu_torch.render import binning as tb
+from gsplat_tpu_torch.render import bounds as tbounds
 from gsplat_tpu_torch.render import expand as texp
 from gsplat_tpu_torch.render import raster as traster
 from torch_port_fixtures import SCENES, cuda_device, pair_tables, random_projection  # noqa: F401
@@ -92,6 +96,137 @@ def test_render_on_gpu_matches_cpu(cuda_device):
         assert int(getattr(gpu, f)) == int(getattr(cpu, f)), f
 
 
+def bwd_inputs(name, device):
+    """composite_bwd's inputs on a fixture scene: the pair table, its tile
+    tables, the forward tiles, regions of a can't-overflow d-table and a
+    seeded cotangent."""
+    from gsplat_tpu_torch.render.render import contrib_regions
+
+    tw, th = tb.tile_grid(F.W, F.H, F.TILE)
+    gathered, ts, tc = pair_tables(F.make_scene(**SCENES[name]))
+    tiles, nproc = traster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=F.TILE,
+                                         chunk=F.CHUNK)
+    p_out = tb.out_budget(gathered.shape[0], tw * th, F.CHUNK)
+    np_c, comp_start, _ = contrib_regions(nproc, F.CHUNK, p_out)
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32))
+    args = [t.to(device) for t in (gathered, ts, tc, comp_start, np_c, tiles, g)]
+    return args, dict(tw=tw, tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out)
+
+
+def assert_d_tables_match(got, want):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got[:, traster.KEY_COL], want[:, traster.KEY_COL])
+    for c in range(traster.N_DCOLS):
+        scale = max(float(np.abs(want[:, c]).max()), 1e-12)
+        np.testing.assert_allclose(got[:, c], want[:, c], rtol=0, atol=1e-4 * scale,
+                                   err_msg=f"column {c}")
+    assert (got[:, traster.KEY_COL + 1:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_composite_bwd_kernel_matches_plain(cuda_device, name):
+    args, kw = bwd_inputs(name, cuda_device)
+    want = traster.composite_bwd_plain(*args, **kw)
+    before = traster.composite_bwd.launches
+    got = traster.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert traster.composite_bwd.launches == before + 1
+    assert_d_tables_match(got, want)
+    again = traster.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)   # no atomics: the same bits twice
+
+
+@pytest.mark.cuda
+def test_composite_bwd_prefill_survives_a_poisoned_buffer(cuda_device):
+    """Rows outside every region hold zeros and KEY_INVALID even when the
+    caching allocator hands back a block full of NaN."""
+    args, kw = bwd_inputs("sparse", cuda_device)
+    poison = torch.full((kw["p_out"], traster.ATTR_DIM), float("nan"), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    d = traster.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert d.data_ptr() == ptr   # the poisoned block was reused
+    comp_start, np_c = args[3].cpu(), args[4].cpu()
+    covered = torch.zeros(kw["p_out"], dtype=torch.bool)
+    for s, k in zip(comp_start.tolist(), np_c.tolist()):
+        covered[s:s + k * F.CHUNK] = True
+    rest = d.cpu()[~covered]
+    assert rest.shape[0] > 0 and torch.isfinite(d).all()
+    assert (rest[:, traster.KEY_COL] == traster.KEY_INVALID).all()
+    rest[:, traster.KEY_COL] = 0
+    assert (rest == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n_valid,n", [(1024, 900, 2048), (4096, 4096, 2048),
+                                         (256, 0, 2048), (77, 60, 301), (1 << 20, 700_000, 1 << 20)])
+def test_segment_ends_kernel_bit_equal(cuda_device, p, n_valid, n):
+    rng = np.random.default_rng(p)
+    keys = np.full(p, traster.KEY_INVALID, np.float32)
+    keys[:n_valid] = np.sort(rng.integers(0, n, size=n_valid) // 3 * 3)
+    k = torch.from_numpy(keys).to(cuda_device)
+    want = tbounds.segment_ends_plain(k, n)
+    before = tbounds.segment_ends.launches
+    got = tbounds.segment_ends(k, n)
+    torch.cuda.synchronize()
+    assert tbounds.segment_ends.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    q = torch.arange(1, n + 1, device=cuda_device).to(torch.float32)
+    assert torch.equal(got.long(), torch.searchsorted(k, q, side="left"))
+
+
+@pytest.mark.cuda
+def test_render_gradients_on_gpu_match_cpu(cuda_device):
+    from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.loss import photometric_loss
+
+    s = F.make_scene(seed=5)
+    target = np.random.default_rng(7).random((F.H, F.W, 3)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        g = gaussians_from_numpy(s.params, s.n_live, 3, 3, device=dev)
+        cam = camera_from_numpy(s.R, s.T, F.FOVX, F.FOVY, F.W, F.H, image=target, device=dev)
+        params = {k: v.clone().requires_grad_() for k, v in g.params().items()}
+        off = torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
+        out = render(cam, g.replace(**params), torch.tensor([0.1, 0.2, 0.3], device=dev),
+                     tile_size=F.TILE, chunk=F.CHUNK, pair_budget=F.BUDGET,
+                     kept_budget=F.BUDGET - F.CHUNK, mean2d_offset=off)
+        gr = torch.autograd.grad(photometric_loss(out.image, cam.image),
+                                 list(params.values()) + [off])
+        grads[str(dev)] = [x.cpu().numpy() for x in gr]
+    for want, got in zip(grads["cpu"], grads[str(cuda_device)]):
+        scale = max(float(np.abs(want).max()), 1e-12)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_ssim_on_gpu_ignores_tf32_flags(cuda_device):
+    from gsplat_tpu_torch.train.loss import ssim
+
+    rng = np.random.default_rng(11)
+    a = rng.random((270, 480, 3))
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1)
+    want = float(ssim(torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)))
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.from_numpy(a).float().to(cuda_device).requires_grad_()
+        got = ssim(x, torch.from_numpy(b).float().to(cuda_device))
+        (g,) = torch.autograd.grad(got, [x])
+        xd = torch.from_numpy(a).to(cuda_device).requires_grad_()
+        (gd,) = torch.autograd.grad(ssim(xd, torch.from_numpy(b).to(cuda_device)), [xd])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev[1]
+    assert abs(float(got.detach()) - want) <= 1e-6, (float(got.detach()), want)
+    scale = float(gd.abs().max())
+    assert float((g.double() - gd).abs().max()) <= 1e-4 * scale
+
+
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
     """On the CPU the wrappers never build or load a kernel."""
     def no_build(name):
@@ -99,11 +234,16 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     table, total, meta = expansion_inputs(100, 1, 1024, True)
-    before = (texp.expand_pairs.launches, traster.composite_fwd.launches)
+    counts = (texp.expand_pairs, traster.composite_fwd, traster.composite_bwd,
+              tbounds.segment_ends)
+    before = [f.launches for f in counts]
     texp.expand_pairs(table, total, 1024, **meta)
     tables = pair_tables(F.make_scene())
     traster.composite_fwd(*tables, tw=4, tile_size=F.TILE, chunk=F.CHUNK)
-    assert (texp.expand_pairs.launches, traster.composite_fwd.launches) == before
+    args, kw = bwd_inputs("sparse", "cpu")
+    traster.composite_bwd(*args, **kw)
+    tbounds.segment_ends(torch.arange(8, dtype=torch.float32), 10)
+    assert [f.launches for f in counts] == before
 
 
 def test_other_devices_raise():
@@ -115,6 +255,11 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         traster.composite_fwd(gathered.to("meta"), ts.to("meta"), tc.to("meta"), tw=4,
                               tile_size=F.TILE, chunk=F.CHUNK)
+    args, kw = bwd_inputs("sparse", "meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        traster.composite_bwd(*args, **kw)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tbounds.segment_ends(torch.zeros(8, device="meta"), 10)
 
 
 def test_launch_errors_raise():

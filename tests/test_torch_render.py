@@ -116,14 +116,15 @@ def test_render_refuses_what_the_slice_does_not_port(objects):
         render(tc, tg, bg, sat_budget=F.BUDGET, **kw)
     with pytest.raises(NotImplementedError, match="attr_pack"):
         render(tc, tg, bg, attr_pack=True, **kw)
-    # gradients would be silently wrong: refuse grad-requiring inputs
+    # gradients flow now: grad-requiring inputs get them (the training slice)
     tg_grad = tg.replace(xyz=tg.xyz.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="requires grad"):
-        render(tc, tg_grad, bg, **kw)
-    with pytest.raises(NotImplementedError, match="requires grad"):
-        render(tc, tg, bg.clone().requires_grad_(), **kw)
+    bg_grad = bg.clone().requires_grad_()
+    out = render(tc, tg_grad, bg_grad, **kw)
+    g_xyz, g_bg = torch.autograd.grad(out.image.sum(), [tg_grad.xyz, bg_grad])
+    assert float(g_xyz.abs().max()) > 0 and torch.isfinite(g_xyz).all()
+    np.testing.assert_allclose(g_bg.numpy(), out.transmittance.sum().item(), rtol=1e-5)
     with torch.no_grad():
-        render(tc, tg_grad, bg, **kw)
+        assert render(tc, tg_grad, bg, **kw).image.grad_fn is None
 
 
 def test_capacity_above_2_pow_24_raises():
