@@ -27,10 +27,32 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            max; the same bits from two launches
   segment_ends   the kernel against its plain version on the kernel's
            d-table keys after the gid-key sort: bit-equal
+  expand_pairs sat_pack (dense)  the kernel against its plain version with
+           the saturation quanta packed under the gids: bit-equal; the
+           count of nonzero quanta
+  prefix_sum_small  the kernel against its plain version on the view's real
+           sorted quanta (the kept prefix of the saturation cull's input;
+           sparse at pair and sat budget 2,621,440, dense at the fitted
+           budgets), on a length that is no multiple of its 4096-element
+           block, and with a bias and a clip: bit-equal; torch.cumsum's ms
+  compact_runs   the kernel against its plain version on the same view's
+           real regions: bit-equal (region rows copied, the null gid
+           elsewhere); a starved budget whose regions overlap and pass the
+           end syncs without error; the ms of the reference's src-map gather
+           (index_select with the map precomputed)
   serve    render() with per-view and per-stage ms: the sparse cell (2.25
            tile pairs per Gaussian) for 4 views, the bench camera + 3 yaw
            turns; the dense cell (33 tile pairs per Gaussian) for the bench
            camera
+  serve sparse sat probe  one render at pair and sat budget 2,621,440:
+           n_sat within 0.1% of the JAX package's 2,176,896, n_dropped 0,
+           the image bit-equal to the render without the cull
+  serve dense sat  the saturation cull probed as scripts/serving_bench.py
+           does (sat_budget = kept): n_sat within 0.1% of the JAX package's
+           1,823,232; then rendered at the fitted sat budget (n_sat rounded
+           up to a chunk, plus a chunk): the image bit-equal and nproc equal
+           in every tile to the same view's render without the cull,
+           n_dropped 0; frame and stage ms and the device busy share
   train    make_train_step at OptimizationParams() defaults, bg 0, spatial
            LR scale 1, budgets fitted as bench.py fits them with the JAX
            training loop's headroom (1.2x pair and kept, 1.5x contrib; the
@@ -45,10 +67,18 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            gid keys. Synced step ms, one step's stage ms (CUDA events), and
            the device busy share, operation count and top kernels of the
            last step (torch.profiler)
-The launch counts of the four kernels are zeroed just before each serve and
+  train dense sat  3 dense steps with the saturation cull on (its budget
+           probed at the fitted budgets, with 1.2x headroom): the step-1
+           loss and d-table bit-equal to the dense step 1 without the cull,
+           its per-Gaussian gradient table within 1e-9 of each column's max
+           (float cumsums on CUDA add in a varying order); every step n_sat
+           within its budget and n_dropped 0; the checks of the train phase
+The launch counts of the six kernels are zeroed just before each serve and
 each train phase (the main path) and must cover every render and step run
-there; the kernels line sums them. The kernels JSON row holds the sparse
-bench view's times and bound, and the larger error of the two cells.
+there (K5 and K6 in the sat phases); the kernels line sums them and must
+show every kernel. The kernels JSON rows hold the sparse bench view's times
+and bound for K1-K4, the dense view's for K5 and K6 (the cell whose users
+run the cull), and the larger error of the two cells.
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
 """
@@ -77,10 +107,19 @@ SPARSE_BUDGET, DENSE_BUDGET = 5 << 19, 5 << 23   # scripts/serving_bench.py
 # the JAX package's counts on this same numpy scene (BENCH_r05.json)
 REF_SPARSE_PAIRS, REF_SPARSE_CULLED = 2_105_855, 187_969
 REF_DENSE_CULLED = 6_040_429
+# the saturation cull's survivor rows (BENCH_r05.json sat_kept, dense_sat_kept)
+REF_SPARSE_SAT, REF_DENSE_SAT = 2_176_896, 1_823_232
+# the train phases' headroom over a fitted budget: the JAX loop's kept
+# regrowth factor (loop.py:575), here for the sat budget too (the JAX loop
+# starts it at n_sat plus a chunk and doubles it on overflow, loop.py:558)
+SAT_HEADROOM = 1.2
 REF_SPARSE_LOSS = 0.4129     # BENCH_r05.json "loss", the step-1 loss
 ATOL = 2e-5
 BWD_RTOL = 1e-4       # composite_bwd vs plain, of each d column's max
 GRAD_RTOL = 1e-3      # per-Gaussian gradient table vs float64, of each column's max
+# the same d-table's per-Gaussian tables from two reductions (float64 cumsums
+# whose order on CUDA changes from call to call), of each column's max
+TABLE_RTOL = 1e-9
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
@@ -503,6 +542,143 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept):
     return k3, k4
 
 
+def phase_expand_sat(s, label, g, cam, pair_fit):
+    """K1 with the saturation quanta packed under the gids, against its plain
+    version at the view's fitted pair budget -> max |difference|."""
+    from gsplat_tpu_torch.render import expand
+    from gsplat_tpu_torch.render.binning import depth_shift, expansion_table, tile_grid
+    from gsplat_tpu_torch.render.project import project_gaussians
+
+    s.phase(f"kernel expand_pairs sat_pack ({label})")
+    tw, th = tile_grid(W, H, TILE)
+    db = depth_shift(tw * th)
+    p = project_gaussians(g, cam)
+    table, total = expansion_table(p.mean2d, p.radius, p.depth, p.conic, p.opacity,
+                                   tw=tw, th=th, tile_size=TILE, db=db, do_cull=True)
+    kw = dict(tw=tw, tile_size=TILE, db=db, num_tiles=tw * th, n_orig=g.capacity,
+              do_cull=True, sat_pack=True)
+    key_k, gid_k = expand.expand_pairs(table, total, pair_fit, **kw)
+    key_p, gid_p = expand.expand_pairs_plain(table, total, pair_fit, **kw)
+    torch.cuda.synchronize()
+    bad = int(((key_k != key_p) | (gid_k != gid_p)).sum())
+    kept = gid_k != g.capacity << expand.SAT_Q_BITS
+    q = gid_k & ((1 << expand.SAT_Q_BITS) - 1)
+    s.check(bad == 0, f"{label} expand_pairs sat_pack vs plain at S={pair_fit}: {bad} "
+            f"mismatching slots (want 0); {int((q > 0).sum())} of {int(kept.sum())} kept "
+            f"slots carry a nonzero quantum (max {int(q.max())})")
+    return max(int((key_k - key_p).abs().max()), int((gid_k - gid_p).abs().max()))
+
+
+def sat_kernel_inputs(g, cam, pair_budget, kept, sat):
+    """The view's real inputs of K5 and K6: bin with the saturation cull and
+    capture what binning.saturation_cull receives -> (the sorted packed
+    gids' kept prefix, the kept segments, the Binning)."""
+    from gsplat_tpu_torch.render import binning
+    from gsplat_tpu_torch.render.project import project_gaussians
+
+    p = project_gaussians(g, cam)
+    real, seen = binning.saturation_cull, {}
+
+    def capture(gid_s, starts, tile_count, **kw):
+        seen.update(src=gid_s[:kw["kept_budget"]], starts=starts, tile_count=tile_count)
+        return real(gid_s, starts, tile_count, **kw)
+
+    binning.saturation_cull = capture
+    try:
+        b = binning.bin_gaussians(p.mean2d, p.radius, p.depth, width=W, height=H,
+                                  tile_size=TILE, chunk=CHUNK, pair_budget=pair_budget,
+                                  cull_conic=p.conic, cull_opacity=p.opacity,
+                                  kept_budget=kept, sat_budget=sat)
+    finally:
+        binning.saturation_cull = real
+    return seen, b
+
+
+def phase_scan(s, label, seen):
+    """K5 against its plain version on the view's real sorted quanta -> (K5
+    row, the prefix sums)."""
+    from gsplat_tpu_torch.render import expand, scan
+
+    s.phase(f"kernel prefix_sum_small ({label})")
+    q = seen["src"] & ((1 << expand.SAT_Q_BITS) - 1)
+    n = q.shape[0]
+    c_k = scan.prefix_sum_small(q)
+    c_p = scan.prefix_sum_small_plain(q)
+    odd = n - 1001                      # no multiple of the 4096-element block
+    odd_eq = torch.equal(scan.prefix_sum_small(q[:odd]), c_p[:odd])
+    hi = int(c_p[-1]) // 2
+    clip_eq = torch.equal(scan.prefix_sum_small(q, bias=-7, clip_hi=hi),
+                          scan.prefix_sum_small_plain(q, bias=-7, clip_hi=hi))
+    torch.cuda.synchronize()
+    bad = int((c_k != c_p).sum())
+    s.check(bad == 0 and odd_eq and clip_eq,
+            f"{label} prefix_sum_small vs plain over {n} sorted quanta (sum {int(c_p[-1])}): "
+            f"{bad} mismatching sums (want 0); length {odd} equal {odd_eq}; bias -7 "
+            f"clip {hi} equal {clip_eq}")
+    ms = device_ms(lambda: scan.prefix_sum_small(q), 20)
+    plain_ms = device_ms(lambda: scan.prefix_sum_small_plain(q), 20)
+    lib_ms = device_ms(lambda: torch.cumsum(q, 0, dtype=torch.int32), 20)
+    print(f"  {label} prefix_sum_small: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.cumsum {lib_ms:.4f} ms ({n} elements)", flush=True)
+    row = dict(name="prefix_sum_small", route="cuda",
+               source="gsplat_tpu_torch/csrc/prefix_sum_small.cu",
+               replaces="gsplat_tpu/render/scan_pallas.py:36",
+               max_abs_err=float((c_k - c_p).abs().max()), ms=ms, plain_ms=plain_ms,
+               bytes=8 * n, ops=n, peak_ops=PEAK_INT32, library_ms=lib_ms)
+    return row, c_k
+
+
+def phase_compact(s, label, seen, C, sat):
+    """K6 against its plain version on the view's real regions, and on a
+    starved budget -> K6 row."""
+    from gsplat_tpu_torch.render import compact
+    from gsplat_tpu_torch.render.binning import sat_regions
+
+    s.phase(f"kernel compact_runs ({label})")
+    src, fill = seen["src"], 1 << 30   # packed gids (gid < 2^24) stay below 2^30
+    astart, rbase, _, _, region, needed = sat_regions(
+        C, seen["starts"], seen["tile_count"], chunk=CHUNK, sat_budget=sat)
+    needed = int(needed)
+    args = (src, astart, rbase, region, sat, fill)
+    o_k = compact.compact_runs(*args)
+    o_p = compact.compact_runs_plain(*args)
+    starved = max(-(-needed // 4 // CHUNK) * CHUNK, CHUNK)
+    st = sat_regions(C, seen["starts"], seen["tile_count"], chunk=CHUNK,
+                     sat_budget=starved)
+    o_s = compact.compact_runs(src, st[0], st[1], st[4], starved, fill)
+    torch.cuda.synchronize()
+    bad = int((o_k != o_p).sum())
+    err = float((o_k - o_p).abs().max())
+    n_fill = int((o_k == fill).sum())
+    s.check(bad == 0 and needed <= sat and n_fill == sat - needed,
+            f"{label} compact_runs vs plain: {astart.shape[0]} regions, {needed} region "
+            f"rows into {sat}: {bad} mismatching rows (want 0), {n_fill} fill rows "
+            f"(want {sat - needed})")
+    s.check(o_s.shape == (starved,) and int((o_s != fill).sum()) > 0,
+            f"{label} compact_runs at a starved budget {starved} (regions overlap, the "
+            f"largest is {int(region.max())} rows): synced without error")
+    del o_p, o_s
+    ms = device_ms(lambda: compact.compact_runs(*args), 20)
+    plain_ms = device_ms(lambda: compact.compact_runs_plain(*args), 5)
+    # the reference's src-map gather alone, its map precomputed
+    off = (astart - rbase).long()
+    delta = torch.zeros(sat + 1, dtype=torch.int64, device=src.device)
+    delta.index_add_(0, rbase.long(), torch.cat([off[:1], off[1:] - off[:-1]]))
+    idx = torch.clamp(torch.arange(sat, device=src.device) + torch.cumsum(delta, 0)[:sat],
+                      0, src.shape[0] - 1)
+    lib_ms = device_ms(lambda: src.index_select(0, idx), 20)
+    print(f"  {label} compact_runs: {ms:.4f} ms (with the fill), plain {plain_ms:.4f} ms, "
+          f"src-map index_select {lib_ms:.4f} ms ({needed} of {sat} rows)", flush=True)
+    # each survivor row read once and written once, the rest of the output
+    # filled, the three tile tables read
+    nbytes = 4 * (needed + sat) + 3 * 4 * astart.shape[0]
+    return dict(name="compact_runs", route="cuda",
+                source="gsplat_tpu_torch/csrc/compact_runs.cu",
+                replaces="gsplat_tpu/render/compact_pallas.py:40",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=0,
+                library_ms=lib_ms)
+
+
 def grad_table_check(s, label, d, table):
     """The per-Gaussian gradient table against a float64 index_add_ of the
     d-table's rows by their gid keys; also what a float32 cumsum would have
@@ -532,9 +708,11 @@ def grad_table_check(s, label, d, table):
     return rel, rel32
 
 
-def train(s, label, g, cam_args, target, budget, steps):
+def train(s, label, g, cam_args, target, budget, steps, ref=None):
     """make_train_step at the fitted budgets for `steps` steps with the
-    launch counts from zero -> (launches, step results)."""
+    launch counts from zero -> (launches, step results). With `ref` (the
+    results of the same cell's run without the cull) the saturation cull is
+    on, and its step 1 must equal ref's bit for bit."""
     from gsplat_tpu_torch.config import MeshParams, OptimizationParams
     from gsplat_tpu_torch.core.camera import make_camera
     from gsplat_tpu_torch.render import render as render_mod
@@ -556,11 +734,18 @@ def train(s, label, g, cam_args, target, budget, steps):
     pair_fit = min(budget, -(-int(pair_fit * 1.2) // CHUNK) * CHUNK)
     kept = min(pair_fit, -(-int(kept * 1.2) // CHUNK) * CHUNK)
     contrib = -(-int(contrib * 1.5) // 512) * 512
+    sat = None
+    if ref is not None:
+        probe = render_mod.render(cam, g, bg, tile_size=TILE, chunk=CHUNK,
+                                  pair_budget=pair_fit, kept_budget=kept, sat_budget=kept)
+        sat = min(kept, -(-int(int(probe.n_sat) * SAT_HEADROOM) // CHUNK) * CHUNK)
+        del probe
     step_fn = make_train_step(OptimizationParams(), MeshParams(
         tile_size=TILE, chunk_size=CHUNK, pair_budget=pair_fit), 1.0, W, H,
-        kept_budget=kept, contrib_budget=contrib)
+        kept_budget=kept, contrib_budget=contrib, sat_budget=sat)
     opt_state = init_adam_state(g.params())
-    print(f"  {label}: pair_budget {pair_fit}, kept {kept}, contrib {contrib}", flush=True)
+    print(f"  {label}: pair_budget {pair_fit}, kept {kept}, contrib {contrib}, sat {sat}",
+          flush=True)
 
     captured = {}
     reduce = render_mod.reduce_by_gid
@@ -595,21 +780,26 @@ def train(s, label, g, cam_args, target, budget, steps):
                     step_ms, out = wall_ms(lambda: step_fn(g, opt_state, cam, bg, step, ema))
             finally:
                 render_mod.reduce_by_gid = reduce
-            g, opt_state, loss, ema, n_pairs, n_dropped, n_culled, n_contrib, _ = out
+            g, opt_state, loss, ema, n_pairs, n_dropped, n_culled, n_contrib, n_sat = out
             losses.append(float(loss))
             if 1 < step < steps:
                 times.append(step_ms)
             good = int(n_dropped) == 0 and int(n_contrib) <= contrib
-            ok &= good
+            ok &= good and (sat is None or int(n_sat) <= sat)
             print(f"  {label} step {step}: loss {float(loss):.6f}, {step_ms:.3f} ms, pairs "
-                  f"{int(n_pairs)} culled {int(n_culled)} contrib {int(n_contrib)} dropped "
-                  f"{int(n_dropped)}", flush=True)
+                  f"{int(n_pairs)} culled {int(n_culled)} contrib {int(n_contrib)} sat "
+                  f"{int(n_sat)} dropped {int(n_dropped)}", flush=True)
             if step == 1:
                 rel, rel32 = grad_table_check(s, label, captured["d"], captured["table"])
-                del captured["d"], captured["table"]
+                step1 = dict(d=captured.pop("d"), table=captured.pop("table"))
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counts.items()}
-    s.check(ok, f"{label}: every step n_dropped 0 and n_contrib <= {contrib}")
+    if ref is not None:
+        # after the counts are read: its second reduction launches K4
+        same_cull_check(s, label, losses[0], step1, ref)
+        step1 = None
+    s.check(ok, f"{label}: every step n_dropped 0, n_contrib <= {contrib}"
+            + ("" if sat is None else f" and n_sat <= {sat}"))
     finite = all(bool(torch.isfinite(t).all()) for d in
                  (g.params(), opt_state.mu, opt_state.nu) for t in d.values())
     s.check(finite, f"{label}: parameters and Adam moments finite after {steps} steps")
@@ -618,8 +808,9 @@ def train(s, label, g, cam_args, target, budget, steps):
     dmax = float(g.denom.max())
     s.check(dmax == steps and bool((g.denom <= steps).all()),
             f"{label}: denom max {dmax:g} (want {steps}, at most {steps} everywhere)")
-    s.check(launches["expand_pairs"] >= steps and all(v >= steps for v in launches.values()),
-            f"{label} kernel launches {launches} cover its {steps} steps")
+    need = TRAIN_KERNELS + (SAT_KERNELS if sat is not None else ())
+    s.check(all(launches[k] >= steps for k in need),
+            f"{label} kernel launches {launches} cover its {steps} steps ({', '.join(need)})")
     busy_ms, n_ops, top = busy[:3]
     share = "not measured" if busy_ms is None else \
         f"{busy_ms:.3f} ms of device time"
@@ -633,21 +824,55 @@ def train(s, label, g, cam_args, target, budget, steps):
     print(f"  {label} train step {steps - 1} stages (ms): "
           + " ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()), flush=True)
     return launches, dict(losses=losses, ms=med, rel=rel, rel32=rel32, contrib=contrib,
-                          stages=stage_ms)
+                          stages=stage_ms, step1=step1)
+
+
+def same_cull_check(s, label, loss, step1, ref):
+    """Step 1 with the saturation cull against step 1 without it: the loss
+    and the d-table (K3's output, the reduction's input) bit-equal. The
+    per-Gaussian table is a difference of float64 cumsums, and torch.cumsum
+    of floats on CUDA adds in an order that changes from call to call, so
+    the table is held to TABLE_RTOL of each column's max, with the spread of
+    the same reference d-table reduced again printed beside it."""
+    from gsplat_tpu_torch.render.render import reduce_by_gid
+
+    same_loss = loss == ref["losses"][0]
+    d_ref, t_ref = ref["step1"]["d"], ref["step1"]["table"]
+    same_d = torch.equal(step1["d"], d_ref)
+    t = step1["table"]
+    scale = t_ref.abs().amax(0).clamp(min=1e-30)
+    rel = float(((t - t_ref).abs().amax(0) / scale).max())
+    again = reduce_by_gid(d_ref, t_ref.shape[0])
+    spread = float(((again - t_ref).abs().amax(0) / scale).max())
+    s.check(same_loss and same_d and rel <= TABLE_RTOL,
+            f"{label} step 1 vs without the cull: loss {loss!r} vs {ref['losses'][0]!r} "
+            f"(bit-equal {same_loss}); d-table ({d_ref.shape[0]} rows) bit-equal {same_d}; "
+            f"per-Gaussian gradient table: {int((t != t_ref).sum())} entries differ, max "
+            f"|diff| {float((t - t_ref).abs().max())!r}, {rel:.3g} of the column max (tol "
+            f"{TABLE_RTOL}); the reference d-table reduced again: {int((again != t_ref).sum())}"
+            f" entries differ, {spread:.3g} of the column max")
 
 
 def kernel_counts():
-    from gsplat_tpu_torch.render import bounds, expand, raster
+    from gsplat_tpu_torch.render import bounds, compact, expand, raster, scan
 
     return {"expand_pairs": expand.expand_pairs, "composite_fwd": raster.composite_fwd,
-            "composite_bwd": raster.composite_bwd, "segment_ends": bounds.segment_ends}
+            "composite_bwd": raster.composite_bwd, "segment_ends": bounds.segment_ends,
+            "prefix_sum_small": scan.prefix_sum_small,
+            "compact_runs": compact.compact_runs}
+
+
+FWD_KERNELS = ("expand_pairs", "composite_fwd")
+SAT_KERNELS = ("prefix_sum_small", "compact_runs")
+TRAIN_KERNELS = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends")
 
 
 def run_cell(s, label, g, cam_args, views, budget, target):
     """The kernels against their plain versions at the bench view's fitted
-    budgets, then the serve and train phases, each with the launch counts
-    from zero -> (kernel rows, launches of serve + train, renders run, view
-    results, train results)."""
+    budgets, then the serve and train phases, with and without the
+    saturation cull, each with the launch counts from zero -> ({kernel name:
+    row}, launches of the main path, renders run, view results, train
+    results)."""
     from gsplat_tpu_torch.core.camera import make_camera
 
     R, T, fovx, fovy = cam_args
@@ -655,29 +880,75 @@ def run_cell(s, label, g, cam_args, views, budget, target):
     pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
     s.phase(f"kernel expand_pairs ({label})")
     k1 = phase_expand(s, label, g, cam, pair_fit, kept)
+    if label == "dense":
+        k1["max_abs_err"] = max(k1["max_abs_err"], phase_expand_sat(s, label, g, cam, pair_fit))
     s.phase(f"kernel composite_fwd ({label})")
     k2 = phase_composite(s, label, g, cam, pair_fit, kept)
     k3, k4 = phase_backward(s, label, g, cam, torch.from_numpy(target).to(g.device),
                             pair_fit, kept)
+    # K5 and K6 on the view's real cull inputs: the sparse view where its
+    # regions fit (pair and sat budget SPARSE_BUDGET), the dense one at its
+    # fitted budgets and the sat budget serve_sat fits
+    if label == "sparse":
+        seen, b = sat_kernel_inputs(g, cam, SPARSE_BUDGET, None, SPARSE_BUDGET)
+        sat = SPARSE_BUDGET
+    else:
+        seen, b = sat_kernel_inputs(g, cam, pair_fit, kept, kept)
+        sat = -(-int(b.n_sat) // CHUNK) * CHUNK + CHUNK
+    del b
+    k5, C = phase_scan(s, label, seen)
+    k6 = phase_compact(s, label, seen, C, sat)
+    del seen, C
     torch.cuda.empty_cache()
 
     # ---- the main path: counts from zero before each phase ----
     counts = kernel_counts()
-    for f in counts.values():
-        f.launches = 0
+
+    def zero():
+        for f in counts.values():
+            f.launches = 0
+
+    def read(name, renders, sat_renders=0):
+        """The counts, each forward kernel held to every render of the
+        phase and each cull kernel to the renders that used the cull."""
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counts.items()}
+        need = {**{k: renders for k in FWD_KERNELS}, **{k: sat_renders for k in SAT_KERNELS}}
+        s.check(all(got[k] >= n for k, n in need.items()),
+                f"{name} kernel launches {got} cover its {renders} renders "
+                f"({', '.join(FWD_KERNELS)}), {sat_renders} with the cull "
+                f"({', '.join(SAT_KERNELS)})")
+        torch.cuda.empty_cache()
+        return got
+
+    zero()
     s.phase(f"serve {label}")
     renders, results = serve(s, g, cam_args, views, budget, label)
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counts.items()}
-    s.check(launches["composite_fwd"] >= renders and launches["expand_pairs"] >= renders,
-            f"{label} serve kernel launches {launches} cover its {renders} renders")
-    torch.cuda.empty_cache()
+    launches = read(f"{label} serve", renders)
+    zero()
+    if label == "sparse":
+        s.phase("serve sparse sat probe")
+        n_renders, n_sat_renders = serve_sat_probe(s, g, cam_args, label)
+    else:
+        s.phase(f"serve {label} sat")
+        n_renders, n_sat_renders, sat_result = serve_sat(s, g, cam_args, budget, label)
+        results.append(dict(view="sat", **sat_result))
+    renders += n_renders
+    sat_launches = read(f"{label} sat serve", n_renders, n_sat_renders)
     s.phase(f"train {label}")
     t_launches, trained = train(s, label, g, cam_args, target, budget, TRAIN_STEPS[label])
+    phases = [sat_launches, t_launches]
+    if label == "dense":
+        s.phase(f"train {label} sat")
+        st_launches, trained["sat"] = train(s, f"{label} sat", g, cam_args, target, budget,
+                                            TRAIN_STEPS[label], ref=trained)
+        phases.append(st_launches)
+    trained.pop("step1")
     torch.cuda.empty_cache()
-    launches = {k: launches[k] + t_launches[k] for k in launches}
-    return (k1, k2, k3, k4), launches, renders, results, trained
-
+    for more in phases:
+        launches = {k: launches[k] + more[k] for k in launches}
+    rows = {k["name"]: k for k in (k1, k2, k3, k4, k5, k6)}
+    return rows, launches, renders, results, trained
 
 def serve(s, g, cam_args, views, budget, label):
     """Fit budgets and render every view; returns renders run and stage ms."""
@@ -724,6 +995,97 @@ def serve(s, g, cam_args, views, budget, label):
         results.append(dict(view=deg, out=out, n_pairs=n_pairs, n_culled=n_culled,
                             ms=statistics.median(times), stages=stage_ms))
     return renders, results
+
+
+def serve_sat_probe(s, g, cam_args, label):
+    """One render of the bench view at pair and sat budget SPARSE_BUDGET
+    against the render without the cull -> (renders run, of them with the
+    cull)."""
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.render.render import render
+
+    R, T, fovx, fovy = cam_args
+    cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
+    bg = torch.zeros(3, device=g.device)
+    kw = dict(tile_size=TILE, chunk=CHUNK, pair_budget=SPARSE_BUDGET)
+    # kept_budget < pair_budget turns the tight cull on, as the sat cull does
+    base = render(cam, g, bg, **kw, kept_budget=SPARSE_BUDGET - CHUNK)
+    out = render(cam, g, bg, **kw, sat_budget=SPARSE_BUDGET)
+    torch.cuda.synchronize()
+    n_sat, kept = int(out.n_sat), int(out.n_pairs) - int(out.n_culled)
+    same = torch.equal(out.image, base.image)
+    s.check(abs(n_sat - REF_SPARSE_SAT) <= 1e-3 * REF_SPARSE_SAT and int(out.n_dropped) == 0
+            and same,
+            f"{label} sat probe at pair and sat budget {SPARSE_BUDGET}: n_sat {n_sat} vs JAX "
+            f"package {REF_SPARSE_SAT} (diff {n_sat - REF_SPARSE_SAT:+d}, tol 0.1%), "
+            f"n_dropped {int(out.n_dropped)}, image bit-equal to the render without the "
+            f"cull {same}; {kept} kept pairs (the regions outnumber them)")
+    return 2, 1
+
+
+def serve_sat(s, g, cam_args, budget, label):
+    """The bench view with the saturation cull, fitted as
+    scripts/serving_bench.py fits it, against the same view's render without
+    the cull (image bit-equal, nproc equal in every tile) -> (renders run,
+    of them with the cull, result)."""
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.render import render as render_mod
+
+    R, T, fovx, fovy = cam_args
+    cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
+    bg = torch.zeros(3, device=g.device)
+    pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
+
+    def run(on_stage=None, sat=None):
+        return render_mod.render(cam, g, bg, tile_size=TILE, chunk=CHUNK,
+                                 pair_budget=pair_fit, kept_budget=kept, sat_budget=sat,
+                                 on_stage=on_stage)
+
+    n_sat = int(run(sat=kept).n_sat)
+    sat = -(-n_sat // CHUNK) * CHUNK + CHUNK
+    s.check(abs(n_sat - REF_DENSE_SAT) <= 1e-3 * REF_DENSE_SAT,
+            f"{label} sat probe (sat_budget = kept {kept}): n_sat {n_sat} vs JAX package "
+            f"{REF_DENSE_SAT} (diff {n_sat - REF_DENSE_SAT:+d}, "
+            f"{(n_sat - REF_DENSE_SAT) / REF_DENSE_SAT:+.5%}, tol 0.1%)")
+    nprocs, real = [], render_mod.composite_fwd
+
+    def capture(*a, **kw):
+        out = real(*a, **kw)
+        nprocs.append(out[1])
+        return out
+
+    render_mod.composite_fwd = capture
+    try:
+        base = run()
+        out = run(sat=sat)
+    finally:
+        render_mod.composite_fwd = real
+    torch.cuda.synchronize()
+    same = torch.equal(out.image, base.image)
+    np_diff = int((nprocs[0] != nprocs[1]).sum())
+    s.check(same and np_diff == 0 and int(out.n_dropped) == 0,
+            f"{label} sat render at sat budget {sat}: image bit-equal to the render without "
+            f"the cull {same}, nproc differs in {np_diff} of {nprocs[0].shape[0]} tiles "
+            f"(want 0), n_dropped {int(out.n_dropped)}")
+    del base, nprocs
+    times = [wall_ms(lambda: run(sat=sat))[0] for _ in range(FRAME_REPS)]
+    stages = StageEvents()
+    run(on_stage=stages, sat=sat)
+    stage_ms = stages.ms()
+    busy_ms, n_ops, top, _ = device_busy(lambda: run(sat=sat))
+    med = statistics.median(times)
+    share = "not measured" if busy_ms is None else \
+        f"{busy_ms:.3f} ms, {busy_ms / med:.1%} of the median frame"
+    print(f"  {label} sat: pairs {int(out.n_pairs)} culled {int(out.n_culled)} sat "
+          f"{n_sat} contrib {int(out.n_contrib)} (pair_budget {pair_fit}, kept {kept}, "
+          f"sat {sat}); frame ms of {FRAME_REPS} synced: median {med:.3f} min "
+          f"{min(times):.3f} max {max(times):.3f}; stages "
+          + " ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()), flush=True)
+    print(f"  {label} sat: device busy (torch.profiler) {share}, {n_ops} device "
+          "operations; top kernels " + "; ".join(f"{k} {v:.3f} ms" for k, v in top),
+          flush=True)
+    return 5 + FRAME_REPS, 4 + FRAME_REPS, dict(n_sat=n_sat, sat=sat, ms=med,
+                                                stages=stage_ms)
 
 
 def main() -> int:
@@ -800,20 +1162,27 @@ def main() -> int:
                 f"({(got - REF_DENSE_CULLED) / REF_DENSE_CULLED:+.5%}, tol 0.1%)")
     launches = {k: l_sparse[k] + l_dense[k] for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders, {TRAIN_STEPS['sparse']} + "
-          f"{TRAIN_STEPS['dense']} train steps")
+          f"{2 * TRAIN_STEPS['dense']} train steps")
     print("kernels " + json.dumps(launches))
+    s.check(all(v > 0 for v in launches.values()),
+            f"every kernel launched on the main path: {launches}")
 
-    for k in k_sparse + k_dense:
-        t_bytes = k.pop("bytes") / PEAK_BYTES * 1e3
-        t_ops = k.pop("ops") / k.pop("peak_ops", PEAK_FP32) * 1e3
-        k.update(launches=launches[k["name"]], bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-    for k in k_dense:
-        print(f"  dense {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+    for cell in (k_sparse, k_dense):
+        for k in cell.values():
+            t_bytes = k.pop("bytes") / PEAK_BYTES * 1e3
+            t_ops = k.pop("ops") / k.pop("peak_ops", PEAK_FP32) * 1e3
+            k.update(launches=launches[k["name"]], bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+    for label, cell in (("dense", k_dense), ("sparse", k_sparse)):
+        for k in cell.values():
+            print(f"  {label} {k['name']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+                  f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+                  f"{k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}")
     rows = []
-    for k, kd in zip(k_sparse, k_dense):
-        rows.append(dict(k, max_abs_err=max(k["max_abs_err"], kd["max_abs_err"])))
+    for name in kernel_counts():
+        row = (k_dense if name in SAT_KERNELS else k_sparse)[name]
+        rows.append(dict(row, max_abs_err=max(k_sparse[name]["max_abs_err"],
+                                              k_dense[name]["max_abs_err"])))
     print(json.dumps({"kernels": rows}))
     print(card)
     if s.failures:

@@ -34,7 +34,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends")
+SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
+           "prefix_sum_small", "compact_runs")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

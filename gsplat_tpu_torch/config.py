@@ -47,8 +47,11 @@ class MeshParams:
     kept_frac: float = -1.0      # post-sort sizing: -1 AUTO (fitted by the
                                  # training loop; the step starts unsplit), 1 = no
                                  # split, (0, 1) = fraction of pair_budget
-    sat_frac: float = -1.0       # saturation bound cull: -1 AUTO (starts
-                                 # off), 0 off, > 0 on (not ported: raises)
+    sat_frac: float = -1.0       # saturation bound cull: -1 AUTO (the step
+                                 # starts with it off; the training loop that
+                                 # turns it on is not ported yet), 0 off, > 0
+                                 # on, sizing the packed survivors as a
+                                 # fraction of pair_budget
     contrib_frac: float = -1.0   # backward d-table sizing: -1 AUTO (starts at
                                  # the never-overflowing worst case), 1 =
                                  # worst case, (0, 1) = fraction of pair_budget

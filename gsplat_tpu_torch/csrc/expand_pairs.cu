@@ -11,6 +11,13 @@
 // binning._expand_xla's arithmetic in the same order; the library is built
 // with --fmad=false so no a*b+c contracts into one rounding.
 //
+// With sat_pack (the saturation bound cull) a kept slot's gid carries its
+// 6-bit saturation quantum, gid << 6 | q, and null slots carry n_orig << 6
+// (binning._expand_xla's sat_pack branch). q comes from the tile box's
+// farthest corner (rect_max_q) through expf and log1pf, the libdevice
+// functions torch's own CUDA kernels call, so the plain version on the card
+// gives the same bits.
+//
 // Bound on this card: memory. Each slot writes 8 bytes and reads one table
 // row; the arithmetic is a few integer ops plus, with the cull, ~40 f32 ops
 // and one expf. The search costs log2(n) dependent loads, but at 1M Gaussians
@@ -57,14 +64,37 @@ __device__ __forceinline__ float rect_min_q(float a, float b, float c, float lx,
   return inside ? 0.f : fmaxf(m, 0.f);
 }
 
+// Q at the box's farthest corner: its max over the box (Q is convex);
+// binning._rect_max_Q's operation order
+__device__ __forceinline__ float rect_max_q(float a, float b, float c, float lx,
+                                            float hx, float ly, float hy) {
+  auto q = [&](float dx, float dy) {
+    return 0.5f * a * dx * dx + b * dx * dy + 0.5f * c * dy * dy;
+  };
+  return fmaxf(fmaxf(q(lx, ly), q(lx, hy)), fmaxf(q(hx, ly), q(hx, hy)));
+}
+
+constexpr int SAT_Q_BITS = 6;
+
+// 6-bit -log2(1 - alpha_min) in quarter units, rounded down; binning._sat_q
+__device__ __forceinline__ int32_t sat_q(float op, float max_q) {
+  const float raw_min = op * expf(-max_q) * 0.98f;
+  const float alpha_min =
+      raw_min >= static_cast<float>(1.0 / 255.0) ? fminf(raw_min, 0.99f) : 0.f;
+  const float lb = -log1pf(-alpha_min) * static_cast<float>(1.4426950408889634);
+  const int32_t q = static_cast<int32_t>(floorf(lb * 4.f));
+  return min(max(q, 0), (1 << SAT_Q_BITS) - 1);
+}
+
 __global__ void expand_pairs_kernel(
     const int32_t* __restrict__ table, int n, const int32_t* __restrict__ total_p,
-    int S, int tw, float ts, int db, int n_orig, int do_cull, float alpha_thresh,
+    int S, int tw, float ts, int db, int n_orig, int do_cull, int sat_pack,
+    float alpha_thresh,
     int32_t key_invalid, int32_t* __restrict__ key_out,
     int32_t* __restrict__ gid_out) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= S) return;
-  int32_t key = key_invalid, gid = n_orig;
+  int32_t key = key_invalid, gid = sat_pack ? n_orig << SAT_Q_BITS : n_orig;
   if (p < *total_p) {
     // owning row = #{rows with offset <= p} - 1; row 0 is live at offset 0
     const int32_t* off = table + static_cast<size_t>(COL_OFF) * n;
@@ -81,17 +111,19 @@ __global__ void expand_pairs_kernel(
     const int tx = (x0y0 & 0xFFFF) + local % w;
     const int ty = (x0y0 >> 16) + local / w;
     bool keep = true;
+    int32_t q = 0;
     if (do_cull) {
       const float lx = static_cast<float>(tx) * ts - __int_as_float(col(COL_MX));
       const float ly = static_cast<float>(ty) * ts - __int_as_float(col(COL_MY));
-      const float min_q = rect_min_q(
-          __int_as_float(col(COL_CA)), __int_as_float(col(COL_CB)),
-          __int_as_float(col(COL_CC)), lx, lx + (ts - 1.f), ly, ly + (ts - 1.f));
-      keep = __int_as_float(col(COL_OP)) * expf(-min_q) >= alpha_thresh;
+      const float ca = __int_as_float(col(COL_CA)), cb = __int_as_float(col(COL_CB)),
+                  cc = __int_as_float(col(COL_CC)), op = __int_as_float(col(COL_OP));
+      const float hx = lx + (ts - 1.f), hy = ly + (ts - 1.f);
+      keep = op * expf(-rect_min_q(ca, cb, cc, lx, hx, ly, hy)) >= alpha_thresh;
+      if (keep && sat_pack) q = sat_q(op, rect_max_q(ca, cb, cc, lx, hx, ly, hy));
     }
     if (keep) {
       key = ((ty * tw + tx) << db) | col(COL_DQ);
-      gid = col(COL_GID);
+      gid = sat_pack ? (col(COL_GID) << SAT_Q_BITS) | q : col(COL_GID);
     }
   }
   key_out[p] = key;
@@ -101,10 +133,12 @@ __global__ void expand_pairs_kernel(
 }  // namespace
 
 // table: (nc, n) int32 column-major; total: device int32 scalar; key, gid:
-// (S,) int32. Returns cudaGetLastError() after the launch.
+// (S,) int32; sat_pack needs do_cull. Returns cudaGetLastError() after the
+// launch.
 extern "C" int expand_pairs_launch(const void* table, int n, const void* total,
                                    int S, int tw, int tile_size, int db,
-                                   int n_orig, int do_cull, float alpha_thresh,
+                                   int n_orig, int do_cull, int sat_pack,
+                                   float alpha_thresh,
                                    int key_invalid, void* key, void* gid,
                                    void* stream) {
   if (S > 0) {
@@ -114,7 +148,7 @@ extern "C" int expand_pairs_launch(const void* table, int n, const void* total,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(table), n,
         static_cast<const int32_t*>(total), S, tw,
-        static_cast<float>(tile_size), db, n_orig, do_cull, alpha_thresh,
+        static_cast<float>(tile_size), db, n_orig, do_cull, sat_pack, alpha_thresh,
         key_invalid, static_cast<int32_t*>(key), static_cast<int32_t*>(gid));
   }
   return static_cast<int>(cudaGetLastError());

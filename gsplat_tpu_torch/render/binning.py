@@ -1,8 +1,7 @@
-"""Tile binning: (Gaussian, tile) pair expansion, tight tile cull, pair sort
-and per-tile segments over a fixed pair budget.
+"""Tile binning: (Gaussian, tile) pair expansion, tight tile cull, pair sort,
+per-tile segments over a fixed pair budget, and the saturation bound cull.
 
-Port of gsplat_tpu/render/binning.py::bin_gaussians without the saturation
-bound cull. Steps:
+Port of gsplat_tpu/render/binning.py::bin_gaussians. Steps:
 
 1. Per-Gaussian tile rectangles (upstream getRect) -> pair counts.
 2. A live-compacted per-Gaussian column table (live rows first, each with its
@@ -10,17 +9,27 @@ bound cull. Steps:
    finds each slot's owning row, decomposes the rectangle into its tile,
    applies the tight cull and packs the (tile, depth) sort key: the
    `expand_pairs` kernel (render/expand.py). Culled and invalid slots carry
-   the invalid key and the null gid N.
+   the invalid key and the null gid N. Under the saturation bound cull each
+   gid carries its 6-bit saturation quantum q in its low bits (gid << 6 | q,
+   null N << 6), so q rides the sort.
 3. One sort of the int64 (key << 32 | gid): the reference's two-key
    `lax.sort((key, gid), num_keys=2)`, gid breaking (tile, depth) ties.
 4. Per-tile segments [tile_start, +tile_count) on the sorted keys, clamped
    to `kept_budget`: the sort moves culled/invalid pairs to the tail, so the
    kept prefix is exactly what the compositor reads.
+5. With `sat_budget`, the saturation bound cull (`saturation_cull`): the
+   running sum of q over the kept prefix (the `prefix_sum_small` kernel,
+   render/scan.py) lower-bounds -log2(T) of every pixel of a tile, so each
+   tile is cut at the first chunk boundary where it proves the compositor's
+   whole-tile exit; the surviving chunk-aligned runs are packed into
+   `sat_budget` rows (the `compact_runs` kernel, render/compact.py) with each
+   tile's head offset kept, so every chunk the compositor sweeps holds the
+   same rows: image, nproc and gradients are bit-identical.
 
-The reference's `_rect_min_Q` and `_expand_xla` arithmetic live beside the
-kernel, in render/expand.py, as `rect_min_q` and the kernel's plain version
-`expand_pairs_plain`; `_expand_fused`'s table preparation is
-`expansion_table` below.
+The reference's `_rect_min_Q`, `_rect_max_Q`, `_sat_q` and `_expand_xla`
+arithmetic live beside the kernel, in render/expand.py, as `rect_min_q`,
+`rect_max_q`, `sat_q` and the kernel's plain version `expand_pairs_plain`;
+`_expand_fused`'s table preparation is `expansion_table` below.
 """
 
 from __future__ import annotations
@@ -29,17 +38,20 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from gsplat_tpu_torch.render import expand
+from gsplat_tpu_torch.render import compact, expand, scan
 
 
 class Binning(NamedTuple):
-    gid_s: torch.Tensor       # (pair_budget,) int32 sorted Gaussian ids; N when empty
+    gid_s: torch.Tensor       # (pair_budget | sat_budget,) int32 sorted Gaussian
+    #                           ids (sat cull: the packed survivors); N when empty
     tile_start: torch.Tensor  # (num_tiles,) int32 unaligned pair offset per tile
     tile_count: torch.Tensor  # (num_tiles,) int32 kept pairs per tile
     n_pairs: torch.Tensor     # () int32 expansion slots used (budget telemetry)
-    n_dropped: torch.Tensor   # () int32 pairs dropped by pair/kept budget overflow
+    n_dropped: torch.Tensor   # () int32 pairs dropped by pair/kept/sat budget overflow
     n_culled: torch.Tensor    # () int32 rect pairs removed by the tight tile cull
-    grad_ok: torch.Tensor     # () bool: False on kept-budget overflow
+    n_sat: torch.Tensor       # () int32 rows the saturation bound cull's regions
+    #                           need (0 with the cull off): what sizes sat_budget
+    grad_ok: torch.Tensor     # () bool: False on kept- or sat-budget overflow
 
 
 def tile_grid(width: int, height: int, tile_size: int) -> Tuple[int, int]:
@@ -131,6 +143,55 @@ def expansion_table(mean2d, radius, depth, cull_conic, cull_opacity, *,
     return table, total
 
 
+def sat_regions(C: torch.Tensor, starts: torch.Tensor, tile_count: torch.Tensor, *,
+                chunk: int, sat_budget: int):
+    """The saturation bound cull's per-tile cut and packed regions
+    (binning.py:516-538 of the reference). C (kept,) int32 is the inclusive
+    running sum of the sorted pairs' quanta; starts/tile_count the kept
+    segments. Each tile is cut at the first chunk boundary (on the
+    compositor's chunk grid) at or past its first pair whose running sum
+    within the tile reaches SAT_CUT; its region is its chunk-aligned run from
+    astart = starts rounded down to a chunk, packed in tile order at rbase.
+
+    -> (astart, rbase, head, new_count, region, needed), the (T,) int32
+    tables and () needed = the rows all regions take. On overflow (needed >
+    sat_budget) rbase is clamped so each region starts inside the budget
+    (regions may then overlap)."""
+    c_prev = torch.where(starts > 0, C[torch.clamp(starts - 1, min=0)], 0)
+    pos = torch.searchsorted(C, c_prev + expand.SAT_CUT, side="left").to(torch.int32)
+    astart = starts // chunk * chunk
+    head = starts - astart
+    seg_end = starts + tile_count
+    cut = torch.minimum(
+        torch.where(pos < seg_end, astart + ((pos - astart) // chunk + 1) * chunk, seg_end),
+        seg_end)
+    new_count = torch.clamp(cut - starts, min=0)
+    region = (head + new_count + chunk - 1) // chunk * chunk
+    rend = torch.cumsum(region, 0, dtype=torch.int64)
+    rbase = torch.minimum(rend - region, torch.clamp(sat_budget - region, min=0))
+    return (astart, rbase.to(torch.int32), head, new_count, region.to(torch.int32),
+            rend[-1].to(torch.int32))
+
+
+def saturation_cull(gid_s: torch.Tensor, starts: torch.Tensor, tile_count: torch.Tensor,
+                    *, chunk: int, kept_budget: int, sat_budget: int, gid_null: int):
+    """Cut and pack the kept prefix of the sorted packed gids ->
+    (gid_s (sat_budget,) int32 plain gids, tile_start, tile_count, needed).
+    The prefix sum is K5, the copy K6; rows no region covers hold gid_null,
+    which decodes to the null Gaussian N. On overflow the segments are
+    clamped into [0, sat_budget]: the compositors read no row past the
+    table (that step's content is garbage and its gradient zeroed)."""
+    C = scan.prefix_sum_small(gid_s[:kept_budget] & ((1 << expand.SAT_Q_BITS) - 1))
+    astart, rbase, head, new_count, region, needed = sat_regions(
+        C, starts, tile_count, chunk=chunk, sat_budget=sat_budget)
+    packed = compact.compact_runs(gid_s[:kept_budget], astart, rbase, region,
+                                  sat_budget, gid_null)
+    tile_start = torch.clamp(rbase + head, 0, sat_budget)
+    tile_count = torch.clamp(torch.minimum(new_count, sat_budget - tile_start), min=0)
+    return expand.unpack_gid(packed), tile_start.to(torch.int32), \
+        tile_count.to(torch.int32), needed
+
+
 def bin_gaussians(
     mean2d: torch.Tensor,
     radius: torch.Tensor,
@@ -154,17 +215,17 @@ def bin_gaussians(
     tight tile cull: rect pairs whose maximum alpha in the tile is provably
     below the compositing threshold (exact quadratic minimum over the tile
     box, 2% slack) are keyed invalid. As in the reference, the cull runs
-    when pair_budget < 8*N or kept_budget < pair_budget. kept_budget
-    (default pair_budget) sizes the post-sort stages; kept pairs beyond it
-    are dropped and counted in n_dropped.
+    when pair_budget < 8*N, kept_budget < pair_budget, or with sat_budget.
+    kept_budget (default pair_budget) sizes the post-sort stages; kept pairs
+    beyond it are dropped and counted in n_dropped. sat_budget (a multiple
+    of chunk; needs the cull inputs) turns on the saturation bound cull:
+    gid_s then holds sat_budget rows, n_sat reports the rows the cull's
+    regions need, and an overflow adds needed - sat_budget to n_dropped and
+    clears grad_ok.
 
-    on_stage(name), if given, is called after the expansion ("bin") and the
-    sort ("sort") so a caller can time the stages."""
-    if sat_budget is not None:
-        raise NotImplementedError(
-            "the saturation bound cull (sat_budget) and its prefix_sum_small/"
-            "compact_runs kernels come with a later slice of the port"
-        )
+    on_stage(name), if given, is called after the expansion ("bin"), the
+    sort ("sort") and the saturation cull ("sat") so a caller can time the
+    stages."""
     if pair_budget % chunk:
         raise ValueError(f"pair_budget {pair_budget} is not a multiple of chunk {chunk}")
     if kept_budget is None:
@@ -175,8 +236,20 @@ def bin_gaussians(
     tw, th = tile_grid(width, height, tile_size)
     num_tiles = tw * th
     db = depth_shift(num_tiles)
+    do_sat = sat_budget is not None
+    if do_sat:
+        if cull_conic is None:
+            raise ValueError("sat_budget needs cull_conic/cull_opacity")
+        if n >= 1 << 24:
+            raise ValueError(f"saturation bound cull packs 6 q-bits under the gid: "
+                             f"n={n} must stay below 2^24")
+        if sat_budget % chunk:
+            raise ValueError(f"sat_budget {sat_budget} is not a multiple of chunk {chunk}")
+        if kept_budget >= scan.MAX_LEN:
+            raise ValueError(f"kept_budget {kept_budget} must stay below 2^25: "
+                             "63 * kept must be an exact int32 sum")
     do_cull = cull_conic is not None and (
-        pair_budget < 8 * n or kept_budget < pair_budget
+        pair_budget < 8 * n or kept_budget < pair_budget or do_sat
     )
 
     table, total = expansion_table(mean2d, radius, depth, cull_conic, cull_opacity,
@@ -184,7 +257,7 @@ def bin_gaussians(
                                    do_cull=do_cull)
     key, pair_gid = expand.expand_pairs(
         table, total, pair_budget, tw=tw, tile_size=tile_size, db=db,
-        num_tiles=num_tiles, n_orig=n, do_cull=do_cull,
+        num_tiles=num_tiles, n_orig=n, do_cull=do_cull, sat_pack=do_sat,
     )
     if on_stage is not None:
         on_stage("bin")
@@ -203,13 +276,24 @@ def bin_gaussians(
 
     n_valid = torch.clamp(total, max=pair_budget)
     n_dropped = torch.clamp(total - pair_budget, min=0)
+    gid_null = n << expand.SAT_Q_BITS if do_sat else n
     if do_cull:
-        kept_total = (pair_gid != n).sum(dtype=torch.int32)
+        kept_total = (pair_gid != gid_null).sum(dtype=torch.int32)
         n_culled = n_valid - kept_total
     else:
         kept_total = n_valid
         n_culled = torch.zeros((), dtype=torch.int32, device=dev)
     n_dropped = n_dropped + torch.clamp(kept_total - kept_budget, min=0)
+    grad_ok = kept_total <= kept_budget
+    n_sat = torch.zeros((), dtype=torch.int32, device=dev)
+    if do_sat:
+        gid_s, starts, tile_count, n_sat = saturation_cull(
+            gid_s, starts, tile_count, chunk=chunk, kept_budget=kept_budget,
+            sat_budget=sat_budget, gid_null=gid_null)
+        n_dropped = n_dropped + torch.clamp(n_sat - sat_budget, min=0)
+        grad_ok = grad_ok & (n_sat <= sat_budget)
+        if on_stage is not None:
+            on_stage("sat")
     return Binning(
         gid_s=gid_s,
         tile_start=starts,
@@ -217,5 +301,6 @@ def bin_gaussians(
         n_pairs=n_valid.to(torch.int32),
         n_dropped=n_dropped.to(torch.int32),
         n_culled=n_culled.to(torch.int32),
-        grad_ok=kept_total <= kept_budget,
+        n_sat=n_sat,
+        grad_ok=grad_ok,
     )

@@ -38,6 +38,8 @@ class RenderOutput(NamedTuple):
     n_culled: torch.Tensor       # () int32 rect pairs removed by the tight tile cull
     n_contrib: torch.Tensor      # () int64 pair slots composited before the
     #                              per-tile early exit (chunk-granular)
+    n_sat: torch.Tensor          # () int32 rows the saturation bound cull's
+    #                              regions need (0 with the cull off)
 
 
 def _attr_rows(proj: Projection) -> torch.Tensor:
@@ -109,9 +111,9 @@ def reduce_by_gid(d: torch.Tensor, n_rows: int) -> torch.Tensor:
 
 
 class _Rasterize(torch.autograd.Function):
-    """attrs (N+1, 16) differentiable attribute rows; gid_s (kept,) sorted
-    gids and the tile tables (no gradient); grad_ok () bool, False on
-    kept-budget overflow -> (tiles (num_tiles, 4, npix), nproc (num_tiles,)
+    """attrs (N+1, 16) differentiable attribute rows; gid_s (kept or sat,)
+    sorted gids and the tile tables (no gradient); grad_ok () bool, False on
+    kept- or sat-budget overflow -> (tiles (num_tiles, 4, npix), nproc (num_tiles,)
     int32). static: (tw, tile_size, chunk, contrib_budget)."""
 
     @staticmethod
@@ -169,7 +171,8 @@ def render(
     mean2d_offset: optional zeros (N,2); differentiate w.r.t. it for the
     screen-space positional gradient densification reads.
     on_stage(name), if given, is called after each forward stage ("project",
-    "bin", "sort", "gather", "composite", "untile") so a caller can time them."""
+    "bin", "sort", "sat" with the saturation cull, "gather", "composite",
+    "untile") so a caller can time them."""
     proj = project_gaussians(g, cam, scaling_modifier=scaling_modifier,
                              override_color=override_color,
                              mean2d_offset=mean2d_offset)
@@ -209,9 +212,16 @@ def render_projected(
     d-table by the pairs composited before each tile's early exit
     (n_contrib); it defaults to a size that cannot overflow, and when the
     replayed rows exceed it the step's gradient is zeroed (the caller sees
-    n_contrib > contrib_budget). Budgets are rounded up to whole chunks.
-    sat_budget (the saturation bound cull) and attr_pack (the bf16-packed
-    pair table, a TPU bandwidth lever) are not ported and raise."""
+    n_contrib > contrib_budget). sat_budget (needs tight_cull; at most
+    pair_budget) turns on the saturation bound cull: each tile's pairs are
+    cut at the first chunk boundary where a conservative transmittance bound
+    proves the compositor's whole-tile exit, and the gather, the compositor
+    and the backward run on the sat_budget packed survivors. Image, nproc
+    and gradients are bit-identical to the render without it; n_sat reports
+    the rows needed, and an overflow zeroes the gradient and shows in
+    n_dropped. Budgets are rounded up to whole chunks. attr_pack (the
+    bf16-packed pair table, a TPU bandwidth lever) is not ported and
+    raises."""
     if attr_pack:
         raise NotImplementedError(
             "attr_pack: the bf16-packed pair table is a TPU bandwidth lever "
@@ -230,6 +240,10 @@ def render_projected(
     if contrib_budget is None:
         contrib_budget = out_budget(kept_budget, tw * th, chunk)
     contrib_budget = -(-contrib_budget // chunk) * chunk
+    if sat_budget is not None:
+        if not tight_cull:
+            raise ValueError("sat_budget requires tight_cull=True")
+        sat_budget = min(-(-sat_budget // chunk) * chunk, pair_budget)
 
     binning = bin_gaussians(
         proj.mean2d.detach(), proj.radius, proj.depth.detach(),
@@ -240,8 +254,11 @@ def render_projected(
         kept_budget=kept_budget, sat_budget=sat_budget, on_stage=on_stage,
     )
 
+    # every post-sort stage reads the kept prefix of the sorted pairs or,
+    # under the saturation cull, the packed survivors
+    gid_post = binning.gid_s[:kept_budget] if sat_budget is None else binning.gid_s
     tiles, nproc = _Rasterize.apply(
-        _attr_rows(proj), binning.gid_s[:kept_budget], binning.tile_start,
+        _attr_rows(proj), gid_post, binning.tile_start,
         binning.tile_count, binning.grad_ok, (tw, tile_size, chunk, contrib_budget),
         on_stage)
     if on_stage is not None:
@@ -259,4 +276,5 @@ def render_projected(
         n_dropped=binning.n_dropped,
         n_culled=binning.n_culled,
         n_contrib=nproc.sum(dtype=torch.int64) * chunk,
+        n_sat=binning.n_sat,
     )

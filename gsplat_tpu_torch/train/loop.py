@@ -1,9 +1,10 @@
 """The training step: render -> L1 + D-SSIM loss -> gradients -> per-group
 Adam -> densification statistics.
 
-Port of gsplat_tpu/train/loop.py::make_train_step (and the budget helpers
-it reads). The gradients come from autograd through the projection and
-render._Rasterize (the composite_bwd and segment_ends kernels on CUDA). The
+Port of gsplat_tpu/train/loop.py::make_train_step and the budget helpers it
+reads. The gradients come from autograd through the
+projection and render._Rasterize (the composite_bwd and segment_ends
+kernels on CUDA). The
 rest of the reference's loop (densify/prune/reset, adaptive budgets,
 evaluation, checkpoints) comes with a later slice of the port.
 """
@@ -33,8 +34,9 @@ def _kept_budget(mesh: MeshParams, budget: int) -> Optional[int]:
 
 
 def _sat_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """sat_frac > 0 turns the saturation bound cull on (not ported: render
-    raises); AUTO (< 0, the default) and 0 start with it off (None)."""
+    """sat_frac > 0 turns the saturation bound cull on, its packed survivors
+    sized as that fraction of the pair budget; AUTO (< 0, the default) and 0
+    start with it off (None)."""
     if mesh.sat_frac <= 0.0:
         return None
     return max(int(budget * mesh.sat_frac), mesh.chunk_size)
@@ -70,7 +72,7 @@ def make_train_step(
 
     train_step(g, opt_state, cam, bg, step, ema) -> (g_new, opt_state_new,
     loss, ema_new, n_pairs, n_dropped, n_culled, n_contrib, n_sat), the
-    reference's nine outputs (n_sat is 0: the saturation cull is off). The
+    reference's nine outputs (n_sat is 0 with the saturation cull off). The
     target image is cam.image; step is the 1-based iteration (an int) the
     LR schedule reads; ema is the previous EMA of the loss (a tensor or a
     float; ignored at step 1). on_stage(name), if given, is called after
@@ -110,8 +112,7 @@ def make_train_step(
         _stage(on_stage, "densify_stats")
         # the EMA stays on the device: no host sync per iteration
         new_ema = loss if step <= 1 else 0.4 * loss + 0.6 * ema
-        n_sat = torch.zeros((), dtype=torch.int32, device=loss.device)
         return (g_new, new_opt_state, loss, new_ema, out.n_pairs, out.n_dropped,
-                out.n_culled, out.n_contrib, n_sat)
+                out.n_culled, out.n_contrib, out.n_sat)
 
     return train_step

@@ -4,7 +4,10 @@ gsplat_tpu.render.binning.bin_gaussians on the same numpy projection.
 
 Everything binning returns is integer-valued, so every table must be
 BIT-equal: gid_s, tile_start, tile_count, n_pairs, n_dropped, n_culled and
-grad_ok, with the tight cull on and off and with budget overflow."""
+grad_ok, with the tight cull on and off and with budget overflow; with the
+saturation bound cull also n_sat, and gid_s on the rows its regions cover
+(the reference's plain form leaves other rows of its own there, the port
+the null gid)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,7 @@ import torch
 from gsplat_tpu.render import binning as jb
 from gsplat_tpu_torch.render import binning as tb
 from gsplat_tpu_torch.render import expand as texp
-from torch_port_fixtures import random_projection
+from torch_port_fixtures import random_projection, saturating_projection
 
 torch.set_num_threads(1)
 FIELDS = ("gid_s", "tile_start", "tile_count", "n_pairs", "n_dropped",
@@ -148,9 +151,104 @@ def test_expanded_keys_are_pack_sort_key():
     assert texp.key_invalid(tw * th, db) == int(invalid)
 
 
-def test_sat_budget_not_ported():
-    m, r, d, _, _ = simple_projection()
-    with pytest.raises(NotImplementedError, match="saturation"):
-        tb.bin_gaussians(torch.from_numpy(m), torch.from_numpy(r), torch.from_numpy(d),
-                         width=64, height=64, tile_size=16, chunk=8, pair_budget=64,
-                         sat_budget=64)
+def test_sat_pack_expansion_matches_reference():
+    """K1 with sat_pack: the plain version against jb._expand_xla(...,
+    sat_pack=True), the reference's plain form, slot for slot; every kept
+    slot's gid packs its Gaussian and a quantum, null slots N << 6."""
+    width, height, ts, budget = 64, 64, 16, 2048
+    arrays = saturating_projection(100, 3)
+    mean2d, radius, depth, conic, opacity = (jnp.asarray(a) for a in arrays)
+    n = arrays[0].shape[0]
+    tw, th = jb.tile_grid(width, height, ts)
+    x0, y0, x1, y1 = jb.tile_rects(mean2d, radius, tw, th, ts)
+    rect_w = jnp.maximum(x1 - x0, 0)
+    counts = jnp.where(radius > 0, rect_w * jnp.maximum(y1 - y0, 0), 0).astype(jnp.int32)
+    cum = jnp.cumsum(counts)
+    key_x, gid_x = jax.jit(lambda: jb._expand_xla(
+        mean2d, depth, x0, y0, rect_w, counts, cum, cum - counts, cum[-1], conic,
+        opacity, n=n, tw=tw, num_tiles=tw * th, tile_size=ts, pair_budget=budget,
+        do_cull=True, sat_pack=True))()
+    db = tb.depth_shift(tw * th)
+    table, total = tb.expansion_table(*map(torch.from_numpy, arrays), tw=tw, th=th,
+                                      tile_size=ts, db=db, do_cull=True)
+    key, gid = texp.expand_pairs(table, total, budget, tw=tw, tile_size=ts, db=db,
+                                 num_tiles=tw * th, n_orig=n, do_cull=True, sat_pack=True)
+    np.testing.assert_array_equal(key.numpy(), np.asarray(key_x))
+    np.testing.assert_array_equal(gid.numpy(), np.asarray(gid_x))
+    kept = key.numpy() != texp.key_invalid(tw * th, db)
+    q = gid.numpy() & 63
+    assert (gid.numpy()[~kept] == n << 6).all() and (gid.numpy()[kept] >> 6 < n).all()
+    assert 0 < (q[kept] > 0).sum() < kept.sum() and q.max() <= 26   # alpha <= 0.99
+
+
+def test_packed_gid_round_trip():
+    """gid << 6 | q and its logical-shift decode, for gids up to 2^24 - 1 and
+    every q in [0, 63]; the packed values stay non-negative."""
+    gid = torch.tensor([0, 1, 5, (1 << 23) + 3, (1 << 24) - 1], dtype=torch.int32)
+    for q in range(64):
+        packed = texp.pack_gid(gid, q)
+        assert (packed >= 0).all() and ((packed & 63) == q).all()
+        assert torch.equal(texp.unpack_gid(packed), gid)
+    # the decode is logical: a negative int32 loses its sign bits
+    assert texp.unpack_gid(torch.tensor([-64], dtype=torch.int32)).item() == (1 << 26) - 1
+
+
+SAT_SETUP = dict(width=64, height=64, tile_size=16, chunk=8, pair_budget=2048)
+
+
+@pytest.fixture(scope="module")
+def sat_projection():
+    arrays = saturating_projection(100, 3)
+    probe = tb.bin_gaussians(*map(torch.from_numpy, arrays[:3]),
+                             cull_conic=torch.from_numpy(arrays[3]),
+                             cull_opacity=torch.from_numpy(arrays[4]),
+                             sat_budget=SAT_SETUP["pair_budget"], **SAT_SETUP)
+    return arrays, int(probe.n_sat), int(probe.tile_count.max())
+
+
+def region_rows(tile_start, tile_count, chunk, size):
+    """Rows the saturation cull's regions cover: each tile's run rounded out
+    to whole chunks (regions start on a chunk boundary, at the tile's head
+    offset before its first pair)."""
+    covered = np.zeros(size, bool)
+    for s, c in zip(tile_start.tolist(), tile_count.tolist()):
+        head = s % chunk
+        covered[s - head:s - head + -(-(head + c) // chunk) * chunk] = True
+    return covered
+
+
+@pytest.mark.parametrize("which", ["fitted", "probe", "starved", "one_region_exceeds"])
+def test_bin_gaussians_sat_matches_reference(sat_projection, which):
+    arrays, n_sat, max_count = sat_projection
+    chunk, budget = SAT_SETUP["chunk"], SAT_SETUP["pair_budget"]
+    sat = {"fitted": -(-n_sat // chunk) * chunk, "probe": budget,
+           "starved": n_sat // 2 // chunk * chunk, "one_region_exceeds": chunk}[which]
+    jargs = [jnp.asarray(a) for a in arrays]
+    want = jax.jit(lambda m, r, d, c, o: jb.bin_gaussians(
+        m, r, d, cull_conic=c, cull_opacity=o, sat_budget=sat, interpret=True,
+        **SAT_SETUP))(*jargs)
+    m, r, d, c, o = map(torch.from_numpy, arrays)
+    got = tb.bin_gaussians(m, r, d, cull_conic=c, cull_opacity=o, sat_budget=sat,
+                           **SAT_SETUP)
+    w_start, w_count = np.asarray(want.tile_start), np.asarray(want.tile_count)
+    if which == "one_region_exceeds":
+        # a tile's region alone passes the budget: the reference leaves its
+        # segment past the table, the port clamps it into [0, sat_budget]
+        assert max_count > sat and (w_start + w_count > sat).any()
+        w_start = np.clip(w_start, 0, sat)
+        w_count = np.clip(np.minimum(w_count, sat - w_start), 0, None)
+    np.testing.assert_array_equal(got.tile_start.numpy(), w_start)
+    np.testing.assert_array_equal(got.tile_count.numpy(), w_count)
+    for f in ("n_sat", "n_pairs", "n_dropped", "n_culled", "grad_ok"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert got.gid_s.shape == (sat,) and int(got.n_sat) == n_sat
+    covered = region_rows(got.tile_start, got.tile_count, chunk, sat)
+    np.testing.assert_array_equal(got.gid_s.numpy()[covered], np.asarray(want.gid_s)[covered])
+    overflow = which in ("starved", "one_region_exceeds")
+    assert bool(got.grad_ok) != overflow
+    assert int(got.n_dropped) == (n_sat - sat if overflow else 0)
+    if not overflow:
+        kept = int(got.n_pairs) - int(got.n_culled)
+        assert 0 < n_sat < kept and (got.gid_s.numpy()[~covered] == 100).all()
+        assert int(got.tile_count.sum()) < kept   # the cull cut pairs

@@ -7,7 +7,8 @@ tests/conftest.py (which imports jax) cannot load:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys,
-gids and segment ends must be bit-equal; images and tiles within 2e-5 abs;
+gids (saturation quanta included), segment ends, prefix sums and compacted
+rows must be bit-equal; images and tiles within 2e-5 abs;
 composite_bwd's d columns within 1e-4 of each column's max (the kernel sums
 pixels in warp-shuffle order, the plain version in matmul order); render
 gradients within 2e-4 of each group's max of the CPU's."""
@@ -20,23 +21,26 @@ import torch_port_fixtures as F
 from gsplat_tpu_torch import _build
 from gsplat_tpu_torch.render import binning as tb
 from gsplat_tpu_torch.render import bounds as tbounds
+from gsplat_tpu_torch.render import compact as tcompact
 from gsplat_tpu_torch.render import expand as texp
 from gsplat_tpu_torch.render import raster as traster
-from torch_port_fixtures import SCENES, cuda_device, pair_tables, random_projection  # noqa: F401
+from gsplat_tpu_torch.render import scan as tscan
+from torch_port_fixtures import (SCENES, cuda_device, pair_tables,  # noqa: F401
+                                 random_projection, saturating_projection)
 
 torch.set_num_threads(1)
 ATOL = 2e-5
 
 
-def expansion_inputs(n, seed, budget, do_cull, **kw):
-    width, height, ts = 256, 192, 16
+def expansion_inputs(n, seed, budget, do_cull, sat_pack=False, saturating=False, **kw):
+    width, height, ts = (64, 64, 16) if saturating else (256, 192, 16)
     tw, th = tb.tile_grid(width, height, ts)
     db = tb.depth_shift(tw * th)
-    arrays = map(torch.from_numpy, random_projection(n, seed, **kw))
-    table, total = tb.expansion_table(*arrays, tw=tw, th=th, tile_size=ts, db=db,
-                                      do_cull=do_cull)
+    proj = saturating_projection(n, seed) if saturating else random_projection(n, seed, **kw)
+    table, total = tb.expansion_table(*map(torch.from_numpy, proj), tw=tw, th=th,
+                                      tile_size=ts, db=db, do_cull=do_cull)
     return table, total, dict(tw=tw, tile_size=ts, db=db, num_tiles=tw * th,
-                              n_orig=n, do_cull=do_cull)
+                              n_orig=n, do_cull=do_cull, sat_pack=sat_pack)
 
 
 @pytest.mark.cuda
@@ -46,6 +50,9 @@ def expansion_inputs(n, seed, budget, do_cull, **kw):
     (500, 2, 2048, True, {}),                             # budget overflow
     (400, 3, 4096, True, {"clustered_dead": True}),
     (64, 4, 1024, True, {"dead_frac": 1.0}),              # empty
+    (600, 0, 4096, True, {"sat_pack": True}),             # saturation quanta
+    (500, 2, 2048, True, {"sat_pack": True}),
+    (100, 3, 2048, True, {"sat_pack": True, "saturating": True}),
 ])
 def test_expand_pairs_kernel_bit_equal(cuda_device, n, seed, budget, do_cull, kw):
     table, total, meta = expansion_inputs(n, seed, budget, do_cull, **kw)
@@ -179,6 +186,111 @@ def test_segment_ends_kernel_bit_equal(cuda_device, p, n_valid, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,hi,bias,clip_hi", [
+    (0, 63, 0, None), (1, 63, 0, None), (1023, 255, 0, None), ((1 << 20) + 17, 255, 0, None),
+    ((1 << 20) + 17, 63, -1000, 5_000_000), (4096 * 3, 1, 7, 100),
+])
+def test_prefix_sum_small_kernel_bit_equal(cuda_device, n, hi, bias, clip_hi):
+    x = torch.from_numpy(np.random.default_rng(n).integers(0, hi + 1, n).astype(np.int32))
+    x = x.to(cuda_device)
+    want = tscan.prefix_sum_small_plain(x, bias, clip_hi)
+    before = tscan.prefix_sum_small.launches
+    got = tscan.prefix_sum_small(x, bias, clip_hi)
+    torch.cuda.synchronize()
+    assert tscan.prefix_sum_small.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def compact_inputs(seed, chunk, T=300, src_chunks=4096):
+    """tests/test_compact_pallas.py's draws in pair units: T runs of up to 40
+    chunks at random chunk-aligned sources, packed in tile order."""
+    rng = np.random.default_rng(seed)
+    nch = rng.integers(0, 40, T)
+    rbase = np.concatenate([[0], np.cumsum(nch)[:-1]])
+    astart = np.array([rng.integers(0, src_chunks - max(int(k), 1) + 1) for k in nch])
+    src = torch.from_numpy(rng.integers(0, 1 << 20, src_chunks * chunk).astype(np.int32))
+    out_size = int(nch.sum() + 24) * chunk
+    tables = (torch.from_numpy((a * chunk).astype(np.int32)) for a in (astart, rbase, nch))
+    return (src, *tables, out_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,chunk", [(0, 128), (1, 128), (2, 8), (3, 3)])
+def test_compact_runs_kernel_bit_equal(cuda_device, seed, chunk):
+    src, astart, rbase, length, out_size = compact_inputs(seed, chunk)
+    args = [t.to(cuda_device) for t in (src, astart, rbase, length)]
+    want = tcompact.compact_runs_plain(*args, out_size, -7)
+    before = tcompact.compact_runs.launches
+    got = tcompact.compact_runs(*args, out_size, -7)
+    torch.cuda.synchronize()
+    assert tcompact.compact_runs.launches == before + 1
+    assert torch.equal(got, want) and int((got == -7).sum()) >= 24 * chunk
+
+
+@pytest.mark.cuda
+def test_compact_runs_kernel_starved_stays_in_bounds(cuda_device):
+    """The binning's overflow: rbase clamped to sat_budget - region, so the
+    regions overlap and one passes the whole budget. Every write stays in the
+    output (the sync raises nothing) and every row holds the fill or a value
+    of the source."""
+    src, astart, _, length, _ = compact_inputs(4, 128)
+    out_size = 32 * 128                               # < the largest region
+    rend = torch.cumsum(length.long(), 0)
+    rbase = torch.minimum(rend - length, torch.clamp(out_size - length.long(), min=0))
+    args = [t.to(cuda_device) for t in (src, astart, rbase.int(), length)]
+    got = tcompact.compact_runs(*args, out_size, -7)
+    torch.cuda.synchronize()
+    assert int(length.max()) > out_size
+    assert bool(torch.isin(got[got != -7].cpu(), src).all())
+
+
+@pytest.mark.cuda
+def test_sat_render_on_gpu(cuda_device, monkeypatch):
+    """The saturating scene on the GPU: the sat render's image bit-equal to
+    the GPU render without the cull and within 2e-5 of the CPU's, n_sat
+    equal. With and without the cull the d-table (composite_bwd's output)
+    is bit-equal. The gradients are held to 1e-6 of each one's max, not bit
+    for bit: reduce_by_gid sums the d-table with a float64 torch.cumsum,
+    whose order of additions on CUDA may change from call to call."""
+    from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
+    from gsplat_tpu_torch.render import render as render_mod
+    from gsplat_tpu_torch.render.render import render
+
+    d_tables, reduce = [], render_mod.reduce_by_gid
+
+    def capture(d, n_rows):
+        d_tables.append(d.clone())
+        return reduce(d, n_rows)
+
+    monkeypatch.setattr(render_mod, "reduce_by_gid", capture)
+    s, _ = F.make_sat_scene()
+    res = {}
+    for dev in ("cpu", cuda_device):
+        g = gaussians_from_numpy(s.params, s.n_live, 3, 3, device=dev)
+        cam = camera_from_numpy(s.R, s.T, s.fovx, s.fovy, F.SAT_W, F.SAT_H, device=dev)
+        probe = render(cam, g, torch.zeros(3), **F.SAT_KW, sat_budget=F.SAT_KW["pair_budget"])
+        fitted = -(-int(probe.n_sat) // 8) * 8
+        for name, kw in (("base", {}), ("sat", dict(sat_budget=fitted))):
+            params = {k: v.clone().requires_grad_() for k, v in g.params().items()}
+            out = render(cam, g.replace(**params), torch.zeros(3, device=dev), **F.SAT_KW,
+                         **kw)
+            grads = torch.autograd.grad((out.image ** 2).sum(), list(params.values()))
+            assert len(d_tables) == 1
+            res[str(dev), name] = out, grads, d_tables.pop()
+    cpu, gpu, gpu_base = res["cpu", "sat"][0], res[str(cuda_device), "sat"][0], \
+        res[str(cuda_device), "base"][0]
+    assert int(gpu.n_sat) == int(cpu.n_sat) > 0 and int(gpu.n_dropped) == 0
+    assert torch.equal(gpu.image, gpu_base.image)
+    np.testing.assert_allclose(gpu.image.detach().cpu().numpy(), cpu.image.detach().numpy(),
+                               rtol=0, atol=ATOL)
+    (_, g_base, d_base), (_, g_sat, d_sat) = (res[str(cuda_device), k] for k in ("base", "sat"))
+    assert torch.equal(d_base, d_sat)
+    for a, b in zip(g_base, g_sat):
+        scale = max(float(a.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
 def test_render_gradients_on_gpu_match_cpu(cuda_device):
     from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
     from gsplat_tpu_torch.render.render import render
@@ -235,9 +347,12 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     table, total, meta = expansion_inputs(100, 1, 1024, True)
     counts = (texp.expand_pairs, traster.composite_fwd, traster.composite_bwd,
-              tbounds.segment_ends)
+              tbounds.segment_ends, tscan.prefix_sum_small, tcompact.compact_runs)
     before = [f.launches for f in counts]
     texp.expand_pairs(table, total, 1024, **meta)
+    texp.expand_pairs(table, total, 1024, **{**meta, "sat_pack": True})
+    tscan.prefix_sum_small(torch.arange(9, dtype=torch.int32))
+    tcompact.compact_runs(*compact_inputs(0, 8)[:4], 64, -1)
     tables = pair_tables(F.make_scene())
     traster.composite_fwd(*tables, tw=4, tile_size=F.TILE, chunk=F.CHUNK)
     args, kw = bwd_inputs("sparse", "cpu")
@@ -260,6 +375,11 @@ def test_other_devices_raise():
         traster.composite_bwd(*args, **kw)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tbounds.segment_ends(torch.zeros(8, device="meta"), 10)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tscan.prefix_sum_small(torch.zeros(8, dtype=torch.int32, device="meta"))
+    src, astart, rbase, length, _ = compact_inputs(0, 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tcompact.compact_runs(src.to("meta"), astart, rbase, length, 64, -1)
 
 
 def test_launch_errors_raise():

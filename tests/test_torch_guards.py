@@ -33,6 +33,7 @@ def test_package_imports_with_jax_blocked():
         "import gsplat_tpu_torch.io.ply, gsplat_tpu_torch.render.render\n"
         "import gsplat_tpu_torch.render.raster_ref, gsplat_tpu_torch._build\n"
         "import gsplat_tpu_torch.render.bounds, gsplat_tpu_torch.config\n"
+        "import gsplat_tpu_torch.render.scan, gsplat_tpu_torch.render.compact\n"
         "import gsplat_tpu_torch.train.loss, gsplat_tpu_torch.train.optim\n"
         "import gsplat_tpu_torch.train.densify, gsplat_tpu_torch.train.loop\n"
         "import importlib.util\n"

@@ -6,7 +6,10 @@ against the port's own per-pixel oracle.
 Tolerances: projection floats rtol 1e-5 (the EWA chain compounds ulp-level
 transcendental differences), radius and visibility exactly; image and
 transmittance 2e-5 abs (the README's parity tolerance); the integer
-telemetry n_pairs, n_culled, n_contrib exactly."""
+telemetry n_pairs, n_culled, n_contrib, n_sat exactly. The saturation
+bound cull is held against the port's own render without it, bit for bit in
+image and gradients, on tests/test_binning.py::test_saturation_bound_cull's
+scene."""
 
 import jax
 import jax.numpy as jnp
@@ -112,8 +115,6 @@ def test_render_refuses_what_the_slice_does_not_port(objects):
     _, (tg, tc) = objects
     kw = dict(tile_size=F.TILE, chunk=F.CHUNK, pair_budget=F.BUDGET)
     bg = torch.tensor(BG)
-    with pytest.raises(NotImplementedError, match="saturation"):
-        render(tc, tg, bg, sat_budget=F.BUDGET, **kw)
     with pytest.raises(NotImplementedError, match="attr_pack"):
         render(tc, tg, bg, attr_pack=True, **kw)
     # gradients flow now: grad-requiring inputs get them (the training slice)
@@ -137,3 +138,81 @@ def test_capacity_above_2_pow_24_raises():
     with pytest.raises(ValueError, match="2\\^24"):
         render_projected(proj, F.W, F.H, torch.tensor(BG), tile_size=F.TILE,
                          chunk=F.CHUNK, pair_budget=F.BUDGET)
+
+
+# ------------------------------------------------- saturation bound cull
+
+
+@pytest.fixture(scope="module")
+def sat_case():
+    """The saturating scene: the JAX package's probe render (sat_budget =
+    pair_budget) and the port's renders without the cull, with the probe's
+    budget and with the fitted one."""
+    scene, _ = F.make_sat_scene()
+    jg, jc = F.jax_objects(scene, F.SAT_W, F.SAT_H)
+    bg = np.zeros(3, np.float32)
+    want = jax.jit(lambda g: j_render(jc, g, jnp.asarray(bg), **F.SAT_KW,
+                                      sat_budget=F.SAT_KW["pair_budget"]))(jg)
+    tg, tc = F.torch_objects(scene, F.SAT_W, F.SAT_H)
+    base = render(tc, tg, torch.from_numpy(bg), **F.SAT_KW)
+    probe = render(tc, tg, torch.from_numpy(bg), **F.SAT_KW,
+                   sat_budget=F.SAT_KW["pair_budget"])
+    fitted = -(-int(probe.n_sat) // 8) * 8
+    out = render(tc, tg, torch.from_numpy(bg), **F.SAT_KW, sat_budget=fitted)
+    return jax.tree.map(np.asarray, want), (tg, tc), base, probe, out, fitted
+
+
+def test_saturation_cull_render(sat_case):
+    want, _, base, probe, out, fitted = sat_case
+    n_sat = int(probe.n_sat)
+    n_kept = int(base.n_pairs) - int(base.n_culled)
+    assert 0 < n_sat < n_kept, (n_sat, n_kept)
+    assert n_sat == int(want.n_sat) and int(out.n_sat) == n_sat
+    assert int(base.n_sat) == 0
+    for o in (probe, out):
+        assert torch.equal(o.image, base.image) and torch.equal(o.transmittance,
+                                                                base.transmittance)
+        for f in ("n_pairs", "n_culled", "n_contrib", "n_dropped"):
+            assert int(getattr(o, f)) == int(getattr(base, f)), f
+    np.testing.assert_allclose(out.image.numpy(), want.image, rtol=0, atol=ATOL)
+    assert int(out.n_contrib) == int(want.n_contrib) and int(out.n_dropped) == 0
+
+
+def sat_grads(tg, tc, **kw):
+    params = {k: v.clone().requires_grad_() for k, v in tg.params().items()}
+    off = torch.zeros((tg.capacity, 2), requires_grad=True)
+    out = render(tc, tg.replace(**params), torch.zeros(3), **F.SAT_KW,
+                 mean2d_offset=off, **kw)
+    return torch.autograd.grad((out.image ** 2).sum(), list(params.values()) + [off]), out
+
+
+def test_saturation_cull_gradients_bit_identical(sat_case):
+    _, (tg, tc), _, _, _, fitted = sat_case
+    g_base, _ = sat_grads(tg, tc)
+    g_sat, out = sat_grads(tg, tc, sat_budget=fitted)
+    assert int(out.n_dropped) == 0
+    for a, b in zip(g_base, g_sat):
+        assert torch.equal(a, b)
+    assert all(float(a.abs().max()) > 0 for a in g_base[:-2])   # rotation may be 0
+
+
+@pytest.mark.parametrize("which", ["starved", "one_region_exceeds"])
+def test_saturation_cull_overflow_zeroes_gradients(sat_case, which):
+    """An overflowing sat budget: exactly zero gradients, n_dropped > 0. With
+    one tile's region past the whole budget its segment is clamped into the
+    table: the compositor reads no row past it (no IndexError here)."""
+    _, (tg, tc), _, probe, _, fitted = sat_case
+    budget = max(8, fitted // 32 * 8) if which == "starved" else 8
+    grads, out = sat_grads(tg, tc, sat_budget=budget)
+    assert int(out.n_dropped) == int(probe.n_sat) - budget > 0
+    assert int(out.n_sat) == int(probe.n_sat)
+    assert torch.isfinite(out.image).all()
+    for g in grads:
+        assert float(g.abs().max()) == 0.0
+
+
+def test_sat_budget_requires_tight_cull(objects):
+    _, (tg, tc) = objects
+    with pytest.raises(ValueError, match="tight_cull"):
+        render(tc, tg, torch.tensor(BG), tile_size=F.TILE, chunk=F.CHUNK,
+               pair_budget=F.BUDGET, tight_cull=False, sat_budget=F.BUDGET)

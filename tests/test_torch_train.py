@@ -15,7 +15,9 @@ too). The train step: loss and EMA 1e-6 relative, integer telemetry and
 denom exactly, Adam moments and accumulators 2e-4 of their max, parameters
 within 1e-6 + 1e-5 relative where the gradient's sign is determined (the
 first Adam steps move each element by about lr * sign(g)), and never
-further than the steps' summed learning rates."""
+further than the steps' summed learning rates. A step with the saturation
+bound cull equals the step without it bit for bit (the port alone: no
+second JAX train step compiles)."""
 
 import jax
 import jax.numpy as jnp
@@ -307,3 +309,52 @@ def test_train_steps_match_reference(train_runs):
     first, last = train_runs[0]["port"], train_runs[-1]["port"]
     assert last["scalars"][0] < first["scalars"][0]
     assert (last["g"]["denom"] <= 3).all() and (last["g"]["denom"] == 3).any()
+
+
+def test_train_step_with_saturation_cull_is_bit_identical():
+    """One step with sat_budget (and one with MeshParams.sat_frac > 0) on the
+    saturating scene against one without: loss, parameters, moments and
+    densification statistics bit-equal, n_sat > 0 returned."""
+    scene, target = F.make_sat_scene()
+    tg, _ = F.torch_objects(scene, F.SAT_W, F.SAT_H)
+    tc = camera_from_numpy(scene.R, scene.T, scene.fovx, scene.fovy, F.SAT_W, F.SAT_H,
+                           image=target, device="cpu")
+    bg = torch.zeros(3)
+    kw = F.SAT_KW
+    # the probe: a sat budget that cannot overflow gives the rows needed
+    with torch.no_grad():
+        probe = render(tc, tg, bg, tile_size=kw["tile_size"], chunk=kw["chunk"],
+                       pair_budget=kw["pair_budget"], sat_budget=kw["pair_budget"])
+    n_sat, n_pairs, n_culled, n_dropped = (probe.n_sat, probe.n_pairs, probe.n_culled,
+                                           probe.n_dropped)
+    assert 0 < int(n_sat) < int(n_pairs) - int(n_culled) and int(n_dropped) == 0
+    mesh = dict(tile_size=kw["tile_size"], chunk_size=kw["chunk"],
+                pair_budget=kw["pair_budget"])
+    fitted = -(-int(n_sat) // 8) * 8
+    steps = {
+        "base": make_train_step(OptimizationParams(), MeshParams(**mesh), 1.0, F.SAT_W,
+                                F.SAT_H, kept_budget=kw["kept_budget"]),
+        "sat_budget": make_train_step(OptimizationParams(), MeshParams(**mesh), 1.0,
+                                      F.SAT_W, F.SAT_H, kept_budget=kw["kept_budget"],
+                                      sat_budget=fitted),
+        # _sat_budget0: sat_frac of the pair budget
+        "sat_frac": make_train_step(OptimizationParams(), MeshParams(**mesh, sat_frac=0.5),
+                                    1.0, F.SAT_W, F.SAT_H, kept_budget=kw["kept_budget"]),
+    }
+    outs = {k: fn(tg, init_adam_state(tg.params()), tc, bg, 1, 0.0)
+            for k, fn in steps.items()}
+    base = outs["base"]
+    assert int(base[8]) == 0
+    for name in ("sat_budget", "sat_frac"):
+        out = outs[name]
+        assert int(out[8]) == int(n_sat) and int(out[5]) == 0, name
+        assert torch.equal(out[2], base[2]), name                     # loss
+        assert [int(x) for x in out[4:8]] == [int(x) for x in base[4:8]], name
+        for k, v in base[0].params().items():
+            assert torch.equal(out[0].params()[k], v), (name, k)
+        for k in ("xyz_gradient_accum", "denom", "max_radii2D"):
+            assert torch.equal(getattr(out[0], k), getattr(base[0], k)), (name, k)
+        for k in base[1].mu:
+            assert torch.equal(out[1].mu[k], base[1].mu[k]), (name, k)
+            assert torch.equal(out[1].nu[k], base[1].nu[k]), (name, k)
+    assert float(base[0].xyz_gradient_accum.abs().max()) > 0

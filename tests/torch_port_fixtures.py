@@ -4,7 +4,9 @@ Every tests/test_torch_*.py file compares the PyTorch port
 (gsplat_tpu_torch) with the JAX reference (gsplat_tpu) on these same arrays:
 a 63-Gaussian scene in a 64-row capacity (one dead padded row), SH degree 3
 with nonzero rest coefficients, a few Gaussians at or behind the near plane,
-seen by a 64x48 camera; renders use tile 16 and chunk 32.
+seen by a 64x48 camera; renders use tile 16 and chunk 32. The saturation
+bound cull's tests use `make_sat_scene` (big near-opaque splats that
+saturate their tiles) and `saturating_projection`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,28 @@ class Scene(NamedTuple):
     sh_degree: int
     R: np.ndarray
     T: np.ndarray
+    fovx: float = FOVX
+    fovy: float = FOVY
+
+
+def _padded(capacity, xyz, f_dc, f_rest, opacity, scaling, rotation):
+    """The nine array fields, live rows first, dead rows padded as
+    gsplat_tpu pads them (opacity and scaling -30, identity rotation)."""
+    def pad(a, fill=0.0):
+        out = np.full((capacity,) + a.shape[1:], fill, np.float32)
+        out[:len(a)] = a
+        return out
+
+    rot = pad(rotation)
+    rot[len(rotation):, 0] = 1.0
+    return {
+        "xyz": pad(xyz), "f_dc": pad(f_dc), "f_rest": pad(f_rest),
+        "opacity": pad(opacity, -30.0), "scaling": pad(scaling, -30.0),
+        "rotation": rot,
+        "max_radii2D": np.zeros(capacity, np.float32),
+        "xyz_gradient_accum": np.zeros(capacity, np.float32),
+        "denom": np.zeros(capacity, np.float32),
+    }
 
 
 def make_scene(seed: int = 0, n: int = 63, capacity: int = 64, sh_degree: int = 3,
@@ -43,27 +67,41 @@ def make_scene(seed: int = 0, n: int = 63, capacity: int = 64, sh_degree: int = 
     opacity = rng.normal(*opacity_logit, size=(n, 1)).astype(np.float32)
     scaling = rng.uniform(*log_scale, size=(n, 3)).astype(np.float32)
     rotation = rng.normal(size=(n, 4)).astype(np.float32)
+    params = _padded(capacity, xyz, f_dc, f_rest, opacity, scaling, rotation)
+    return Scene(params, n, sh_degree, *_look_at())
 
-    def pad(a, fill=0.0):
-        out = np.full((capacity,) + a.shape[1:], fill, np.float32)
-        out[:n] = a
-        return out
 
-    rot = pad(rotation)
-    rot[n:, 0] = 1.0
-    params = {
-        "xyz": pad(xyz), "f_dc": pad(f_dc), "f_rest": pad(f_rest),
-        "opacity": pad(opacity, -30.0), "scaling": pad(scaling, -30.0),
-        "rotation": rot,
-        "max_radii2D": np.zeros(capacity, np.float32),
-        "xyz_gradient_accum": np.zeros(capacity, np.float32),
-        "denom": np.zeros(capacity, np.float32),
-    }
-    # gsplat_tpu.io.synthetic.look_at_rig(1)'s camera, spelled out: this
-    # module imports nothing of gsplat_tpu at import time, so the GPU tests
-    # run where jax is not installed
-    R, T = np.diag([-1.0, 1.0, -1.0]), np.array([0.0, 0.0, 4.0])
-    return Scene(params, n, sh_degree, R, T)
+def _look_at():
+    """gsplat_tpu.io.synthetic.look_at_rig(1)'s camera, spelled out: this
+    module imports nothing of gsplat_tpu at import time, so the GPU tests
+    run where jax is not installed."""
+    return np.diag([-1.0, 1.0, -1.0]), np.array([0.0, 0.0, 4.0])
+
+
+# tests/test_binning.py::test_saturation_bound_cull's render settings:
+# kept_budget < pair_budget turns the tight cull on in the render without
+# the saturation cull too, so the two are comparable bit for bit
+SAT_W, SAT_H = 96, 64
+SAT_KW = dict(tile_size=16, chunk=8, pair_budget=1 << 12, kept_budget=(1 << 12) - 8)
+
+
+def make_sat_scene():
+    """tests/test_binning.py::test_saturation_bound_cull's scene in numpy
+    (the port has no create_from_pcd yet): 80 big near-opaque splats stacked
+    in depth (log-scale -0.2, opacity sigmoid(4) = 0.982) in a 128-row
+    capacity, colours as create_from_pcd turns them into SH dc, seen at
+    96x64 -> (Scene, the (64, 96, 3) target image the test draws next)."""
+    rng = np.random.default_rng(13)
+    n = 80
+    xyz = (rng.normal(size=(n, 3)) * 0.35).astype(np.float32)
+    f_dc = ((rng.random((n, 3)) - 0.5) / 0.28209479177387814).astype(np.float32)
+    target = rng.random((SAT_H, SAT_W, 3)).astype(np.float32)
+    rotation = np.zeros((n, 4), np.float32)
+    rotation[:, 0] = 1.0
+    params = _padded(128, xyz, f_dc, np.zeros((n, 15, 3), np.float32),
+                     np.full((n, 1), 4.0, np.float32), np.full((n, 3), -0.2, np.float32),
+                     rotation)
+    return Scene(params, n, 3, *_look_at(), fovx=1.0, fovy=0.8), target
 
 
 def jax_objects(s: Scene, width: int = W, height: int = H):
@@ -76,7 +114,7 @@ def jax_objects(s: Scene, width: int = W, height: int = H):
     g = Gaussians(**{k: jnp.asarray(v) for k, v in s.params.items()},
                   n_live=jnp.asarray(s.n_live, jnp.int32),
                   active_sh_degree=s.sh_degree, max_sh_degree=s.sh_degree)
-    cam = make_camera(s.R, s.T, fovx=FOVX, fovy=FOVY, width=width, height=height)
+    cam = make_camera(s.R, s.T, fovx=s.fovx, fovy=s.fovy, width=width, height=height)
     return g, cam
 
 
@@ -86,7 +124,7 @@ def torch_objects(s: Scene, width: int = W, height: int = H):
 
     g = gaussians_from_numpy(s.params, s.n_live, s.sh_degree, s.sh_degree,
                              device="cpu")
-    cam = camera_from_numpy(s.R, s.T, FOVX, FOVY, width, height, device="cpu")
+    cam = camera_from_numpy(s.R, s.T, s.fovx, s.fovy, width, height, device="cpu")
     return g, cam
 
 
@@ -130,6 +168,21 @@ def random_projection(n, seed, width=256, height=192, dead_frac=0.3,
     conic = np.abs(rng.normal(0.02, 0.05, (n, 3))).astype(np.float32)
     conic[:, 1] *= 0.1
     opacity = rng.uniform(0.001, 1.0, n).astype(np.float32)
+    return mean2d, radius, depth, conic, opacity
+
+
+def saturating_projection(n, seed, width=64, height=64):
+    """A random projection whose tiles saturate: wide, nearly round splats
+    (sigma 12-40 px, radius 3 sigma) of opacity 0.4-1 over a small image
+    -> mean2d, radius, depth, conic, opacity."""
+    rng = np.random.default_rng(seed)
+    mean2d = rng.uniform(-10, max(width, height) + 10, (n, 2)).astype(np.float32)
+    sigma = rng.uniform(12, 40, n).astype(np.float32)
+    radius = np.ceil(3 * sigma).astype(np.float32)
+    depth = rng.uniform(1, 50, n).astype(np.float32)
+    conic = np.stack([1 / sigma ** 2, rng.uniform(-0.1, 0.1, n) / sigma ** 2,
+                      1 / sigma ** 2], axis=1).astype(np.float32)
+    opacity = rng.uniform(0.4, 1.0, n).astype(np.float32)
     return mean2d, radius, depth, conic, opacity
 
 
