@@ -6,7 +6,9 @@ path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU.
 
 Phases (any failure exits nonzero, and the final ok line is not printed):
   env      card name + power limit (nvidia-smi), torch / CUDA / nvcc versions
-  build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/
+  build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/; the
+           registers and spills of composite_fwd's and prefix_sum_small's
+           kernels (ptxas -v): no spills
   oracle   a tiny scene rendered on the GPU against the port's per-pixel
            oracle and its CPU render (plain kernel versions), 2e-5 abs
   then, for each of two cells, bench.py's scene re-made in numpy (1M
@@ -20,7 +22,10 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            pair table: tiles within 2e-5 abs, nproc equal in every tile but
            those whose max T at the deciding chunk boundary lies within 1e-6
            relative of T_EPS (the two multiply in another order); the share
-           of kept pairs past each tile's saturation exit
+           of kept pairs past each tile's saturation exit; the share of
+           (warp, pair) groups the kernel's exact skip passes over and the
+           bound recounted from it (12 operations for a pair-pixel whose
+           power lies below its pair's threshold, 31 for the rest)
   composite_bwd  the kernel against its plain version on the same table and
            the cotangent of the real photometric loss, at the contrib budget
            bench.py fits: keys bit-equal, each d column within 1e-4 of its
@@ -33,8 +38,10 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
   prefix_sum_small  the kernel against its plain version on the view's real
            sorted quanta (the kept prefix of the saturation cull's input;
            sparse at pair and sat budget 2,621,440, dense at the fitted
-           budgets), on a length that is no multiple of its 4096-element
-           block, and with a bias and a clip: bit-equal; torch.cumsum's ms
+           budgets), on a length that is no multiple of its 8192-element
+           tile, and with a bias and a clip: bit-equal; one call enqueues
+           one kernel and at most one memset (torch.profiler); its ms and
+           torch.cumsum's, timed in turns
   compact_runs   the kernel against its plain version on the same view's
            real regions: bit-equal (region rows copied, the null gid
            elsewhere); a starved budget whose regions overlap and pass the
@@ -78,7 +85,8 @@ each train phase (the main path) and must cover every render and step run
 there (K5 and K6 in the sat phases); the kernels line sums them and must
 show every kernel. The kernels JSON rows hold the sparse bench view's times
 and bound for K1-K4, the dense view's for K5 and K6 (the cell whose users
-run the cull), and the larger error of the two cells.
+run the cull), the other view's beside them (`other_view`), and the larger
+error of the two cells.
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
 """
@@ -130,6 +138,10 @@ PEAK_INT32 = 33.5e12   # 64 int32 operations a clock a SM, half the fp32 rate
 # op * G (1), the 1/255 test, clamp and select (3), w = alpha*t_exc*T (2),
 # three colour multiply-adds (6), 1 - alpha and the running product (2)
 K2_OPS_PER_EVAL = 31
+# ... and of one whose power lies below its pair's skip threshold, where
+# alpha is 0 whatever follows: the power (11) and the test against the
+# threshold (1)
+K2_OPS_PER_SKIP = 12
 # expand_pairs per live slot: ~20 binary-search steps of ~3 integer ops, ~10
 # integer ops of rectangle decomposition, ~40 f32 ops and one expf of the cull
 K1_OPS_PER_SLOT = 110
@@ -237,6 +249,37 @@ def device_busy(fn, top=6):
                   key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in rows)
     return (busy if busy > 0 else None), sum(e.count for e in dev), rows[:top], out
+
+
+def in_turns(fns, reps):
+    """device_ms of each of fns, measured in turns (a b b a for two) so that
+    a drift of the card's clock or temperature falls on both -> [ms]."""
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    got = [[] for _ in fns]
+    for i in order:
+        got[i].append(device_ms(fns[i], reps))
+    return [sum(v) / len(v) for v in got]
+
+
+def enqueued(fn, tries=5):
+    """(kernel names, memset names) of what one synced call of fn() puts on
+    the card, under torch.profiler's CUDA tracing. A trace that holds no
+    device activity at all (the tracer drops one now and then on the chip
+    machine) is taken again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+    memsets = [e.name for e in dev if e.name.lower().startswith("memset")]
+    kernels = [e.name[:60] for e in dev if not e.name.lower().startswith(("memset", "memcpy"))]
+    return kernels, memsets
 
 
 def wall_ms(fn):
@@ -427,17 +470,69 @@ def phase_composite(s, label, g, cam, pair_fit, kept):
     plain_ms, _ = wall_ms(lambda: raster.composite_fwd_plain(
         gathered, ts, tc, tw=tw, tile_size=TILE, chunk=CHUNK))
     chunks = int(np_k.sum())
-    evals = chunks * CHUNK * TILE * TILE
+    evals, below, groups, skipped = skip_census(gathered, ts, tc, np_k, tw)
     nbytes = chunks * CHUNK * 64 + tiles_k.numel() * 4 + 3 * ts.numel() * 4
+    ops = below * K2_OPS_PER_SKIP + (evals - below) * K2_OPS_PER_EVAL
     print(f"  {label} composite_fwd: {ms:.4f} ms, plain {plain_ms:.2f} ms; "
           f"{chunks} chunks composited, {evals / 1e9:.3f} G pair-pixel evaluations; "
           f"kept pairs past their tile's saturation exit {n_past} of {n_kept} "
           f"({n_past / max(n_kept, 1):.2%})")
+    print(f"  {label} composite_fwd skip: {skipped} of {groups} (warp, pair) groups skip "
+          f"({skipped / max(groups, 1):.2%}); {below} of {evals} pair-pixel evaluations "
+          f"({below / max(evals, 1):.2%}) lie below their pair's threshold; bound "
+          f"{below} x {K2_OPS_PER_SKIP} + {evals - below} x {K2_OPS_PER_EVAL} operations = "
+          f"{ops / PEAK_FP32 * 1e3:.4f} ms (all at {K2_OPS_PER_EVAL}: "
+          f"{evals * K2_OPS_PER_EVAL / PEAK_FP32 * 1e3:.4f} ms)", flush=True)
     return dict(name="composite_fwd", route="cuda",
                 source="gsplat_tpu_torch/csrc/composite_fwd.cu",
                 replaces="gsplat_tpu/render/raster_pallas.py:536",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                ops=evals * K2_OPS_PER_EVAL, library_ms=None)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                library_ms=None)
+
+
+def skip_census(gathered, ts, tc, nproc, tw):
+    """What composite_fwd's inputs need, counted with plain torch over each
+    tile's composited chunks: the (pair, pixel) evaluations, those whose
+    power lies below the pair's skip threshold (alpha 0 there whatever
+    follows), the (warp, pair) groups at the kernel's pixel layout, and
+    those whose every pixel lies below (the groups the kernel skips) ->
+    (evals, below, groups, skipped)."""
+    from gsplat_tpu_torch.render import raster
+
+    dev = gathered.device
+    npix, h = TILE * TILE, TILE // 2
+    blocks = raster.fwd_pixel_blocks(TILE).to(dev)
+    assert bool((blocks >= 0).all())
+    # tile pixels in warp order: a warp's pixels are 128 in a row
+    by_warp = blocks.reshape(-1, 32 * 4)
+    pix = torch.arange(npix, device=dev)
+    px = (pix % TILE - h).to(torch.float32)
+    py = (pix // TILE - h).to(torch.float32)
+    lane = torch.arange(CHUNK, device=dev)
+    start, count, np64 = ts.to(torch.int64), tc.to(torch.int64), nproc.to(torch.int64)
+    astart = start // CHUNK * CHUNK
+    head = start - astart
+    evals = below_n = groups = skipped = 0
+    for j in range(int(np64.max()) if np64.numel() else 0):
+        live = torch.nonzero(np64 > j).squeeze(1)
+        for b0 in range(0, live.numel(), 256):
+            t = live[b0:b0 + 256]
+            idx = j * CHUNK + lane
+            a = gathered[astart[t, None] + idx]                 # (B, chunk, 16)
+            ok = (idx >= head[t, None]) & (idx < (head + count)[t, None])
+            ox = ((t % tw) * TILE + h).to(torch.float32)
+            oy = ((t // tw) * TILE + h).to(torch.float32)
+            dx = px - (a[..., 0] - ox[:, None])[..., None]      # (B, chunk, npix)
+            dy = py - (a[..., 1] - oy[:, None])[..., None]
+            power = -((0.5 * a[..., 2:3]) * (dx * dx) + a[..., 3:4] * (dx * dy)
+                      + (0.5 * a[..., 4:5]) * (dy * dy))
+            below = power < raster.skip_threshold(a[..., 8] * ok)[..., None]
+            evals += below.numel()
+            below_n += int(below.sum())
+            warp_all = below[..., by_warp].all(-1)              # (B, chunk, warps)
+            groups += warp_all.numel()
+            skipped += int(warp_all.sum())
+    return evals, below_n, groups, skipped
 
 
 def fit_contrib(n_contrib):
@@ -604,7 +699,7 @@ def phase_scan(s, label, seen):
     n = q.shape[0]
     c_k = scan.prefix_sum_small(q)
     c_p = scan.prefix_sum_small_plain(q)
-    odd = n - 1001                      # no multiple of the 4096-element block
+    odd = n - 1001                      # no multiple of the 8192-element tile
     odd_eq = torch.equal(scan.prefix_sum_small(q[:odd]), c_p[:odd])
     hi = int(c_p[-1]) // 2
     clip_eq = torch.equal(scan.prefix_sum_small(q, bias=-7, clip_hi=hi),
@@ -615,11 +710,17 @@ def phase_scan(s, label, seen):
             f"{label} prefix_sum_small vs plain over {n} sorted quanta (sum {int(c_p[-1])}): "
             f"{bad} mismatching sums (want 0); length {odd} equal {odd_eq}; bias -7 "
             f"clip {hi} equal {clip_eq}")
-    ms = device_ms(lambda: scan.prefix_sum_small(q), 20)
+    kernels, memsets = enqueued(lambda: scan.prefix_sum_small(q))
+    s.check(len(kernels) == 1 and len(memsets) <= 1,
+            f"{label} prefix_sum_small: one call enqueues {len(kernels)} kernel(s) "
+            f"{kernels} and {len(memsets)} memset(s) (want 1 kernel, at most 1 memset)")
+    ms, lib_ms = in_turns([lambda: scan.prefix_sum_small(q),
+                           lambda: torch.cumsum(q, 0, dtype=torch.int32)], 20)
     plain_ms = device_ms(lambda: scan.prefix_sum_small_plain(q), 20)
-    lib_ms = device_ms(lambda: torch.cumsum(q, 0, dtype=torch.int32), 20)
     print(f"  {label} prefix_sum_small: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.cumsum {lib_ms:.4f} ms ({n} elements)", flush=True)
+          f"torch.cumsum {lib_ms:.4f} ms ({n} elements); kernel / cumsum "
+          f"{ms / lib_ms:.3f}, timed in turns; {8 * n / PEAK_BYTES * 1e3 / ms:.1%} of "
+          "the 8-byte bound", flush=True)
     row = dict(name="prefix_sum_small", route="cuda",
                source="gsplat_tpu_torch/csrc/prefix_sum_small.cu",
                replaces="gsplat_tpu/render/scan_pallas.py:36",
@@ -1119,6 +1220,15 @@ def main() -> int:
     built = _build.build(verbose=True)
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k} {v:.1f}s" for k, v in built.items()), flush=True)
+    for name in ("composite_fwd", "prefix_sum_small"):
+        if name not in _build.logs:
+            print(f"  {name}: loaded from an earlier build, no ptxas report")
+            continue
+        for fn, u in _build.ptxas_usage(_build.logs[name]).items():
+            s.check(u.get("spill_stores", 0) == 0 and u.get("spill_loads", 0) == 0,
+                    f"{name} {fn}: {u.get('registers')} registers, {u.get('stack')} bytes "
+                    f"stack, spill stores {u.get('spill_stores')} loads "
+                    f"{u.get('spill_loads')} (ptxas -v; want no spills)")
 
     s.phase("oracle")
     phase_oracle(s)
@@ -1180,9 +1290,16 @@ def main() -> int:
                   f"{k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}")
     rows = []
     for name in kernel_counts():
-        row = (k_dense if name in SAT_KERNELS else k_sparse)[name]
-        rows.append(dict(row, max_abs_err=max(k_sparse[name]["max_abs_err"],
-                                              k_dense[name]["max_abs_err"])))
+        views = [("sparse", k_sparse), ("dense", k_dense)]
+        if name in SAT_KERNELS:
+            views.reverse()
+        (view, main_cell), (other, other_cell) = views
+        o = other_cell[name]
+        rows.append(dict(main_cell[name], view=view,
+                         max_abs_err=max(k_sparse[name]["max_abs_err"],
+                                         k_dense[name]["max_abs_err"]),
+                         other_view=dict(view=other, **{k: o[k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))
     print(json.dumps({"kernels": rows}))
     print(card)
     if s.failures:

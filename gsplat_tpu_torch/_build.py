@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,6 +39,8 @@ SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
            "prefix_sum_small", "compact_runs")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each verbose build, by source name
+logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -87,11 +90,33 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, fl
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         if verbose and log:
+            logs[name] = log
             print(f"[{name}] {log}", flush=True)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """{kernel symbol: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the `-Xptxas -v` report in a verbose build's log."""
+    usage: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

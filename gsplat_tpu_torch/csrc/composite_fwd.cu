@@ -1,5 +1,6 @@
 // composite_fwd: forward front-to-back tile compositing over the compact
-// sorted pair layout. One block per image tile, one thread per pixel.
+// sorted pair layout. One block per image tile, one thread per 2x2 block of
+// pixels.
 //
 // Replaces the TPU kernel gsplat_tpu/render/raster_pallas.py::_fwd_kernel
 // (through _fwd_call / composite_fwd). A tile's pairs are the segment
@@ -17,107 +18,209 @@
 // dx = (px - h) - (mx - ox), ox = tile_x * ts + h, h = ts / 2.
 //
 // Bound on this card: operations. Each composited chunk costs chunk * ts^2
-// pair-pixel evaluations of ~20 f32 operations and one expf, against 64
-// bytes of attributes per pair read once per tile; at tile 32 that is ~300
-// operations per byte, far above the card's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s, ~20 per byte).
-// Design: the chunk's attributes are staged once into shared memory (9 floats
-// a pair, the half-conic and the tile-relative mean precomputed) and read by
-// all 1024 threads as broadcasts; each thread keeps its pixel's colour and T
-// in registers. Within a chunk T is held fixed and the exclusive product of
-// (1 - alpha) runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the
-// chunk: the plain PyTorch version's association. The library is built with
-// --fmad=false, so power and alpha round as the plain version's separate
-// operations do and the 1/255 threshold decides the same way.
+// pair-pixel evaluations of ~31 f32 operations and one expf, against 64
+// bytes of attributes per pair read once per tile: ~300 operations per byte
+// at tile 32, far above the fp32 ridge (67 TFLOP/s over 3.35 TB/s, ~20 per
+// byte). So what bounds it is its instruction count: a thread per pixel
+// ran 51.5 warp instructions per 32 pair-pixels in its inner loop (SASS;
+// nine scalar shared-memory loads, the power's products for one pixel
+// alone, unfused colour sums). Design, against that count (33.5 where a
+// warp composites a pair, 11 where it skips one):
+//   - a thread holds a 2x2 pixel block: dx, dy, dx*dx, dy*dy and their conic
+//     products are shared by two pixels each, and a pair costs three
+//     broadcast 16-byte shared loads for four pixels. At tile 32 a block is
+//     256 threads, a warp a 16x8-pixel rectangle (tile 16: 64 threads).
+//   - an exact warp-uniform skip: staging computes each pair's threshold
+//     thr = logf(1/255 / op) - 1e-3 (+inf where op is 0, which covers the
+//     masked rows). A warp whose pixels all have power < thr has alpha 0 at
+//     every pixel: exp(power) < (1/255 / op) * e^-0.001, a margin far above
+//     expf's and logf's few-ulp errors. It skips the rest of the pair, which
+//     would leave every sum as it is bit for bit (w = 0, c + r*0 = c,
+//     t_exc * 1 = t_exc) for finite colours.
+//   - the colour sums are explicit __fmaf_rn (the library is built with
+//     --fmad=false). Only the colour's rounding changes, within 2e-5 of the
+//     plain version, which sums colour in matmul order anyway. The power,
+//     alpha and transmittance chain stays unfused, as the plain version's
+//     separate operations round it: the 1/255 test, the exit vote and the
+//     backward's replay depend on its bits.
+//   - staging one chunk ahead: every thread copies its rows of the next
+//     chunk with 16-byte cp.async while the block composites this one, and
+//     turns them into the packed pair records after the next exit vote.
+// Within a chunk T is held fixed and the exclusive product of (1 - alpha)
+// runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the chunk: the
+// plain PyTorch version's association.
 
 #include "common.cuh"
+
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kAttrDim = 16;
+constexpr int kMaxThreads = 256;   // a 32x32 tile's 2x2 pixel blocks
+// render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
+constexpr float kSkipMargin = 1e-3f;
 
-__global__ void __launch_bounds__(1024) composite_fwd_kernel(
+// Upper-left pixel of thread tid's 2x2 block. Tiles whose side is a multiple
+// of 16 give each warp a 16x8-pixel rectangle (8 x 4 blocks), which makes
+// the skip likelier than a 32x4 strip; others go row-major over blocks.
+// render/raster.py::fwd_pixel_blocks is the same map.
+__device__ __forceinline__ void block_origin(int tid, int ts, int& x0, int& y0) {
+  if (ts % 16 == 0) {
+    const int warp = tid >> 5, lane = tid & 31, wpr = ts / 16;
+    x0 = (warp % wpr) * 16 + (lane & 7) * 2;
+    y0 = (warp / wpr) * 8 + (lane >> 3) * 2;
+  } else {
+    const int nbx = (ts + 1) / 2;
+    x0 = (tid % nbx) * 2;
+    y0 = (tid / nbx) * 2;
+  }
+}
+
+// 16-byte asynchronous copy from global to shared memory (sm_80 and up)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count, int tw, int tile_size, int chunk,
     float alpha_min, float alpha_max, float t_eps, float* __restrict__ tiles,
     int32_t* __restrict__ nproc) {
-  extern __shared__ float sm[];
-  float* s_mx = sm;              // mean x - ox
-  float* s_my = sm + chunk;      // mean y - oy
-  float* s_ha = sm + 2 * chunk;  // 0.5 * conic a
-  float* s_b = sm + 3 * chunk;   // conic b
-  float* s_hc = sm + 4 * chunk;  // 0.5 * conic c
-  float* s_r = sm + 5 * chunk;
-  float* s_g = sm + 6 * chunk;
-  float* s_bl = sm + 7 * chunk;
-  float* s_op = sm + 8 * chunk;  // opacity, 0 outside the segment
+  // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, -, -);
+  // then the raw rows of the next chunk (columns 0-11), copied in flight
+  extern __shared__ float4 sm[];
+  float4* raw = sm + 3 * chunk;
 
   const int t = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
+  const int tid = threadIdx.x;
+  const int ts = tile_size;
+  const int npix = ts * ts;
+  const int nblk = ((ts + 1) / 2) * ((ts + 1) / 2);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int astart = (start / chunk) * chunk;
   const int head = start - astart;
   const int nch = (head + count + chunk - 1) / chunk;
-  const int h = tile_size / 2;
-  const float ox = static_cast<float>((t % tw) * tile_size + h);
-  const float oy = static_cast<float>((t / tw) * tile_size + h);
-  const float px = static_cast<float>(pix % tile_size - h);
-  const float py = static_cast<float>(pix / tile_size - h);
+  const int h = ts / 2;
+  const float ox = static_cast<float>((t % tw) * ts + h);
+  const float oy = static_cast<float>((t / tw) * ts + h);
+  int x0, y0;
+  block_origin(tid, ts, x0, y0);
+  const float px0 = static_cast<float>(x0 - h), px1 = static_cast<float>(x0 + 1 - h);
+  const float py0 = static_cast<float>(y0 - h), py1 = static_cast<float>(y0 + 1 - h);
+  // pixel q of the block: x0 + (q & 1), y0 + (q >> 1)
+  bool valid[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    valid[q] = tid < nblk && x0 + (q & 1) < ts && y0 + (q >> 1) < ts;
 
-  float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f;
+  // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
+  // each chunk: it reads only rows it copied itself, so the copy needs no
+  // barrier of its own
+  auto prefetch = [&](int jj) {
+    for (int k = tid; k < chunk; k += blockDim.x) {
+      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kAttrDim;
+      cp_async16(raw + 3 * k, a);
+      cp_async16(raw + 3 * k + 1, a + 4);
+      cp_async16(raw + 3 * k + 2, a + 8);
+    }
+    cp_async_commit();
+  };
+  if (nch > 0) prefetch(0);
+
+  float T[4], cr[4], cg[4], cb[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) T[q] = 1.f, cr[q] = cg[q] = cb[q] = 0.f;
   int j = 0;
   for (; j < nch; ++j) {
+    bool alive = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) alive |= valid[q] && T[q] >= t_eps;
     // the barrier also keeps the staging below from overwriting a chunk
     // another thread is still compositing
-    if (!__syncthreads_or(T >= t_eps)) break;
-    for (int k = pix; k < chunk; k += npix) {
+    if (!__syncthreads_or(alive)) break;
+    cp_async_wait_all();
+    for (int k = tid; k < chunk; k += blockDim.x) {
       const int idx = j * chunk + k;
-      const float* a = attrs + static_cast<size_t>(astart + idx) * kAttrDim;
-      const bool ok = idx >= head && idx < head + count;
-      s_mx[k] = a[0] - ox;
-      s_my[k] = a[1] - oy;
-      s_ha[k] = 0.5f * a[2];
-      s_b[k] = a[3];
-      s_hc[k] = 0.5f * a[4];
-      s_r[k] = a[5];
-      s_g[k] = a[6];
-      s_bl[k] = a[7];
-      s_op[k] = ok ? a[8] : 0.f;
+      const float4 a0 = raw[3 * k], a1 = raw[3 * k + 1];
+      const float op = idx >= head && idx < head + count ? raw[3 * k + 2].x : 0.f;
+      const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
+      sm[3 * k] = make_float4(a0.x - ox, a0.y - oy, 0.5f * a0.z, a0.w);
+      sm[3 * k + 1] = make_float4(0.5f * a1.x, a1.y, a1.z, a1.w);
+      sm[3 * k + 2] = make_float4(op, thr, 0.f, 0.f);
     }
+    // the next chunk's rows travel while this one is composited
+    if (j + 1 < nch) prefetch(j + 1);
     __syncthreads();
-    float t_exc = 1.f;
+    float t_exc[4] = {1.f, 1.f, 1.f, 1.f};
     for (int k = 0; k < chunk; ++k) {
-      const float dx = px - s_mx[k];
-      const float dy = py - s_my[k];
-      const float power = -(s_ha[k] * (dx * dx) + s_b[k] * (dx * dy) +
-                            s_hc[k] * (dy * dy));
-      const float raw = s_op[k] * expf(power > 0.f ? -100.f : power);
-      const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
-      const float w = alpha * t_exc * T;
-      cr += s_r[k] * w;
-      cg += s_g[k] * w;
-      cb += s_bl[k] * w;
-      t_exc *= 1.f - alpha;
+      const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
+      const float dx0 = px0 - g0.x, dx1 = px1 - g0.x;
+      const float dy0 = py0 - g0.y, dy1 = py1 - g0.y;
+      const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
+      const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
+      float power[4];
+      power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
+      power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
+      power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
+      power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
+      bool below = true;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[q];
+      if (__all_sync(0xffffffffu, below)) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float raw = g2.x * expf(power[q] > 0.f ? -100.f : power[q]);
+        const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
+        const float w = alpha * t_exc[q] * T[q];
+        cr[q] = __fmaf_rn(g1.y, w, cr[q]);
+        cg[q] = __fmaf_rn(g1.z, w, cg[q]);
+        cb[q] = __fmaf_rn(g1.w, w, cb[q]);
+        t_exc[q] *= 1.f - alpha;
+      }
     }
-    T *= t_exc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) T[q] *= t_exc[q];
   }
+  // a tile that exits early leaves its next chunk's copy in flight: retire it
+  cp_async_wait_all();
   float* out = tiles + static_cast<size_t>(t) * 4 * npix;
-  out[pix] = cr;
-  out[npix + pix] = cg;
-  out[2 * npix + pix] = cb;
-  out[3 * npix + pix] = T;
-  if (pix == 0) nproc[t] = j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!valid[q]) continue;
+    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
+    out[p] = cr[q];
+    out[npix + p] = cg[q];
+    out[2 * npix + p] = cb[q];
+    out[3 * npix + p] = T[q];
+  }
+  if (tid == 0) nproc[t] = j;
+}
+
+// Threads of a block at this tile size: one per 2x2 pixel block, in whole
+// warps (render/raster.py::fwd_pixel_blocks).
+int block_threads(int tile_size) {
+  const int nbx = (tile_size + 1) / 2;
+  return (nbx * nbx + 31) / 32 * 32;
 }
 
 }  // namespace
 
-// attrs: (P, 16) float32 with P a multiple of chunk and every segment inside
-// it; tile_start, tile_count: (num_tiles,) int32; tiles: (num_tiles, 4,
-// tile_size^2) float32; nproc: (num_tiles,) int32. tile_size^2 <= 1024.
-// alpha_min, alpha_max, t_eps: render/raster.py's ALPHA_MIN, ALPHA_MAX, T_EPS.
-// Returns cudaGetLastError() after the launch.
+// attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
+// every segment inside it; tile_start, tile_count: (num_tiles,) int32; tiles:
+// (num_tiles, 4, tile_size^2) float32; nproc: (num_tiles,) int32.
+// tile_size <= 32. alpha_min, alpha_max, t_eps: render/raster.py's ALPHA_MIN,
+// ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch.
 extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     const void* tile_count, int num_tiles,
                                     int tw, int tile_size, int chunk,
@@ -125,15 +228,14 @@ extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     float t_eps, void* tiles, void* nproc,
                                     void* stream) {
   if (num_tiles > 0) {
-    const int npix = tile_size * tile_size;
-    const size_t smem = sizeof(float) * 9 * static_cast<size_t>(chunk);
+    const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           composite_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    composite_fwd_kernel<<<num_tiles, npix, smem,
+    composite_fwd_kernel<<<num_tiles, block_threads(tile_size), smem,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(attrs),
         static_cast<const int32_t*>(tile_start),

@@ -34,6 +34,9 @@ ATTR_DIM = 16
 KEY_INVALID = float(1 << 30)
 KEY_COL = 9   # the gid column of the pair table and the key column of the d-table
 N_DCOLS = 9   # d-table columns carrying gradients: mean2d(2) conic(3) rgb(3) opacity(1)
+# composite_fwd's skip: a pair whose power lies below log(ALPHA_MIN / op)
+# less this margin has alpha 0 at that pixel (skip_threshold)
+SKIP_MARGIN = 1e-3
 # tiles per step of the plain compositor: bounds its (tiles, chunk, pixels)
 # temporaries to a few hundred MB at tile 32, chunk 128
 _PLAIN_TILE_BATCH = 256
@@ -102,6 +105,40 @@ def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
     return tiles, nproc
 
 
+def skip_threshold(op: torch.Tensor) -> torch.Tensor:
+    """Per-pair threshold of composite_fwd's skip, as the kernel computes it
+    in float32: log(ALPHA_MIN / op) - SKIP_MARGIN, +inf where op is not
+    positive. At a pixel whose power lies below it, op * exp(power) <
+    ALPHA_MIN * exp(-SKIP_MARGIN), so alpha is 0 with a margin far above the
+    few-ulp errors of exp and log."""
+    op = op.to(torch.float32)
+    thr = torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32, device=op.device) / op)
+    return torch.where(op > 0, thr - SKIP_MARGIN, torch.inf)
+
+
+def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
+    """composite_fwd's launch geometry: (threads, 4) int64, the tile pixels
+    (y * tile_size + x) of each thread's 2x2 block in the order (x0, y0),
+    (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1); -1 where a block passes
+    the tile or a thread rounds the block count up to whole warps. Tiles
+    whose side is a multiple of 16 give each warp a 16x8-pixel rectangle,
+    others go row-major over blocks (csrc/composite_fwd.cu::block_origin).
+    Thread t's warp is t // 32."""
+    nbx = (tile_size + 1) // 2
+    threads = -(-nbx * nbx // 32) * 32
+    tid = torch.arange(threads)
+    if tile_size % 16 == 0:
+        warp, lane, wpr = tid // 32, tid % 32, tile_size // 16
+        x0 = (warp % wpr) * 16 + (lane % 8) * 2
+        y0 = (warp // wpr) * 8 + (lane // 8) * 2
+    else:
+        x0, y0 = (tid % nbx) * 2, (tid // nbx) * 2
+    x = x0[:, None] + torch.tensor([0, 1, 0, 1])
+    y = y0[:, None] + torch.tensor([0, 0, 1, 1])
+    ok = (tid[:, None] < nbx * nbx) & (x < tile_size) & (y < tile_size)
+    return torch.where(ok, y * tile_size + x, -1)
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 3)
 
@@ -121,14 +158,15 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
         raise ValueError(f"composite_fwd runs on cuda or cpu, not {attrs.device}")
     P = attrs.shape[0]
     if attrs.dtype != torch.float32 or attrs.shape[1:] != (ATTR_DIM,) \
-            or not attrs.is_contiguous():
-        raise ValueError("composite_fwd needs a contiguous float32 (P, 16) table")
+            or not attrs.is_contiguous() or attrs.data_ptr() % 16:
+        raise ValueError("composite_fwd needs a contiguous, 16-byte aligned float32 "
+                         "(P, 16) table")
     if P % chunk:
         raise ValueError(f"pair table rows {P} are not a multiple of chunk {chunk}")
     npix = tile_size * tile_size
-    if npix > 1024:
-        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per "
-                         "pixel, at most 1024")
+    if not 1 <= tile_size <= 32:
+        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per 2x2 "
+                         "pixel block, at most 256 threads (tiles up to 32x32)")
     for tab in (tile_start, tile_count):
         if tab.dtype != torch.int32 or not tab.is_contiguous() or tab.device != attrs.device:
             raise ValueError("tile tables must be contiguous int32 on the table's device")

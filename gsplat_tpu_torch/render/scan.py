@@ -5,7 +5,10 @@ TPU kernel gsplat_tpu/render/scan_pallas.py::_scan_kernel, beside its plain
 PyTorch version. `prefix_sum_small` launches the kernel for CUDA tensors (or
 raises) and runs the plain version only for CPU tensors. The reference's
 fallback to `jnp.cumsum` for short or non-128-multiple inputs was a TPU
-launch-cost and tiling shortcut: the kernel takes any length.
+launch-cost and tiling shortcut: the kernel takes any length, and any
+start address (a slice not 16-byte aligned takes its scalar loads). A call
+is one memset of the kernel's scratch (a status word a tile and a tile
+counter) and one kernel launch.
 """
 
 from __future__ import annotations
@@ -50,17 +53,18 @@ def prefix_sum_small(x: torch.Tensor, bias: int = 0,
     if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
         raise ValueError("prefix_sum_small needs a contiguous int32 (n,) tensor")
     lib = _build.load("prefix_sum_small")
-    lib.prefix_sum_small_blocks.argtypes = [ctypes.c_int]
-    lib.prefix_sum_small_blocks.restype = ctypes.c_int
-    sums = torch.empty(max(lib.prefix_sum_small_blocks(n), 1), dtype=torch.int32,
-                       device=x.device)
+    lib.prefix_sum_small_scratch_bytes.argtypes = [ctypes.c_int]
+    lib.prefix_sum_small_scratch_bytes.restype = ctypes.c_longlong
+    # the tile status words and the tile counter, zeroed by the launch itself
+    scratch = torch.empty(lib.prefix_sum_small_scratch_bytes(n) // 8, dtype=torch.int64,
+                          device=x.device)
     out = torch.empty_like(x)
     fn = lib.prefix_sum_small_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), n, int(bias), int(clip_hi is not None),
-                 int(clip_hi) if clip_hi is not None else 0, sums.data_ptr(),
+                 int(clip_hi) if clip_hi is not None else 0, scratch.data_ptr(),
                  out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "prefix_sum_small launch")
     prefix_sum_small.launches += 1

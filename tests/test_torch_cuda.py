@@ -7,8 +7,10 @@ tests/conftest.py (which imports jax) cannot load:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys,
-gids (saturation quanta included), segment ends, prefix sums and compacted
-rows must be bit-equal; images and tiles within 2e-5 abs;
+gids (saturation quanta included), segment ends, prefix sums (a misaligned
+slice and 50 calls in a row too) and compacted rows must be bit-equal;
+images and tiles within 2e-5 abs, nproc equal (crafted tile tables and the
+warp skip's edge cases too);
 composite_bwd's d columns within 1e-4 of each column's max (the kernel sums
 pixels in warp-shuffle order, the plain version in matmul order); render
 gradients within 2e-4 of each group's max of the CPU's."""
@@ -25,8 +27,9 @@ from gsplat_tpu_torch.render import compact as tcompact
 from gsplat_tpu_torch.render import expand as texp
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render import scan as tscan
-from torch_port_fixtures import (SCENES, cuda_device, pair_tables,  # noqa: F401
-                                 random_projection, saturating_projection)
+from torch_port_fixtures import (SCENES, crafted_tiles, cuda_device,  # noqa: F401
+                                 pair_tables, random_projection, saturating_projection,
+                                 skip_edge_tile)
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -80,6 +83,42 @@ def test_composite_fwd_kernel_matches_plain(cuda_device, name):
     np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(),
                                rtol=0, atol=ATOL)
     np.testing.assert_array_equal(got_np.cpu().numpy(), want_np.cpu().numpy())
+
+
+def assert_composite_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
+    tables = [torch.from_numpy(a).to(device) for a in (attrs, ts, tc)]
+    want_tiles, want_np = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile,
+                                                      chunk=chunk)
+    before = traster.composite_fwd.launches
+    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk)
+    torch.cuda.synchronize()
+    assert traster.composite_fwd.launches == before + 1
+    np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(got_np.cpu().numpy(), want_np.cpu().numpy())
+    return got_np.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("chunk", [8, 32, 128])
+def test_composite_fwd_kernel_crafted_tiles(cuda_device, tile, chunk):
+    """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
+    boundary before their last chunk (torch_port_fixtures.crafted_tiles)."""
+    attrs, ts, tc = crafted_tiles(3, 2, tile, chunk)
+    nproc = assert_composite_matches_plain(cuda_device, attrs, ts, tc, 3, tile, chunk)
+    nch = (ts % chunk + tc + chunk - 1) // chunk
+    assert (nproc.numpy() < nch).any() and (tc == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_composite_fwd_kernel_skip_edges(cuda_device, tile, chunk):
+    """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
+    power within 1e-3 of the threshold on both sides
+    (torch_port_fixtures.skip_edge_tile)."""
+    assert_composite_matches_plain(cuda_device, *skip_edge_tile(tile, chunk), 1, tile, chunk)
 
 
 @pytest.mark.cuda
@@ -187,8 +226,11 @@ def test_segment_ends_kernel_bit_equal(cuda_device, p, n_valid, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,hi,bias,clip_hi", [
-    (0, 63, 0, None), (1, 63, 0, None), (1023, 255, 0, None), ((1 << 20) + 17, 255, 0, None),
+    (0, 63, 0, None), (1, 63, 0, None), (1023, 255, 0, None), (4095, 255, 0, None),
+    (4097, 63, 0, None), (8191, 255, 0, None), (8193, 63, 0, None),
+    ((1 << 20) + 17, 255, 0, None),
     ((1 << 20) + 17, 63, -1000, 5_000_000), (4096 * 3, 1, 7, 100),
+    (tscan.MAX_LEN - 1, 63, 0, None), (tscan.MAX_LEN - 1, 63, -7, 1 << 30),
 ])
 def test_prefix_sum_small_kernel_bit_equal(cuda_device, n, hi, bias, clip_hi):
     x = torch.from_numpy(np.random.default_rng(n).integers(0, hi + 1, n).astype(np.int32))
@@ -199,6 +241,31 @@ def test_prefix_sum_small_kernel_bit_equal(cuda_device, n, hi, bias, clip_hi):
     torch.cuda.synchronize()
     assert tscan.prefix_sum_small.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 8193, (1 << 20) + 17])
+def test_prefix_sum_small_kernel_misaligned_slice(cuda_device, n):
+    """x[1:] starts 4 bytes past a 16-byte boundary: the kernel reads it with
+    scalar loads, never out of alignment, and the sums stay bit-equal."""
+    x = torch.from_numpy(np.random.default_rng(n).integers(0, 64, n + 1).astype(np.int32))
+    x = x.to(cuda_device)[1:]
+    assert x.data_ptr() % 16 == 4
+    got = tscan.prefix_sum_small(x, -3, 1 << 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tscan.prefix_sum_small_plain(x, -3, 1 << 20))
+
+
+@pytest.mark.cuda
+def test_prefix_sum_small_kernel_repeats_bit_equal(cuda_device):
+    """50 calls in a row, on one stream and without syncs between them: each
+    zeroes its own tile status words, so none reads a stale one."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 64, 3_000_001).astype(np.int32))
+    x = x.to(cuda_device)
+    want = tscan.prefix_sum_small_plain(x)
+    outs = [tscan.prefix_sum_small(x) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
 
 
 def compact_inputs(seed, chunk, T=300, src_chunks=4096):
@@ -380,6 +447,24 @@ def test_other_devices_raise():
     src, astart, rbase, length, _ = compact_inputs(0, 8)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tcompact.compact_runs(src.to("meta"), astart, rbase, length, 64, -1)
+
+
+def test_ptxas_usage_parses_the_report():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111scan_kernelEPKiiiiiiPyPjPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111scan_kernelEPKiiiiiiPyPjPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 16932 bytes smem, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1kPf
+    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 360 bytes cmem[0]
+"""
+    got = _build.ptxas_usage(log)
+    assert got == {
+        "_ZN12_GLOBAL__N_111scan_kernelEPKiiiiiiPyPjPi":
+            dict(registers=38, stack=0, spill_stores=0, spill_loads=0),
+        "_Z1kPf": dict(registers=255, stack=24, spill_stores=8, spill_loads=12)}
 
 
 def test_launch_errors_raise():

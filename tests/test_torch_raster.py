@@ -15,7 +15,7 @@ import torch_port_fixtures as F
 from gsplat_tpu.render.raster_pallas import composite_fwd as j_composite
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render.binning import tile_grid
-from torch_port_fixtures import SCENES, pair_tables
+from torch_port_fixtures import SCENES, crafted_tiles, pair_tables, skip_edge_tile
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -80,6 +80,91 @@ def test_early_exit_waits_for_pixels_below_the_image():
     one, _ = traster.composite_fwd(attrs[:chunk], ts, torch.full((1,), chunk, dtype=torch.int32),
                                    tw=1, tile_size=tile, chunk=chunk)
     assert float(one[0, 3].reshape(tile, tile)[:8].max()) < traster.T_EPS
+
+
+@pytest.mark.parametrize("tile,chunk", [(16, 8), (16, 32), (16, 128), (32, 8), (32, 32),
+                                        (32, 128)])
+def test_composite_fwd_crafted_tiles_match_reference(tile, chunk):
+    """Empty tiles, segments that start mid-chunk and tiles that exit at a
+    chunk boundary before their last chunk, at every tile size and chunk of
+    the kernel's tests."""
+    attrs, ts, tc = map(torch.from_numpy, crafted_tiles(3, 2, tile, chunk))
+    _, nproc = both(attrs, ts, tc, 3, tile, chunk)
+    head = ts % chunk
+    nch = (head + tc + chunk - 1) // chunk
+    assert ((tc == 0) & (head > 0)).any() and ((tc > 0) & (head > 0)).any()
+    assert (nproc < nch).any()
+
+
+def power_and_alpha(attrs, ts, tc, tile, chunk):
+    """The plain compositor's power and alpha of every (pair row, pixel) of
+    a one-tile table (tw 1), with the rows' skip thresholds."""
+    h = tile // 2
+    pix = torch.arange(tile * tile)
+    px, py = (pix % tile - h).float(), (pix // tile - h).float()
+    rows = torch.arange(int(ts[0]), int(ts[0] + tc[0]))
+    a = attrs[rows]
+    dx = px - (a[:, 0] - h)[:, None]
+    dy = py - (a[:, 1] - h)[:, None]
+    power = -((0.5 * a[:, 2:3]) * (dx * dx) + a[:, 3:4] * (dx * dy)
+              + (0.5 * a[:, 4:5]) * (dy * dy))
+    raw = a[:, 8:9] * torch.exp(torch.where(power > 0, -100.0, power))
+    alpha = torch.where(raw >= traster.ALPHA_MIN, torch.clamp(raw, max=traster.ALPHA_MAX), 0.0)
+    return power, alpha, traster.skip_threshold(a[:, 8])[:, None]
+
+
+@pytest.mark.parametrize("tile,chunk", [(16, 8), (32, 32)])
+def test_composite_fwd_skip_edges_match_reference(tile, chunk):
+    """The skip's edge cases (op 0, op < 1/255, op 1, power > 0, power
+    within 1e-3 of the threshold on either side) against the JAX kernel;
+    below the threshold alpha is 0 at every pixel, and the margin holds
+    pixels that are not skipped though their alpha is 0."""
+    attrs, ts, tc = map(torch.from_numpy, skip_edge_tile(tile, chunk))
+    both(attrs, ts, tc, 1, tile, chunk)
+    power, alpha, thr = power_and_alpha(attrs, ts, tc, tile, chunk)
+    below = power < thr
+    assert (alpha[below] == 0).all()
+    assert ((alpha == 0) & ~below).any() and (alpha > 0).any() and below.any()
+    # pixel (0, 0) of the op-0.5 rows sits at -2e-3 .. +2e-3 of the threshold
+    near = (power[4:11, 0] - thr[4:11, 0]).tolist()
+    assert [d < 0 for d in near] == [True] * 3 + [False] * 4 or \
+        [d < 0 for d in near] == [True] * 4 + [False] * 3, near
+    assert all(abs(d) <= 2.1e-3 for d in near), near
+
+
+def test_skip_threshold_keeps_alpha_at_zero():
+    """Over opacities from 0 to 1 (those below 1/255 and at it too) and
+    powers down to 1e-3 below the threshold, the plain alpha rule gives 0."""
+    rng = np.random.default_rng(0)
+    op = np.concatenate([[0.0, 1e-6, 0.5 / 255, 1 / 255, np.nextafter(np.float32(1 / 255), 1),
+                          0.5, 1.0], rng.uniform(0, 1, 500)]).astype(np.float32)
+    op = torch.from_numpy(op)
+    thr = traster.skip_threshold(op)
+    assert thr[0] == torch.inf and thr.dtype == torch.float32
+    # op below 1/255 puts the threshold above 0: every power <= 0 is below it
+    assert (thr[1:3] > 0).all() and (thr[1:] < torch.inf).all()
+    # powers in [thr - 1e-3, thr - 1e-5]; the positive ones take the -100 branch
+    frac = torch.from_numpy(rng.uniform(0.01, 1, (1, 64)).astype(np.float32))
+    power = thr[1:, None] - 1e-3 * frac
+    assert (power < thr[1:, None]).all() and (power > 0).any()
+    raw = op[1:, None] * torch.exp(torch.where(power > 0, -100.0, power))
+    assert (raw < traster.ALPHA_MIN).all()
+
+
+@pytest.mark.parametrize("tile", [1, 5, 8, 12, 15, 16, 24, 32])
+def test_fwd_pixel_blocks_cover_the_tile(tile):
+    """Every pixel of the tile in exactly one thread's 2x2 block, whole
+    warps; at tiles of 16 and 32 each warp's pixels form a 16x8 rectangle."""
+    blocks = traster.fwd_pixel_blocks(tile)
+    assert blocks.shape[1] == 4 and blocks.shape[0] % 32 == 0
+    assert blocks.shape[0] == -(-((tile + 1) // 2) ** 2 // 32) * 32
+    got = blocks[blocks >= 0]
+    assert sorted(got.tolist()) == list(range(tile * tile))
+    if tile % 16 == 0:
+        for w in range(blocks.shape[0] // 32):
+            p = blocks[32 * w:32 * (w + 1)].reshape(-1)
+            x, y = p % tile, p // tile
+            assert (int(x.max() - x.min()), int(y.max() - y.min())) == (15, 7)
 
 
 def test_untile_image():

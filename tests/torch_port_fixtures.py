@@ -152,6 +152,70 @@ def pair_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK):
     return pair_table(proj, b, BUDGET - chunk), b.tile_start, b.tile_count
 
 
+def crafted_tiles(tw, th, tile, chunk, seed=0):
+    """A gathered pair table and its tile tables, made directly: tiles in
+    turn empty, sparse (1 to 3 chunks of small splats) and saturating (three
+    chunks and more of wide opaque splats, which exit at a chunk boundary
+    before their last chunk), their segments packed one after the other from
+    row 3, so most start mid-chunk -> (attrs (P, 16) float32 with P a
+    multiple of chunk, tile_start, tile_count) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(tw * th, np.int64)
+    rows = []
+    for t in range(tw * th):
+        kind = t % 3
+        if kind == 0:
+            continue
+        n = int(rng.integers(1, 3 * chunk + 1)) if kind == 1 else 3 * chunk + 5
+        sigma = rng.uniform(1.0, 6.0, n) if kind == 1 else rng.uniform(3.0, 4.0, n) * tile
+        ox, oy = (t % tw) * tile, (t // tw) * tile
+        r = np.zeros((n, 16), np.float32)
+        r[:, 0] = ox + rng.uniform(-4, tile + 4, n)
+        r[:, 1] = oy + rng.uniform(-4, tile + 4, n)
+        r[:, 2] = r[:, 4] = 1.0 / sigma ** 2
+        r[:, 3] = rng.uniform(-0.3, 0.3, n) / sigma ** 2
+        r[:, 5:8] = rng.random((n, 3))
+        r[:, 8] = rng.uniform(0.05, 1.0, n) if kind == 1 else 0.99
+        r[:, 9] = rng.integers(0, 1000, n)
+        counts[t] = n
+        rows.append(r)
+    starts = 3 + np.concatenate([[0], np.cumsum(counts)[:-1]])
+    p = -(-(3 + int(counts.sum())) // chunk) * chunk + chunk
+    attrs = np.zeros((p, 16), np.float32)
+    if rows:
+        attrs[3:3 + int(counts.sum())] = np.concatenate(rows)
+    return attrs, starts.astype(np.int32), counts.astype(np.int32)
+
+
+def skip_edge_tile(tile, chunk):
+    """One tile (tw 1) of pairs at the edges of composite_fwd's skip, each
+    centred off the tile at (-3, -4) so that its highest power in the tile
+    is at pixel (0, 0), 25 px^2 away: op 0; op < 1/255; op 1; a conic whose
+    power is > 0 where |dx| > |dy| (the -100 branch; centred at x -3.3, so
+    that no pixel has |dx| = |dy|); and op 0.5 with that highest power at
+    its threshold (raster.skip_threshold) -2e-3, -1e-3, -1e-6, 0, +1e-6,
+    +5e-4 and +2e-3 (the 1/255 boundary lies at +1e-3; no pair sits on it,
+    where the JAX kernel's transport of the table through bf16 terms could
+    flip the decision); then a wide visible splat. The segment starts at
+    row 3 -> (attrs, tile_start, tile_count) as numpy."""
+    amin = np.float32(1.0 / 255.0)
+    thr = float(np.log(amin / np.float32(0.5)) - np.float32(1e-3))
+    # (op, conic a, b, c); power at distance^2 25 is -0.5 * a * 25 for a = c
+    iso = [(0.5, -2.0 * (thr + d) / 25.0) for d in (-2e-3, -1e-3, -1e-6, 0.0, 1e-6,
+                                                    5e-4, 2e-3)]
+    pairs = [(0.0, 0.02, 0.0, 0.02), (0.003, 0.02, 0.0, 0.02), (1.0, 0.02, 0.0, 0.02),
+             (0.8, -0.05, 0.0, 0.05)] + [(op, a, 0.0, a) for op, a in iso]
+    n = len(pairs)
+    p = -(-(3 + n) // chunk) * chunk + chunk
+    attrs = np.zeros((p, 16), np.float32)
+    for i, (op, a, b, c) in enumerate(pairs):
+        mx = -3.3 if a < 0 else -3.0
+        attrs[3 + i, :9] = [mx, -4.0, a, b, c, 0.2 + 0.05 * i, 0.9 - 0.05 * i, 0.5, op]
+    wide = np.array([tile / 2, tile / 2, 1e-3, 0.0, 1e-3, 0.3, 0.6, 0.9, 0.7], np.float32)
+    attrs[3 + n, :9] = wide
+    return attrs, np.array([3], np.int32), np.array([n + 1], np.int32)
+
+
 def random_projection(n, seed, width=256, height=192, dead_frac=0.3,
                       clustered_dead=False):
     """A random projection for binning (tests/test_expand_pallas.py's scene,
