@@ -7,8 +7,8 @@ path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU.
 Phases (any failure exits nonzero, and the final ok line is not printed):
   env      card name + power limit (nvidia-smi), torch / CUDA / nvcc versions
   build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/; the
-           registers and spills of composite_fwd's and prefix_sum_small's
-           kernels (ptxas -v): no spills
+           registers and spills of the expand_pairs, composite_fwd,
+           composite_bwd and prefix_sum_small kernels (ptxas -v): no spills
   oracle   a tiny scene rendered on the GPU against the port's per-pixel
            oracle and its CPU render (plain kernel versions), 2e-5 abs
   then, for each of two cells, bench.py's scene re-made in numpy (1M
@@ -29,7 +29,11 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
   composite_bwd  the kernel against its plain version on the same table and
            the cotangent of the real photometric loss, at the contrib budget
            bench.py fits: keys bit-equal, each d column within 1e-4 of its
-           max; the same bits from two launches
+           max; the same bits from two launches; the share of (warp, pair)
+           groups its exact skip passes over (composite_fwd's pixel layout,
+           over the replayed chunks) and the bound recounted from it (12
+           operations below the threshold, 65 for the rest) beside the
+           bound at 65 everywhere
   segment_ends   the kernel against its plain version on the kernel's
            d-table keys after the gid-key sort: bit-equal
   expand_pairs sat_pack (dense)  the kernel against its plain version with
@@ -85,8 +89,9 @@ each train phase (the main path) and must cover every render and step run
 there (K5 and K6 in the sat phases); the kernels line sums them and must
 show every kernel. The kernels JSON rows hold the sparse bench view's times
 and bound for K1-K4, the dense view's for K5 and K6 (the cell whose users
-run the cull), the other view's beside them (`other_view`), and the larger
-error of the two cells.
+run the cull), the other view's beside them (`other_view`), the larger
+error of the two cells, and the launches of each cell's main path beside
+their total (`launches_by_view`).
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
 """
@@ -470,19 +475,13 @@ def phase_composite(s, label, g, cam, pair_fit, kept):
     plain_ms, _ = wall_ms(lambda: raster.composite_fwd_plain(
         gathered, ts, tc, tw=tw, tile_size=TILE, chunk=CHUNK))
     chunks = int(np_k.sum())
-    evals, below, groups, skipped = skip_census(gathered, ts, tc, np_k, tw)
+    census = skip_census(gathered, ts, tc, np_k, tw)
     nbytes = chunks * CHUNK * 64 + tiles_k.numel() * 4 + 3 * ts.numel() * 4
-    ops = below * K2_OPS_PER_SKIP + (evals - below) * K2_OPS_PER_EVAL
     print(f"  {label} composite_fwd: {ms:.4f} ms, plain {plain_ms:.2f} ms; "
-          f"{chunks} chunks composited, {evals / 1e9:.3f} G pair-pixel evaluations; "
+          f"{chunks} chunks composited, {census[0] / 1e9:.3f} G pair-pixel evaluations; "
           f"kept pairs past their tile's saturation exit {n_past} of {n_kept} "
           f"({n_past / max(n_kept, 1):.2%})")
-    print(f"  {label} composite_fwd skip: {skipped} of {groups} (warp, pair) groups skip "
-          f"({skipped / max(groups, 1):.2%}); {below} of {evals} pair-pixel evaluations "
-          f"({below / max(evals, 1):.2%}) lie below their pair's threshold; bound "
-          f"{below} x {K2_OPS_PER_SKIP} + {evals - below} x {K2_OPS_PER_EVAL} operations = "
-          f"{ops / PEAK_FP32 * 1e3:.4f} ms (all at {K2_OPS_PER_EVAL}: "
-          f"{evals * K2_OPS_PER_EVAL / PEAK_FP32 * 1e3:.4f} ms)", flush=True)
+    ops = skip_bound(f"{label} composite_fwd", census, K2_OPS_PER_EVAL)
     return dict(name="composite_fwd", route="cuda",
                 source="gsplat_tpu_torch/csrc/composite_fwd.cu",
                 replaces="gsplat_tpu/render/raster_pallas.py:536",
@@ -490,13 +489,29 @@ def phase_composite(s, label, g, cam, pair_fit, kept):
                 library_ms=None)
 
 
+def skip_bound(what, census, ops_per_eval):
+    """Print a compositor's skip census and the bound recounted from it:
+    K2_OPS_PER_SKIP operations a pair-pixel below its pair's threshold,
+    ops_per_eval the others -> those operations."""
+    evals, below, groups, skipped = census
+    ops = below * K2_OPS_PER_SKIP + (evals - below) * ops_per_eval
+    print(f"  {what} skip: {skipped} of {groups} (warp, pair) groups skip "
+          f"({skipped / max(groups, 1):.2%}); {below} of {evals} pair-pixel evaluations "
+          f"({below / max(evals, 1):.2%}) lie below their pair's threshold; bound "
+          f"{below} x {K2_OPS_PER_SKIP} + {evals - below} x {ops_per_eval} operations = "
+          f"{ops / PEAK_FP32 * 1e3:.4f} ms (all at {ops_per_eval}: "
+          f"{evals * ops_per_eval / PEAK_FP32 * 1e3:.4f} ms)", flush=True)
+    return ops
+
+
 def skip_census(gathered, ts, tc, nproc, tw):
-    """What composite_fwd's inputs need, counted with plain torch over each
-    tile's composited chunks: the (pair, pixel) evaluations, those whose
-    power lies below the pair's skip threshold (alpha 0 there whatever
-    follows), the (warp, pair) groups at the kernel's pixel layout, and
-    those whose every pixel lies below (the groups the kernel skips) ->
-    (evals, below, groups, skipped)."""
+    """What composite_fwd's (or composite_bwd's) inputs need, counted with
+    plain torch over each tile's first nproc chunks (those composited, or
+    replayed): the (pair, pixel) evaluations, those whose power lies below
+    the pair's skip threshold (alpha 0 there whatever follows), the (warp,
+    pair) groups at the kernels' pixel layout, and those whose every pixel
+    lies below (the groups the kernels skip) -> (evals, below, groups,
+    skipped)."""
     from gsplat_tpu_torch.render import raster
 
     dev = gathered.device
@@ -594,7 +609,7 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept):
     s.check(torch.equal(d_k, d_k2), f"{label} composite_bwd: two launches give the same bits")
     del d_k2, d_p
     rows = int(np_c.sum()) * CHUNK
-    evals = rows * TILE * TILE
+    census = skip_census(gathered, ts, tc, np_c, tw)
     # the wrapper fills a fresh d-table before each launch: its time, less
     # that of the fill alone, is the kernel's
     ms = (device_ms(lambda: raster.composite_bwd(*args, **kw), 20)
@@ -604,12 +619,13 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept):
     # four tile tables, the replayed d-rows written once
     nbytes = rows * 64 + 2 * tiles.numel() * 4 + 4 * ts.numel() * 4 + rows * 64
     print(f"  {label} composite_bwd: {ms:.4f} ms, plain {plain_ms:.2f} ms; {rows} rows "
-          f"replayed, {evals / 1e9:.3f} G pair-pixel evaluations", flush=True)
+          f"replayed, {census[0] / 1e9:.3f} G pair-pixel evaluations", flush=True)
+    ops = skip_bound(f"{label} composite_bwd", census, K3_OPS_PER_EVAL)
     k3 = dict(name="composite_bwd", route="cuda",
               source="gsplat_tpu_torch/csrc/composite_bwd.cu",
               replaces="gsplat_tpu/render/raster_pallas.py:618",
-              max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-              ops=evals * K3_OPS_PER_EVAL, library_ms=None)
+              max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+              library_ms=None)
 
     s.phase(f"kernel segment_ends ({label})")
     key_s, _ = torch.sort(d_k[:, raster.KEY_COL], stable=True)
@@ -1220,7 +1236,7 @@ def main() -> int:
     built = _build.build(verbose=True)
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k} {v:.1f}s" for k, v in built.items()), flush=True)
-    for name in ("composite_fwd", "prefix_sum_small"):
+    for name in ("expand_pairs", "composite_fwd", "composite_bwd", "prefix_sum_small"):
         if name not in _build.logs:
             print(f"  {name}: loaded from an earlier build, no ptxas report")
             continue
@@ -1296,6 +1312,7 @@ def main() -> int:
         (view, main_cell), (other, other_cell) = views
         o = other_cell[name]
         rows.append(dict(main_cell[name], view=view,
+                         launches_by_view={"sparse": l_sparse[name], "dense": l_dense[name]},
                          max_abs_err=max(k_sparse[name]["max_abs_err"],
                                          k_dense[name]["max_abs_err"]),
                          other_view=dict(view=other, **{k: o[k] for k in (

@@ -1,5 +1,5 @@
 // composite_bwd: the backward sweep of composite_fwd. One block per image
-// tile, one thread per pixel.
+// tile, one thread per 2x2 block of pixels.
 //
 // Replaces the TPU kernel gsplat_tpu/render/raster_pallas.py::_bwd_kernel
 // (through _bwd_call / composite_bwd). Block t replays exactly nproc[t]
@@ -27,191 +27,349 @@
 // forward's saved colour dotted with the cotangent, so no suffix pass runs.
 //
 // Bound on this card: operations. Each replayed chunk costs chunk * ts^2
-// pair-pixel evaluations of ~45 f32 operations, one expf and (where the pair
-// touches the pixel) a division, plus the reductions, against 64 bytes read
-// and 64 written per pair.
-// Design: the chunk's attributes are staged once into shared memory and
-// read as broadcasts. The ten per-pair sums reduce first inside each warp
-// (xor shuffles; a warp in which no pixel has alpha > 0 skips them, its
-// sums are exactly zero), then across warps in warp order from shared
-// memory, 32 pairs per round: the association is fixed, so two runs give
-// the same bits. --fmad=false and an IEEE division keep the plain version's
-// rounding of alpha and of the alpha >= 1/255 decision.
+// pair-pixel evaluations of ~65 f32 operations, one expf and (where the pair
+// touches the pixel) a division, against 64 bytes read and 64 written per
+// pair. A thread per pixel spent more instructions on the ten per-pair
+// warp sums (ten xor butterflies, 100 per 32 pixels) than on the replay, ran
+// the whole replay where alpha is 0, and summed 32 warps' partials on 32
+// threads. Design, against that count:
+//   - a thread holds a 2x2 pixel block, at the warp map of composite_fwd
+//     (block_origin; a warp is a 16x8-pixel rectangle at tile 32): the
+//     power's products are shared by pixel pairs, a pair costs three
+//     broadcast 16-byte shared loads for four pixels, and each of the ten
+//     values is summed over the thread's four pixels first.
+//   - the exact warp-uniform skip of composite_fwd: staging computes each
+//     pair's threshold thr = logf(1/255 / op) - 1e-3 (+inf where op is 0,
+//     which covers the masked rows). Where every valid pixel of the warp has
+//     power < thr, alpha is 0 at each of them, so w = 0, chain = 0, dalpha =
+//     0: all ten sums are 0, and t_exc and the running colour sum keep their
+//     bits (t_exc * 1, s + 0 * cg). The warp skips the replay and the
+//     reductions of that pair and writes zeros as its share.
+//   - a reduce-scatter across the warp: the ten values halve at each xor
+//     step (10 -> 5 -> 3 -> 2 -> 1, then the last pair of lanes), 12
+//     shuffles in place of 50, and lanes 0, 2, ... of the warp each end with
+//     one of the ten warp totals.
+//   - the cross-warp sum runs once per 32 pairs on all threads, eight a
+//     pair, over the 8 warps (2 at tile 16) in warp order, from a
+//     double-buffered shared array: one barrier per 32 pairs. Every sum's
+//     order is fixed, so two launches give the same bits.
+//   - staging one chunk ahead, as in composite_fwd: every thread copies its
+//     rows of the next chunk with 16-byte cp.async while the block replays
+//     this one. nproc is known, so there is no exit vote.
+//   - two blocks an SM (96 registers, no spills). Capped at 80 for a third
+//     block the kernel ran ~9% faster but spilled, with the per-pixel
+//     cotangent terms in registers and with them in shared memory alike.
+// --fmad=false and an IEEE division keep the plain version's rounding of
+// the power, of alpha and of the alpha >= 1/255 decision (the forward's
+// decisions); only the pixel sums use explicit fused multiply-adds.
 
 #include "common.cuh"
+
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kAttrDim = 16;
-constexpr int kKeyCol = 9;
-constexpr int kSums = 10;  // per pair: w*g (3), gda (1), dpow * basis (6)
-constexpr int kSub = 32;   // pairs per cross-warp reduction round
-constexpr int kStaged = 12;
+constexpr int kSums = 10;         // per pair: w*g (3), gda (1), dpow * basis (6)
+constexpr int kSub = 32;          // pairs per cross-warp round
+constexpr int kMaxThreads = 256;  // a 32x32 tile's 2x2 pixel blocks
+constexpr unsigned kFull = 0xffffffffu;
+// render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
+constexpr float kSkipMargin = 1e-3f;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Upper-left pixel of thread tid's 2x2 block: composite_fwd.cu's map
+// (render/raster.py::fwd_pixel_blocks).
+__device__ __forceinline__ void block_origin(int tid, int ts, int& x0, int& y0) {
+  if (ts % 16 == 0) {
+    const int warp = tid >> 5, lane = tid & 31, wpr = ts / 16;
+    x0 = (warp % wpr) * 16 + (lane & 7) * 2;
+    y0 = (warp / wpr) * 8 + (lane >> 3) * 2;
+  } else {
+    const int nbx = (ts + 1) / 2;
+    x0 = (tid % nbx) * 2;
+    y0 = (tid / nbx) * 2;
+  }
 }
 
-__global__ void __launch_bounds__(1024) composite_bwd_kernel(
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// keep + the partner's send, across the xor distance `o`
+__device__ __forceinline__ float swap_add(bool hi, float lo_keep, float hi_keep, int o) {
+  const float keep = hi ? hi_keep : lo_keep;
+  const float send = hi ? lo_keep : hi_keep;
+  return keep + __shfl_xor_sync(kFull, send, o);
+}
+
+// The warp totals of v[0..9], scattered: at each xor step a lane keeps the
+// half of its values its side of the step owns and adds the partner's copy
+// of them. Lane l ends holding the total of value reduce_slot(l) (lanes
+// with an odd index hold their even neighbour's; some hold none).
+__device__ __forceinline__ float warp_reduce_scatter(const float (&v)[kSums], int lane) {
+  float u[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) u[i] = swap_add(lane & 16, v[i], v[i + 5], 16);
+  // 5 -> 3: the low side keeps u0..u2, the high side u3, u4 and a zero
+  const bool h8 = lane & 8;
+  const float w0 = swap_add(h8, u[0], u[3], 8);
+  const float w1 = swap_add(h8, u[1], u[4], 8);
+  const float w2 = swap_add(h8, u[2], 0.f, 8);
+  // 3 -> 2: the low side keeps w0, w1, the high side w2 and a zero
+  const bool h4 = lane & 4;
+  const float x0 = swap_add(h4, w0, w2, 4);
+  const float x1 = swap_add(h4, w1, 0.f, 4);
+  // 2 -> 1, then the last pair of lanes
+  const float y = swap_add(lane & 2, x0, x1, 2);
+  return y + __shfl_xor_sync(kFull, y, 1);
+}
+
+// The value index whose warp total warp_reduce_scatter leaves in lane l, for
+// even lanes; -1 where the lane holds none (or is odd).
+__device__ __forceinline__ int reduce_slot(int lane) {
+  if (lane & 1) return -1;
+  const int base = (lane & 16) ? 5 : 0;
+  const bool h8 = lane & 8, h4 = lane & 4, h2 = lane & 2;
+  if (!h8) return h4 ? (h2 ? -1 : base + 2) : base + (h2 ? 1 : 0);
+  return h4 ? -1 : base + 3 + (h2 ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count,
     const int32_t* __restrict__ comp_start, const int32_t* __restrict__ nproc,
     const float* __restrict__ tiles, const float* __restrict__ g_tiles, int tw,
     int tile_size, int chunk, int p_out, float alpha_min, float alpha_max,
     float key_invalid, float* __restrict__ d_out) {
-  extern __shared__ float sm[];
-  float* s_mx = sm;              // mean x - ox
-  float* s_my = sm + chunk;      // mean y - oy
-  float* s_ha = sm + 2 * chunk;  // 0.5 * conic a
-  float* s_b = sm + 3 * chunk;   // conic b
-  float* s_hc = sm + 4 * chunk;  // 0.5 * conic c
-  float* s_r = sm + 5 * chunk;
-  float* s_g = sm + 6 * chunk;
-  float* s_bl = sm + 7 * chunk;
-  float* s_op = sm + 8 * chunk;  // opacity, 0 outside the segment
-  float* s_key = sm + 9 * chunk;
-  float* s_ca = sm + 10 * chunk;  // conic a, c as they are (d-row algebra)
-  float* s_cc = sm + 11 * chunk;
-  float* s_part = sm + kStaged * chunk;  // [warp][pair of the round][sum]
+  // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, a, c);
+  // then the raw rows of the next chunk (columns 0-11), copied in flight;
+  // then two buffers of [warp][pair of the round][sum] partials; then the keys
+  extern __shared__ float4 sm[];
+  float4* raw = sm + 3 * chunk;
+  const int nwarps = blockDim.x >> 5;
+  float* s_part = reinterpret_cast<float*>(sm + 6 * chunk);
+  const int part_size = nwarps * kSub * kSums;
+  float* s_key = s_part + 2 * part_size;
 
   const int t = blockIdx.x;
   const int np = nproc[t];
   if (np <= 0) return;  // the same for every thread of the block
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
-  const int lane = pix & 31;
-  const int warp = pix >> 5;
-  const int nwarps = npix >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ts = tile_size;
+  const int npix = ts * ts;
+  const int nblk = ((ts + 1) / 2) * ((ts + 1) / 2);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int astart = (start / chunk) * chunk;
   const int head = start - astart;
   const int ostart = comp_start[t];
-  const int h = tile_size / 2;
-  const float ox = static_cast<float>((t % tw) * tile_size + h);
-  const float oy = static_cast<float>((t / tw) * tile_size + h);
-  const float px = static_cast<float>(pix % tile_size - h);
-  const float py = static_cast<float>(pix / tile_size - h);
-  const float basis[6] = {px * px, py * py, px * py, px, py, 1.f};
+  const int h = ts / 2;
+  const float ox = static_cast<float>((t % tw) * ts + h);
+  const float oy = static_cast<float>((t / tw) * ts + h);
+  int x0, y0;
+  block_origin(tid, ts, x0, y0);
+  // pixel q of the block: x0 + (q & 1), y0 + (q >> 1)
+  const float px0 = static_cast<float>(x0 - h), px1 = static_cast<float>(x0 + 1 - h);
+  const float py0 = static_cast<float>(y0 - h), py1 = static_cast<float>(y0 + 1 - h);
+  const int slot = reduce_slot(lane);
 
+  bool valid[4];
+  float gr[4], gg[4], gb[4], total_cg[4], tf_gt[4];
   const float* res = tiles + static_cast<size_t>(t) * 4 * npix;
   const float* gt = g_tiles + static_cast<size_t>(t) * 4 * npix;
-  const float gr = gt[pix], gg = gt[npix + pix], gb = gt[2 * npix + pix];
-  const float total_cg = res[pix] * gr + res[npix + pix] * gg +
-                         res[2 * npix + pix] * gb;
-  const float tf_gt = res[3 * npix + pix] * gt[3 * npix + pix];
-
-  float t_run = 1.f, prefix = 0.f;
-  for (int j = 0; j < np; ++j) {
-    __syncthreads();  // the previous chunk's readers are done with staging
-    for (int k = pix; k < chunk; k += npix) {
-      const int idx = j * chunk + k;
-      const float* a = attrs + static_cast<size_t>(astart + idx) * kAttrDim;
-      const bool ok = idx >= head && idx < head + count;
-      s_mx[k] = a[0] - ox;
-      s_my[k] = a[1] - oy;
-      s_ha[k] = 0.5f * a[2];
-      s_b[k] = a[3];
-      s_hc[k] = 0.5f * a[4];
-      s_r[k] = a[5];
-      s_g[k] = a[6];
-      s_bl[k] = a[7];
-      s_op[k] = ok ? a[8] : 0.f;
-      s_key[k] = ok ? a[kKeyCol] : key_invalid;
-      s_ca[k] = a[2];
-      s_cc[k] = a[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    valid[q] = tid < nblk && x0 + (q & 1) < ts && y0 + (q >> 1) < ts;
+    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
+    gr[q] = gg[q] = gb[q] = total_cg[q] = tf_gt[q] = 0.f;
+    if (valid[q]) {
+      gr[q] = gt[p];
+      gg[q] = gt[npix + p];
+      gb[q] = gt[2 * npix + p];
+      total_cg[q] = res[p] * gr[q] + res[npix + p] * gg[q] + res[2 * npix + p] * gb[q];
+      tf_gt[q] = res[3 * npix + p] * gt[3 * npix + p];
     }
+  }
+
+  // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
+  // each chunk: it reads only rows it copied itself, so the copy needs no
+  // barrier of its own
+  auto prefetch = [&](int jj) {
+    for (int k = tid; k < chunk; k += blockDim.x) {
+      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kAttrDim;
+      cp_async16(raw + 3 * k, a);
+      cp_async16(raw + 3 * k + 1, a + 4);
+      cp_async16(raw + 3 * k + 2, a + 8);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  float t_run[4] = {1.f, 1.f, 1.f, 1.f}, prefix[4] = {0.f, 0.f, 0.f, 0.f};
+  int rnd = 0;  // rounds so far: selects the partial buffer
+  for (int j = 0; j < np; ++j) {
+    __syncthreads();  // every thread is done with the previous chunk's records
+    cp_async_wait_all();
+    for (int k = tid; k < chunk; k += blockDim.x) {
+      const int idx = j * chunk + k;
+      const float4 a0 = raw[3 * k], a1 = raw[3 * k + 1], a2 = raw[3 * k + 2];
+      const bool ok = idx >= head && idx < head + count;
+      const float op = ok ? a2.x : 0.f;
+      const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
+      sm[3 * k] = make_float4(a0.x - ox, a0.y - oy, 0.5f * a0.z, a0.w);
+      sm[3 * k + 1] = make_float4(0.5f * a1.x, a1.y, a1.z, a1.w);
+      sm[3 * k + 2] = make_float4(op, thr, a0.z, a1.x);
+      s_key[k] = ok ? a2.y : key_invalid;
+    }
+    // the next chunk's rows travel while this one is replayed
+    if (j + 1 < np) prefetch(j + 1);
     __syncthreads();
-    float t_exc = 1.f, csum = 0.f;
-    for (int k0 = 0; k0 < chunk; k0 += kSub) {
+
+    float t_exc[4] = {1.f, 1.f, 1.f, 1.f}, csum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < chunk; k0 += kSub, ++rnd) {
       const int kn = min(kSub, chunk - k0);
+      float* part = s_part + (rnd & 1) * part_size;
       for (int kk = 0; kk < kn; ++kk) {
         const int k = k0 + kk;
-        const float dx = px - s_mx[k];
-        const float dy = py - s_my[k];
-        const float power = -(s_ha[k] * (dx * dx) + s_b[k] * (dx * dy) +
-                              s_hc[k] * (dy * dy));
-        const float G = expf(power > 0.f ? -100.f : power);
-        const float op = s_op[k];
-        const float raw = op * G;
-        const bool keep = raw >= alpha_min;
-        const float alpha = keep ? fminf(raw, alpha_max) : 0.f;
-        const float t_i = t_exc * t_run;
-        const float w = alpha * t_i;
-        const float cg = s_r[k] * gr + s_g[k] * gg + s_bl[k] * gb;
-        csum += w * cg;
-        float v[kSums];
+        const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
+        const float dx0 = px0 - g0.x, dx1 = px1 - g0.x;
+        const float dy0 = py0 - g0.y, dy1 = py1 - g0.y;
+        const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
+        const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
+        float power[4];
+        power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
+        power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
+        power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
+        power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
+        bool below = true;
 #pragma unroll
-        for (int i = 0; i < kSums; ++i) v[i] = 0.f;
-        if (__any_sync(0xffffffffu, alpha > 0.f)) {
-          const float pref = csum + prefix;
+        for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[q];
+        float* dst = part + (warp * kSub + kk) * kSums;
+        if (__all_sync(kFull, below)) {
+          if (slot >= 0) dst[slot] = 0.f;
+          continue;
+        }
+        const float op = g2.x;
+        float sr = 0.f, sg = 0.f, sb = 0.f, sgda = 0.f, dpow[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float G = expf(power[q] > 0.f ? -100.f : power[q]);
+          const float raw_a = op * G;
+          const bool keep = valid[q] && raw_a >= alpha_min;
+          const float alpha = keep ? fminf(raw_a, alpha_max) : 0.f;
+          const float t_i = t_exc[q] * t_run[q];
+          const float w = alpha * t_i;
+          const float cg = g1.y * gr[q] + g1.z * gg[q] + g1.w * gb[q];
+          csum[q] += w * cg;
           float dalpha = 0.f;
-          if (keep && raw <= alpha_max)
-            dalpha = t_i * cg - ((total_cg - pref) + tf_gt) / (1.f - alpha);
+          if (keep && raw_a <= alpha_max)
+            dalpha = t_i * cg - ((total_cg[q] - (csum[q] + prefix[q])) + tf_gt[q]) /
+                                    (1.f - alpha);
           const float gda = G * dalpha;
-          const float dpow = op * gda;
-          v[0] = w * gr;
-          v[1] = w * gg;
-          v[2] = w * gb;
-          v[3] = gda;
-#pragma unroll
-          for (int i = 0; i < 6; ++i) v[4 + i] = dpow * basis[i];
-#pragma unroll
-          for (int i = 0; i < kSums; ++i) v[i] = warp_sum(v[i]);
+          dpow[q] = op * gda;
+          sr = __fmaf_rn(w, gr[q], sr);
+          sg = __fmaf_rn(w, gg[q], sg);
+          sb = __fmaf_rn(w, gb[q], sb);
+          sgda += gda;
+          t_exc[q] *= 1.f - alpha;
         }
-        if (lane == 0) {
-          float* dst = s_part + (warp * kSub + kk) * kSums;
-#pragma unroll
-          for (int i = 0; i < kSums; ++i) dst[i] = v[i];
-        }
-        t_exc *= 1.f - alpha;
+        // the basis sums over the block: columns x0, x1 and rows y0, y1
+        const float sx0 = dpow[0] + dpow[2], sx1 = dpow[1] + dpow[3];
+        const float sy0 = dpow[0] + dpow[1], sy1 = dpow[2] + dpow[3];
+        float v[kSums];
+        v[0] = sr;
+        v[1] = sg;
+        v[2] = sb;
+        v[3] = sgda;
+        v[4] = __fmaf_rn(px1 * px1, sx1, (px0 * px0) * sx0);
+        v[5] = __fmaf_rn(py1 * py1, sy1, (py0 * py0) * sy0);
+        v[6] = __fmaf_rn(px1 * py1, dpow[3],
+                         __fmaf_rn(px0 * py1, dpow[2],
+                                   __fmaf_rn(px1 * py0, dpow[1], (px0 * py0) * dpow[0])));
+        v[7] = __fmaf_rn(px1, sx1, px0 * sx0);
+        v[8] = __fmaf_rn(py1, sy1, py0 * sy0);
+        v[9] = sx0 + sx1;
+        const float total = warp_reduce_scatter(v, lane);
+        if (slot >= 0) dst[slot] = total;
       }
       __syncthreads();
-      for (int q = pix; q < kn; q += npix) {
-        float s[kSums];
-#pragma unroll
-        for (int i = 0; i < kSums; ++i) s[i] = 0.f;
+      // the round's cross-warp sums: eight threads a pair, thread s of a
+      // pair summing values s (and s + 8) over the warps in warp order
+      for (int p0 = 0; p0 < kn; p0 += blockDim.x >> 3) {
+        const int p = p0 + (tid >> 3), s = tid & 7;
+        const bool act = p < kn;
+        const int pc = act ? p : 0;
+        float t0 = 0.f, t1 = 0.f;
         for (int wi = 0; wi < nwarps; ++wi) {
-          const float* src = s_part + (wi * kSub + q) * kSums;
+          const float* src = part + (wi * kSub + pc) * kSums;
+          t0 += src[s];
+          if (s < kSums - 8) t1 += src[8 + s];
+        }
+        float tot[kSums];
 #pragma unroll
-          for (int i = 0; i < kSums; ++i) s[i] += src[i];
+        for (int i = 0; i < kSums; ++i)
+          tot[i] = __shfl_sync(kFull, i < 8 ? t0 : t1, (lane & ~7) | (i & 7));
+        const int k = k0 + pc;
+        const float4 g0 = sm[3 * k], g2 = sm[3 * k + 2];
+        const float mxl = g0.x, myl = g0.y, ca = g2.z, cb = g0.w, cc = g2.w;
+        const float du0 = tot[4], du1 = tot[5], du2 = tot[6];
+        const float du3 = tot[7], du4 = tot[8], du5 = tot[9];
+        float2 o = make_float2(0.f, 0.f);
+        if (s == 0) {
+          o.x = (ca * du3 + cb * du4) - (ca * mxl + cb * myl) * du5;
+          o.y = (cb * du3 + cc * du4) - (cc * myl + cb * mxl) * du5;
+        } else if (s == 1) {
+          o.x = (-0.5f * du0 + mxl * du3) - ((0.5f * mxl) * mxl) * du5;
+          o.y = ((-du2 + myl * du3) + mxl * du4) - (mxl * myl) * du5;
+        } else if (s == 2) {
+          o.x = (-0.5f * du1 + myl * du4) - ((0.5f * myl) * myl) * du5;
+          o.y = tot[0];
+        } else if (s == 3) {
+          o = make_float2(tot[1], tot[2]);
+        } else if (s == 4) {
+          o = make_float2(tot[3], s_key[k]);
         }
-        const int k = k0 + q;
-        const float mxl = s_mx[k], myl = s_my[k];
-        const float ca = s_ca[k], cb = s_b[k], cc = s_cc[k];
-        const float du0 = s[4], du1 = s[5], du2 = s[6];
-        const float du3 = s[7], du4 = s[8], du5 = s[9];
-        const float d_a = (-0.5f * du0 + mxl * du3) - ((0.5f * mxl) * mxl) * du5;
-        const float d_c = (-0.5f * du1 + myl * du4) - ((0.5f * myl) * myl) * du5;
-        const float d_b = ((-du2 + myl * du3) + mxl * du4) - (mxl * myl) * du5;
-        const float d_mx = (ca * du3 + cb * du4) - (ca * mxl + cb * myl) * du5;
-        const float d_my = (cb * du3 + cc * du4) - (cc * myl + cb * mxl) * du5;
         const int row = ostart + j * chunk + k;
-        if (row >= 0 && row < p_out) {
-          float4* o = reinterpret_cast<float4*>(d_out + static_cast<size_t>(row) * kAttrDim);
-          o[0] = make_float4(d_mx, d_my, d_a, d_b);
-          o[1] = make_float4(d_c, s[0], s[1], s[2]);
-          o[2] = make_float4(s[3], s_key[k], 0.f, 0.f);
-          o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
+        if (act && row >= 0 && row < p_out)
+          reinterpret_cast<float2*>(d_out + static_cast<size_t>(row) * kAttrDim)[s] = o;
       }
-      __syncthreads();  // s_part is rewritten by the next round
+      // no barrier here: the next round writes the other buffer, and the
+      // round after it passes the next round's barrier first
     }
-    t_run *= t_exc;
-    prefix = csum + prefix;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      t_run[q] *= t_exc[q];
+      prefix[q] = csum[q] + prefix[q];
+    }
   }
+}
+
+// Threads of a block at this tile size: one per 2x2 pixel block, in whole
+// warps (render/raster.py::fwd_pixel_blocks).
+int block_threads(int tile_size) {
+  const int nbx = (tile_size + 1) / 2;
+  return (nbx * nbx + 31) / 32 * 32;
 }
 
 }  // namespace
 
-// attrs: (P, 16) float32, P a multiple of chunk; tile_start, tile_count,
-// comp_start, nproc: (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4,
-// tile_size^2) float32; d_out: (p_out, 16) float32, prefilled by the caller.
-// tile_size^2 a multiple of 32, at most 1024. alpha_min, alpha_max,
-// key_invalid: render/raster.py's ALPHA_MIN, ALPHA_MAX, KEY_INVALID.
-// Returns cudaGetLastError() after the launch.
+// attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
+// every segment inside it; tile_start, tile_count, comp_start, nproc:
+// (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4, tile_size^2) float32;
+// d_out: (p_out, 16) float32, prefilled by the caller. tile_size <= 32.
+// alpha_min, alpha_max, key_invalid: render/raster.py's ALPHA_MIN,
+// ALPHA_MAX, KEY_INVALID. Returns cudaGetLastError() after the launch.
 extern "C" int composite_bwd_launch(
     const void* attrs, const void* tile_start, const void* tile_count,
     const void* comp_start, const void* nproc, const void* tiles,
@@ -219,17 +377,17 @@ extern "C" int composite_bwd_launch(
     int p_out, float alpha_min, float alpha_max, float key_invalid,
     void* d_out, void* stream) {
   if (num_tiles > 0) {
-    const int npix = tile_size * tile_size;
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(kStaged) * chunk +
-                         static_cast<size_t>(npix / 32) * kSub * kSums);
+    const int threads = block_threads(tile_size);
+    const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk) +
+                        sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
+                                         static_cast<size_t>(chunk));
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    composite_bwd_kernel<<<num_tiles, npix, smem,
+    composite_bwd_kernel<<<num_tiles, threads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(attrs),
         static_cast<const int32_t*>(tile_start),

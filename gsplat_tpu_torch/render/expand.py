@@ -8,7 +8,8 @@ raises) and runs the plain version only for CPU tensors.
 The plain version is binning._expand_xla's arithmetic, in the same order,
 applied to the kernel's input: the live-compacted table built by
 binning.expansion_table. Its row lookup (a searchsorted of the offset
-column) is the kernel's binary search.
+column) finds the row the kernel finds by its merge-path partition: the
+last row whose pair offset is at most the slot.
 
 With `sat_pack` (the saturation bound cull, which needs the cull columns)
 every kept slot's gid carries its 6-bit saturation quantum in the low bits,
@@ -162,6 +163,9 @@ def expand_pairs(table, total, S, *, tw, tile_size, db, num_tiles, n_orig,
         raise ValueError("expand_pairs needs a contiguous int32 (NC, n) table")
     if nc != (11 if do_cull else 5):
         raise ValueError(f"table has {nc} columns, want {11 if do_cull else 5}")
+    if S + n >= 1 << 31:
+        raise ValueError(f"{S} slots and {n} rows: the kernel's merged sequence "
+                         "must stay below 2^31 items")
     total = total.to(device=table.device, dtype=torch.int32).reshape(())
     key = torch.empty(S, dtype=torch.int32, device=table.device)
     gid = torch.empty(S, dtype=torch.int32, device=table.device)

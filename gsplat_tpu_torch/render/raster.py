@@ -34,7 +34,7 @@ ATTR_DIM = 16
 KEY_INVALID = float(1 << 30)
 KEY_COL = 9   # the gid column of the pair table and the key column of the d-table
 N_DCOLS = 9   # d-table columns carrying gradients: mean2d(2) conic(3) rgb(3) opacity(1)
-# composite_fwd's skip: a pair whose power lies below log(ALPHA_MIN / op)
+# the compositors' skip: a pair whose power lies below log(ALPHA_MIN / op)
 # less this margin has alpha 0 at that pixel (skip_threshold)
 SKIP_MARGIN = 1e-3
 # tiles per step of the plain compositor: bounds its (tiles, chunk, pixels)
@@ -106,24 +106,24 @@ def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
 
 
 def skip_threshold(op: torch.Tensor) -> torch.Tensor:
-    """Per-pair threshold of composite_fwd's skip, as the kernel computes it
-    in float32: log(ALPHA_MIN / op) - SKIP_MARGIN, +inf where op is not
-    positive. At a pixel whose power lies below it, op * exp(power) <
-    ALPHA_MIN * exp(-SKIP_MARGIN), so alpha is 0 with a margin far above the
-    few-ulp errors of exp and log."""
+    """Per-pair threshold of composite_fwd's and composite_bwd's skip, as
+    the kernels compute it in float32: log(ALPHA_MIN / op) - SKIP_MARGIN,
+    +inf where op is not positive. At a pixel whose power lies below it,
+    op * exp(power) < ALPHA_MIN * exp(-SKIP_MARGIN), so alpha is 0 with a
+    margin far above the few-ulp errors of exp and log."""
     op = op.to(torch.float32)
     thr = torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32, device=op.device) / op)
     return torch.where(op > 0, thr - SKIP_MARGIN, torch.inf)
 
 
 def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
-    """composite_fwd's launch geometry: (threads, 4) int64, the tile pixels
-    (y * tile_size + x) of each thread's 2x2 block in the order (x0, y0),
-    (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1); -1 where a block passes
-    the tile or a thread rounds the block count up to whole warps. Tiles
-    whose side is a multiple of 16 give each warp a 16x8-pixel rectangle,
-    others go row-major over blocks (csrc/composite_fwd.cu::block_origin).
-    Thread t's warp is t // 32."""
+    """composite_fwd's and composite_bwd's launch geometry: (threads, 4)
+    int64, the tile pixels (y * tile_size + x) of each thread's 2x2 block in
+    the order (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1); -1
+    where a block passes the tile or a thread rounds the block count up to
+    whole warps. Tiles whose side is a multiple of 16 give each warp a
+    16x8-pixel rectangle, others go row-major over blocks
+    (csrc/composite_fwd.cu::block_origin). Thread t's warp is t // 32."""
     nbx = (tile_size + 1) // 2
     threads = -(-nbx * nbx // 32) * 32
     tid = torch.arange(threads)
@@ -300,7 +300,10 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     tile_size^2) f32 -> (p_out, 16) d-table: each replayed chunk's rows at
     [comp_start[t] + j*chunk, +chunk) hold d{mean x, mean y, conic a, b, c,
     r, g, b, opacity} and the pair's gid as the key (KEY_INVALID on rows
-    outside the segment); every other row is inert (zeros, KEY_INVALID)."""
+    outside the segment); every other row is inert (zeros, KEY_INVALID).
+    The kernel runs composite_fwd's launch geometry (fwd_pixel_blocks: one
+    thread per 2x2 pixel block, a warp a 16x8 rectangle at tile 16 and 32)
+    and its warp skip (skip_threshold)."""
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc,
                                    tiles, g_tiles, tw=tw, tile_size=tile_size,
@@ -308,15 +311,16 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on cuda or cpu, not {attrs.device}")
     if attrs.dtype != torch.float32 or attrs.shape[1:] != (ATTR_DIM,) \
-            or not attrs.is_contiguous():
-        raise ValueError("composite_bwd needs a contiguous float32 (P, 16) table")
+            or not attrs.is_contiguous() or attrs.data_ptr() % 16:
+        raise ValueError("composite_bwd needs a contiguous, 16-byte aligned float32 "
+                         "(P, 16) table")
     if attrs.shape[0] % chunk or p_out % chunk:
         raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
                          f"be multiples of chunk {chunk}")
     npix = tile_size * tile_size
-    if npix > 1024 or npix % 32:
-        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per "
-                         "pixel in whole warps, at most 1024")
+    if not 1 <= tile_size <= 32:
+        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per 2x2 "
+                         "pixel block, at most 256 threads (tiles up to 32x32)")
     num_tiles = tile_start.shape[0]
     for tab in (tile_start, tile_count, comp_start, nproc):
         if tab.dtype != torch.int32 or not tab.is_contiguous() \

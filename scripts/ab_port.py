@@ -10,13 +10,14 @@ Runs A, B, B, A (A, B, C, C, B, A for three trees; each tree's own
 chip_smoke.py, from its own root, so each builds and loads its own kernels
 into its own build/kernels/), then prints every metric of each run, the
 mean per tree and each tree's ratio to A, and the card's name and power
-limit. The metrics: composite_fwd's (K2) and
+limit. The metrics: expand_pairs' (K1), composite_fwd's (K2) and
 composite_bwd's (K3) ms at both views, prefix_sum_small's (K5) and
-torch.cumsum's ms at both views, the bench view's frame median and device
-time (sparse, dense, dense with the saturation cull), and the train step's
-median and device time (sparse, dense, dense with the cull). The full logs
-and a JSON summary go to --out (default build/ab_port/). Needs one NVIDIA
-GPU; exits nonzero if a run does not end with chip_smoke.py's ok line.
+torch.cumsum's ms at both views, the bench view's frame median, device
+time and bin stage (sparse, dense, dense with the saturation cull), and the
+train step's median, device time and backward stage (sparse, dense, dense
+with the cull). The full logs and a JSON summary go to --out (default
+build/ab_port/). Needs one NVIDIA GPU; exits nonzero if a run does not end
+with chip_smoke.py's ok line.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ NUM = r"([0-9.]+)"
 # (metric, pattern): each pattern's first group is a view label where the
 # metric has one, its last the number
 PATTERNS = [
+    ("K1 ms", rf"^  (sparse|dense) expand_pairs: {NUM} ms, plain"),
     ("K2 ms", rf"^  (sparse|dense) composite_fwd: {NUM} ms, plain"),
     ("K3 ms", rf"^  (sparse|dense) composite_bwd: {NUM} ms, plain"),
     ("K5 ms", rf"^  (sparse|dense) prefix_sum_small: {NUM} ms, plain"),
@@ -43,9 +45,13 @@ PATTERNS = [
     ("frame device ms", rf"^  (sparse|dense) yaw \+0: device busy \(torch\.profiler\) {NUM} ms"),
     ("frame median ms", rf"^  (dense sat): pairs .*? median {NUM}"),
     ("frame device ms", rf"^  (dense sat): device busy \(torch\.profiler\) {NUM} ms"),
+    ("frame bin stage ms", rf"^  (sparse|dense) yaw \+0: pairs .*? stages .*?\bbin {NUM}"),
+    ("frame bin stage ms", rf"^  (dense sat): pairs .*? stages .*?\bbin {NUM}"),
     ("step median ms", rf"^  (sparse|dense|dense sat) train step ms of \d+ synced .*?: "
                        rf"median {NUM}"),
     ("step device ms", rf"^  (sparse|dense|dense sat) train step ms of .*device busy {NUM} ms"),
+    ("step backward stage ms",
+     rf"^  (sparse|dense|dense sat) train step \d+ stages \(ms\): .*?\bbackward {NUM}"),
 ]
 
 

@@ -12,8 +12,10 @@ slice and 50 calls in a row too) and compacted rows must be bit-equal;
 images and tiles within 2e-5 abs, nproc equal (crafted tile tables and the
 warp skip's edge cases too);
 composite_bwd's d columns within 1e-4 of each column's max (the kernel sums
-pixels in warp-shuffle order, the plain version in matmul order); render
-gradients within 2e-4 of each group's max of the CPU's."""
+pixels in its own fixed order, the plain version in matmul order) and the
+same bits from two launches (fixture scenes, crafted tiles, skip edges);
+expand_pairs on crafted tables too; render gradients within 2e-4 of each
+group's max of the CPU's."""
 
 import numpy as np
 import pytest
@@ -27,9 +29,10 @@ from gsplat_tpu_torch.render import compact as tcompact
 from gsplat_tpu_torch.render import expand as texp
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render import scan as tscan
-from torch_port_fixtures import (SCENES, crafted_tiles, cuda_device,  # noqa: F401
-                                 pair_tables, random_projection, saturating_projection,
-                                 skip_edge_tile)
+from torch_port_fixtures import (EXP_H, EXP_S, EXP_TILE, EXP_W,  # noqa: F401
+                                 EXPANSION_CASES, SCENES, crafted_projection,
+                                 crafted_tiles, cuda_device, pair_tables,
+                                 random_projection, saturating_projection, skip_edge_tile)
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -64,6 +67,29 @@ def test_expand_pairs_kernel_bit_equal(cuda_device, n, seed, budget, do_cull, kw
     got = texp.expand_pairs(table.to(cuda_device), total.to(cuda_device), budget, **meta)
     torch.cuda.synchronize()
     assert texp.expand_pairs.launches == before + 1
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["no_cull", "cull", "sat_pack"])
+@pytest.mark.parametrize("case", list(EXPANSION_CASES))
+def test_expand_pairs_kernel_crafted_tables(cuda_device, case, mode):
+    """The merge-path partition on crafted tables (torch_port_fixtures.
+    crafted_projection): a Gaussian over more slots than one block's 1024
+    items, runs of one-slot rows, total 0, total = S and past it, S no
+    multiple of the block."""
+    do_cull, sat_pack = mode != "no_cull", mode == "sat_pack"
+    arrays = crafted_projection(case)
+    tw, th = tb.tile_grid(EXP_W, EXP_H, EXP_TILE)
+    db = tb.depth_shift(tw * th)
+    table, total = tb.expansion_table(*map(torch.from_numpy, arrays), tw=tw, th=th,
+                                      tile_size=EXP_TILE, db=db, do_cull=do_cull)
+    meta = dict(tw=tw, tile_size=EXP_TILE, db=db, num_tiles=tw * th,
+                n_orig=arrays[0].shape[0], do_cull=do_cull, sat_pack=sat_pack)
+    want = texp.expand_pairs_plain(table, total, EXP_S, **meta)
+    got = texp.expand_pairs(table.to(cuda_device), total.to(cuda_device), EXP_S, **meta)
+    torch.cuda.synchronize()
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
@@ -182,6 +208,52 @@ def test_composite_bwd_kernel_matches_plain(cuda_device, name):
     again = traster.composite_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(again, got)   # no atomics: the same bits twice
+
+
+def assert_bwd_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
+    """composite_bwd against its plain version on a crafted table: the
+    forward (plain, on the CPU), its regions and a seeded cotangent; the
+    same bits from two launches."""
+    from gsplat_tpu_torch.render.render import contrib_regions
+
+    tables = [torch.from_numpy(a) for a in (attrs, ts, tc)]
+    tiles, nproc = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile, chunk=chunk)
+    p_out = tb.out_budget(attrs.shape[0], ts.shape[0], chunk)
+    np_c, comp_start, _ = contrib_regions(nproc, chunk, p_out)
+    g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
+        size=tiles.shape).astype(np.float32))
+    args = [t.to(device) for t in (*tables, comp_start, np_c, tiles, g)]
+    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out)
+    want = traster.composite_bwd_plain(*args, **kw)
+    before = traster.composite_bwd.launches
+    got = traster.composite_bwd(*args, **kw)
+    again = traster.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert traster.composite_bwd.launches == before + 2
+    assert_d_tables_match(got, want)
+    assert torch.equal(again, got)
+    return nproc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("chunk", [8, 32, 128])
+def test_composite_bwd_kernel_crafted_tiles(cuda_device, tile, chunk):
+    """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
+    boundary before their last chunk (torch_port_fixtures.crafted_tiles)."""
+    attrs, ts, tc = crafted_tiles(3, 2, tile, chunk)
+    nproc = assert_bwd_matches_plain(cuda_device, attrs, ts, tc, 3, tile, chunk)
+    assert (tc == 0).any() and (nproc.numpy() > 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_composite_bwd_kernel_skip_edges(cuda_device, tile, chunk):
+    """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
+    power within 1e-3 of the threshold on both sides
+    (torch_port_fixtures.skip_edge_tile)."""
+    assert_bwd_matches_plain(cuda_device, *skip_edge_tile(tile, chunk), 1, tile, chunk)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ from gsplat_tpu.render.raster_pallas import composite_bwd as j_composite_bwd
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render.binning import out_budget, tile_grid
 from gsplat_tpu_torch.render.render import contrib_regions
-from torch_port_fixtures import SCENES, pair_tables
+from torch_port_fixtures import SCENES, pair_tables, skip_edge_tile
 
 torch.set_num_threads(1)
 RTOL_COL = 2e-4
@@ -38,14 +38,15 @@ def inputs():
     return out
 
 
-def both(gathered, ts, tc, tiles, g, comp_start, np_c, p_out):
+def both(gathered, ts, tc, tiles, g, comp_start, np_c, p_out, tw=TW, tile=F.TILE,
+         chunk=F.CHUNK):
     want = j_composite_bwd(
         jnp.asarray(gathered.numpy().T), jnp.asarray(ts.numpy()), jnp.asarray(tc.numpy()),
         jnp.asarray(comp_start.numpy()), jnp.asarray(np_c.numpy()),
-        jnp.asarray(tiles.numpy()), jnp.asarray(g.numpy()), num_tiles=TW * TH, tw=TW,
-        tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out, interpret=True)
-    got = traster.composite_bwd(gathered, ts, tc, comp_start, np_c, tiles, g, tw=TW,
-                                tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out)
+        jnp.asarray(tiles.numpy()), jnp.asarray(g.numpy()), num_tiles=ts.shape[0], tw=tw,
+        tile_size=tile, chunk=chunk, p_out=p_out, interpret=True)
+    got = traster.composite_bwd(gathered, ts, tc, comp_start, np_c, tiles, g, tw=tw,
+                                tile_size=tile, chunk=chunk, p_out=p_out)
     return got.numpy(), np.asarray(want).T
 
 
@@ -126,3 +127,35 @@ def test_contrib_overflow_clamps_regions(inputs):
     assert_rows_match(got, want, np.nonzero(cov == 1)[0])
     if (cov == 0).any():
         assert inert(got, cov == 0)
+
+
+@pytest.mark.parametrize("chunk", [8, 32])
+def test_composite_bwd_skip_edges_match_reference(chunk):
+    """The warp skip's edge cases (torch_port_fixtures.skip_edge_tile: op 0,
+    op < 1/255, op 1, power > 0, power within 1e-3 of the threshold on either
+    side) at tile 16 against the JAX kernel. A pair whose power lies below
+    its threshold at every pixel of the tile (the kernel skips it in every
+    warp) has d-values exactly 0; the near-threshold pairs do not."""
+    tile = 16
+    attrs, ts, tc = map(torch.from_numpy, skip_edge_tile(tile, chunk))
+    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=1, tile_size=tile, chunk=chunk)
+    p_out = out_budget(attrs.shape[0], 1, chunk)
+    np_c, comp_start, overflow = contrib_regions(nproc, chunk, p_out)
+    assert not bool(overflow) and int(np_c[0]) >= 1
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=tiles.shape).astype(np.float32))
+    got, want = both(attrs, ts, tc, tiles, g, comp_start, np_c, p_out, tw=1, tile=tile,
+                     chunk=chunk)
+    assert_rows_match(got, want, np.arange(p_out))
+    # region row of segment row i: comp_start + (ts % chunk) + i
+    rows = int(comp_start[0]) + int(ts[0]) % chunk + np.arange(int(tc[0]))
+    h = tile // 2
+    pix = torch.arange(tile * tile)
+    px, py = (pix % tile - h).float(), (pix // tile - h).float()
+    a = attrs[int(ts[0]):int(ts[0] + tc[0])]
+    dx, dy = px - (a[:, 0] - h)[:, None], py - (a[:, 1] - h)[:, None]
+    power = -((0.5 * a[:, 2:3]) * (dx * dx) + a[:, 3:4] * (dx * dy)
+              + (0.5 * a[:, 4:5]) * (dy * dy))
+    skipped = (power < traster.skip_threshold(a[:, 8])[:, None]).all(1).numpy()
+    assert skipped[:2].all() and skipped.any() and not skipped.all()
+    assert (got[rows[skipped], :traster.N_DCOLS] == 0).all()
+    assert (np.abs(got[rows[~skipped], :traster.N_DCOLS]).max(1) > 0).any()

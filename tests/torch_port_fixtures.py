@@ -216,6 +216,52 @@ def skip_edge_tile(tile, chunk):
     return attrs, np.array([3], np.int32), np.array([n + 1], np.int32)
 
 
+# crafted expansion tables (expand_pairs): a 640x416 image at tile 16, 40 x 26
+# = 1040 tiles, so a Gaussian over every tile owns more slots than one block
+# of the kernel's merged sequence (1024 slots and rows) holds; EXP_S slots,
+# no multiple of that block
+EXP_W, EXP_H, EXP_TILE, EXP_S = 640, 416, 16, 3200
+# case: (Gaussians over every tile, one-tile Gaussians, dead rows)
+EXPANSION_CASES = {
+    "wide": (2, 300, 100),        # 2 x 1040 + 300 = 2380 live slots
+    "ones": (0, 3000, 200),       # runs of one-slot rows
+    "empty": (0, 0, 300),         # total 0
+    "full": (3, 80, 0),           # total = EXP_S
+    "overflow": (4, 80, 20),      # total 4240 > EXP_S
+}
+
+
+def crafted_projection(case, seed=0):
+    """A projection whose expansion table has the shape EXPANSION_CASES
+    names (its Gaussians shuffled, so live and dead rows interleave before
+    the table's live-first partition) -> mean2d, radius, depth, conic,
+    opacity. The wide splats (sigma 60-200 px) and the small ones (sigma
+    1-4 px, opacity down to 0.001) leave the tight cull some pairs to cut."""
+    n_wide, n_one, n_dead = EXPANSION_CASES[case]
+    rng = np.random.default_rng(seed)
+    n = n_wide + n_one + n_dead
+    tw, th = EXP_W // EXP_TILE, EXP_H // EXP_TILE
+    mean2d = np.zeros((n, 2), np.float32)
+    radius = np.zeros(n, np.float32)
+    sigma = np.ones(n, np.float32)
+    mean2d[:n_wide] = [EXP_W / 2, EXP_H / 2]
+    radius[:n_wide] = 2000.0
+    sigma[:n_wide] = rng.uniform(60, 200, n_wide)
+    t = rng.integers(0, tw * th, n_one)
+    one = slice(n_wide, n_wide + n_one)
+    mean2d[one, 0] = (t % tw) * EXP_TILE + 8 + rng.uniform(-3, 3, n_one)
+    mean2d[one, 1] = (t // tw) * EXP_TILE + 8 + rng.uniform(-3, 3, n_one)
+    radius[one] = 2.0
+    sigma[one] = rng.uniform(1, 4, n_one)
+    mean2d[n_wide + n_one:] = rng.uniform(0, EXP_W, (n_dead, 2))
+    depth = rng.uniform(-5, 50, n).astype(np.float32)
+    conic = np.stack([1 / sigma ** 2, rng.uniform(-0.2, 0.2, n) / sigma ** 2,
+                      1 / sigma ** 2], axis=1).astype(np.float32)
+    opacity = rng.uniform(0.001, 1.0, n).astype(np.float32)
+    perm = rng.permutation(n)
+    return mean2d[perm], radius[perm], depth[perm], conic[perm], opacity[perm]
+
+
 def random_projection(n, seed, width=256, height=192, dead_frac=0.3,
                       clustered_dead=False):
     """A random projection for binning (tests/test_expand_pallas.py's scene,
