@@ -36,7 +36,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
-           "prefix_sum_small", "compact_runs")
+           "segment_sum", "prefix_sum_small", "compact_runs")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # the compiler's output of each verbose build, by source name

@@ -59,6 +59,12 @@
 //   - two blocks an SM (96 registers, no spills). Capped at 80 for a third
 //     block the kernel ran ~9% faster but spilled, with the per-pixel
 //     cotangent terms in registers and with them in shared memory alike.
+//   - tiles above 32, up to 64, run in composite_fwd's pixel passes (256
+//     threads, pass p on map thread p * 256 + tid). Within a round of 32
+//     pairs the passes run in turn, and each adds its warp totals into the
+//     lane's slot of the partial array after the passes before it; the
+//     cross-warp round then sums the warps as before. So a d-row sums its
+//     pixels pass by pass within a warp, then warp by warp: a fixed order.
 // --fmad=false and an IEEE division keep the plain version's rounding of
 // the power, of alpha and of the alpha >= 1/255 decision (the forward's
 // decisions); only the pixel sums use explicit fused multiply-adds.
@@ -72,7 +78,10 @@ namespace {
 constexpr int kAttrDim = 16;
 constexpr int kSums = 10;         // per pair: w*g (3), gda (1), dpow * basis (6)
 constexpr int kSub = 32;          // pairs per cross-warp round
-constexpr int kMaxThreads = 256;  // a 32x32 tile's 2x2 pixel blocks
+// threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
+// in pixel passes of kMaxThreads blocks each, up to four (tile 64).
+constexpr int kMaxThreads = 256;
+constexpr int kMaxTile = 64;
 constexpr unsigned kFull = 0xffffffffu;
 // render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
 constexpr float kSkipMargin = 1e-3f;
@@ -143,7 +152,33 @@ __device__ __forceinline__ int reduce_slot(int lane) {
   return h4 ? -1 : base + 3 + (h2 ? 1 : 0);
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
+// The cotangent terms of a thread's four pixels at block origin (x0, y0):
+// g_rgb, the forward colour dotted with it (total_cg) and t_final * g_t.
+__device__ __forceinline__ void load_cotangent(
+    const float* __restrict__ res, const float* __restrict__ gt, int ts, int x0, int y0,
+    const bool (&valid)[4], float (&gr)[4], float (&gg)[4], float (&gb)[4],
+    float (&total_cg)[4], float (&tf_gt)[4]) {
+  const int npix = ts * ts;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
+    gr[q] = gg[q] = gb[q] = total_cg[q] = tf_gt[q] = 0.f;
+    if (valid[q]) {
+      gr[q] = gt[p];
+      gg[q] = gt[npix + p];
+      gb[q] = gt[2 * npix + p];
+      total_cg[q] = res[p] * gr[q] + res[npix + p] * gg[q] + res[2 * npix + p] * gb[q];
+      tf_gt[q] = res[3 * npix + p] * gt[3 * npix + p];
+    }
+  }
+}
+
+// NPASS pixel passes of blockDim.x 2x2 blocks each (one at tiles up to 32).
+// With more than one pass the per-pixel running state of every pass stays
+// in registers, and the cotangent terms are reloaded for each pass of a
+// round; two blocks an SM only at one pass.
+template <int NPASS>
+__global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd_kernel(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count,
     const int32_t* __restrict__ comp_start, const int32_t* __restrict__ nproc,
@@ -177,30 +212,27 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
   const int h = ts / 2;
   const float ox = static_cast<float>((t % tw) * ts + h);
   const float oy = static_cast<float>((t / tw) * ts + h);
-  int x0, y0;
-  block_origin(tid, ts, x0, y0);
-  // pixel q of the block: x0 + (q & 1), y0 + (q >> 1)
-  const float px0 = static_cast<float>(x0 - h), px1 = static_cast<float>(x0 + 1 - h);
-  const float py0 = static_cast<float>(y0 - h), py1 = static_cast<float>(y0 + 1 - h);
+  // pass p runs the 2x2 block of thread p * blockDim.x + tid of
+  // fwd_pixel_blocks' map; pixel q of a block: x0 + (q & 1), y0 + (q >> 1)
+  int x0[NPASS], y0[NPASS];
+  float px0[NPASS], px1[NPASS], py0[NPASS], py1[NPASS];
+  bool valid[NPASS][4];
+#pragma unroll
+  for (int p = 0; p < NPASS; ++p) {
+    const int v = p * blockDim.x + tid;
+    block_origin(v, ts, x0[p], y0[p]);
+    px0[p] = static_cast<float>(x0[p] - h), px1[p] = static_cast<float>(x0[p] + 1 - h);
+    py0[p] = static_cast<float>(y0[p] - h), py1[p] = static_cast<float>(y0[p] + 1 - h);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      valid[p][q] = v < nblk && x0[p] + (q & 1) < ts && y0[p] + (q >> 1) < ts;
+  }
   const int slot = reduce_slot(lane);
 
-  bool valid[4];
-  float gr[4], gg[4], gb[4], total_cg[4], tf_gt[4];
   const float* res = tiles + static_cast<size_t>(t) * 4 * npix;
   const float* gt = g_tiles + static_cast<size_t>(t) * 4 * npix;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    valid[q] = tid < nblk && x0 + (q & 1) < ts && y0 + (q >> 1) < ts;
-    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
-    gr[q] = gg[q] = gb[q] = total_cg[q] = tf_gt[q] = 0.f;
-    if (valid[q]) {
-      gr[q] = gt[p];
-      gg[q] = gt[npix + p];
-      gb[q] = gt[2 * npix + p];
-      total_cg[q] = res[p] * gr[q] + res[npix + p] * gg[q] + res[2 * npix + p] * gb[q];
-      tf_gt[q] = res[3 * npix + p] * gt[3 * npix + p];
-    }
-  }
+  float gr[4], gg[4], gb[4], total_cg[4], tf_gt[4];
+  if (NPASS == 1) load_cotangent(res, gt, ts, x0[0], y0[0], valid[0], gr, gg, gb, total_cg, tf_gt);
 
   // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
   // each chunk: it reads only rows it copied itself, so the copy needs no
@@ -216,7 +248,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
   };
   prefetch(0);
 
-  float t_run[4] = {1.f, 1.f, 1.f, 1.f}, prefix[4] = {0.f, 0.f, 0.f, 0.f};
+  float t_run[NPASS][4], prefix[NPASS][4];
+#pragma unroll
+  for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) t_run[p][q] = 1.f, prefix[p][q] = 0.f;
   int rnd = 0;  // rounds so far: selects the partial buffer
   for (int j = 0; j < np; ++j) {
     __syncthreads();  // every thread is done with the previous chunk's records
@@ -236,72 +272,87 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
     if (j + 1 < np) prefetch(j + 1);
     __syncthreads();
 
-    float t_exc[4] = {1.f, 1.f, 1.f, 1.f}, csum[4] = {0.f, 0.f, 0.f, 0.f};
+    float t_exc[NPASS][4], csum[NPASS][4];
+#pragma unroll
+    for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t_exc[p][q] = 1.f, csum[p][q] = 0.f;
     for (int k0 = 0; k0 < chunk; k0 += kSub, ++rnd) {
       const int kn = min(kSub, chunk - k0);
       float* part = s_part + (rnd & 1) * part_size;
-      for (int kk = 0; kk < kn; ++kk) {
-        const int k = k0 + kk;
-        const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
-        const float dx0 = px0 - g0.x, dx1 = px1 - g0.x;
-        const float dy0 = py0 - g0.y, dy1 = py1 - g0.y;
-        const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
-        const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
-        float power[4];
-        power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
-        power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
-        power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
-        power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
-        bool below = true;
+      // each pass adds its warp totals into the lane's slot, passes in
+      // order: the warp's share of a pair sums pass 0, 1, ... in turn
 #pragma unroll
-        for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[q];
-        float* dst = part + (warp * kSub + kk) * kSums;
-        if (__all_sync(kFull, below)) {
-          if (slot >= 0) dst[slot] = 0.f;
-          continue;
-        }
-        const float op = g2.x;
-        float sr = 0.f, sg = 0.f, sb = 0.f, sgda = 0.f, dpow[4];
+      for (int p = 0; p < NPASS; ++p) {
+        if (NPASS > 1)
+          load_cotangent(res, gt, ts, x0[p], y0[p], valid[p], gr, gg, gb, total_cg, tf_gt);
+        // kept a loop: unrolled 32 times (nvcc does so at one pass) the
+        // round's code outgrows the instruction cache, ~7x slower
+#pragma unroll 1
+        for (int kk = 0; kk < kn; ++kk) {
+          const int k = k0 + kk;
+          const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
+          const float dx0 = px0[p] - g0.x, dx1 = px1[p] - g0.x;
+          const float dy0 = py0[p] - g0.y, dy1 = py1[p] - g0.y;
+          const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
+          const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
+          float power[4];
+          power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
+          power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
+          power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
+          power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
+          bool below = true;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float G = expf(power[q] > 0.f ? -100.f : power[q]);
-          const float raw_a = op * G;
-          const bool keep = valid[q] && raw_a >= alpha_min;
-          const float alpha = keep ? fminf(raw_a, alpha_max) : 0.f;
-          const float t_i = t_exc[q] * t_run[q];
-          const float w = alpha * t_i;
-          const float cg = g1.y * gr[q] + g1.z * gg[q] + g1.w * gb[q];
-          csum[q] += w * cg;
-          float dalpha = 0.f;
-          if (keep && raw_a <= alpha_max)
-            dalpha = t_i * cg - ((total_cg[q] - (csum[q] + prefix[q])) + tf_gt[q]) /
-                                    (1.f - alpha);
-          const float gda = G * dalpha;
-          dpow[q] = op * gda;
-          sr = __fmaf_rn(w, gr[q], sr);
-          sg = __fmaf_rn(w, gg[q], sg);
-          sb = __fmaf_rn(w, gb[q], sb);
-          sgda += gda;
-          t_exc[q] *= 1.f - alpha;
+          for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[p][q];
+          float* dst = part + (warp * kSub + kk) * kSums;
+          if (__all_sync(kFull, below)) {
+            if (p == 0 && slot >= 0) dst[slot] = 0.f;
+            continue;
+          }
+          const float op = g2.x;
+          float sr = 0.f, sg = 0.f, sb = 0.f, sgda = 0.f, dpow[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float G = expf(power[q] > 0.f ? -100.f : power[q]);
+            const float raw_a = op * G;
+            const bool keep = valid[p][q] && raw_a >= alpha_min;
+            const float alpha = keep ? fminf(raw_a, alpha_max) : 0.f;
+            const float t_i = t_exc[p][q] * t_run[p][q];
+            const float w = alpha * t_i;
+            const float cg = g1.y * gr[q] + g1.z * gg[q] + g1.w * gb[q];
+            csum[p][q] += w * cg;
+            float dalpha = 0.f;
+            if (keep && raw_a <= alpha_max)
+              dalpha = t_i * cg - ((total_cg[q] - (csum[p][q] + prefix[p][q])) + tf_gt[q]) /
+                                      (1.f - alpha);
+            const float gda = G * dalpha;
+            dpow[q] = op * gda;
+            sr = __fmaf_rn(w, gr[q], sr);
+            sg = __fmaf_rn(w, gg[q], sg);
+            sb = __fmaf_rn(w, gb[q], sb);
+            sgda += gda;
+            t_exc[p][q] *= 1.f - alpha;
+          }
+          // the basis sums over the block: columns x0, x1 and rows y0, y1
+          const float sx0 = dpow[0] + dpow[2], sx1 = dpow[1] + dpow[3];
+          const float sy0 = dpow[0] + dpow[1], sy1 = dpow[2] + dpow[3];
+          float v[kSums];
+          v[0] = sr;
+          v[1] = sg;
+          v[2] = sb;
+          v[3] = sgda;
+          v[4] = __fmaf_rn(px1[p] * px1[p], sx1, (px0[p] * px0[p]) * sx0);
+          v[5] = __fmaf_rn(py1[p] * py1[p], sy1, (py0[p] * py0[p]) * sy0);
+          v[6] = __fmaf_rn(px1[p] * py1[p], dpow[3],
+                           __fmaf_rn(px0[p] * py1[p], dpow[2],
+                                     __fmaf_rn(px1[p] * py0[p], dpow[1],
+                                               (px0[p] * py0[p]) * dpow[0])));
+          v[7] = __fmaf_rn(px1[p], sx1, px0[p] * sx0);
+          v[8] = __fmaf_rn(py1[p], sy1, py0[p] * sy0);
+          v[9] = sx0 + sx1;
+          const float total = warp_reduce_scatter(v, lane);
+          if (slot >= 0) dst[slot] = p == 0 ? total : dst[slot] + total;
         }
-        // the basis sums over the block: columns x0, x1 and rows y0, y1
-        const float sx0 = dpow[0] + dpow[2], sx1 = dpow[1] + dpow[3];
-        const float sy0 = dpow[0] + dpow[1], sy1 = dpow[2] + dpow[3];
-        float v[kSums];
-        v[0] = sr;
-        v[1] = sg;
-        v[2] = sb;
-        v[3] = sgda;
-        v[4] = __fmaf_rn(px1 * px1, sx1, (px0 * px0) * sx0);
-        v[5] = __fmaf_rn(py1 * py1, sy1, (py0 * py0) * sy0);
-        v[6] = __fmaf_rn(px1 * py1, dpow[3],
-                         __fmaf_rn(px0 * py1, dpow[2],
-                                   __fmaf_rn(px1 * py0, dpow[1], (px0 * py0) * dpow[0])));
-        v[7] = __fmaf_rn(px1, sx1, px0 * sx0);
-        v[8] = __fmaf_rn(py1, sy1, py0 * sy0);
-        v[9] = sx0 + sx1;
-        const float total = warp_reduce_scatter(v, lane);
-        if (slot >= 0) dst[slot] = total;
       }
       __syncthreads();
       // the round's cross-warp sums: eight threads a pair, thread s of a
@@ -348,18 +399,42 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_kernel(
       // round after it passes the next round's barrier first
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      t_run[q] *= t_exc[q];
-      prefix[q] = csum[q] + prefix[q];
-    }
+    for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        t_run[p][q] *= t_exc[p][q];
+        prefix[p][q] = csum[p][q] + prefix[p][q];
+      }
   }
 }
 
-// Threads of a block at this tile size: one per 2x2 pixel block, in whole
-// warps (render/raster.py::fwd_pixel_blocks).
-int block_threads(int tile_size) {
+// fwd_pixel_blocks' threads at this tile size: one per 2x2 pixel block, in
+// whole warps (render/raster.py::fwd_pixel_blocks).
+int map_threads(int tile_size) {
   const int nbx = (tile_size + 1) / 2;
   return (nbx * nbx + 31) / 32 * 32;
+}
+
+template <int NPASS>
+cudaError_t launch(int num_tiles, int threads, int chunk, cudaStream_t stream,
+                   const float* attrs, const int32_t* tile_start,
+                   const int32_t* tile_count, const int32_t* comp_start,
+                   const int32_t* nproc, const float* tiles, const float* g_tiles,
+                   int tw, int tile_size, int p_out, float alpha_min, float alpha_max,
+                   float key_invalid, float* d_out) {
+  const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk) +
+                      sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
+                                       static_cast<size_t>(chunk));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        composite_bwd_kernel<NPASS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  composite_bwd_kernel<NPASS><<<num_tiles, threads, smem, stream>>>(
+      attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size,
+      chunk, p_out, alpha_min, alpha_max, key_invalid, d_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -367,35 +442,40 @@ int block_threads(int tile_size) {
 // attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
 // every segment inside it; tile_start, tile_count, comp_start, nproc:
 // (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4, tile_size^2) float32;
-// d_out: (p_out, 16) float32, prefilled by the caller. tile_size <= 32.
-// alpha_min, alpha_max, key_invalid: render/raster.py's ALPHA_MIN,
-// ALPHA_MAX, KEY_INVALID. Returns cudaGetLastError() after the launch.
+// d_out: (p_out, 16) float32, prefilled by the caller. tile_size <=
+// kMaxTile. alpha_min, alpha_max, key_invalid: render/raster.py's
+// ALPHA_MIN, ALPHA_MAX, KEY_INVALID. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a tile above kMaxTile).
 extern "C" int composite_bwd_launch(
     const void* attrs, const void* tile_start, const void* tile_count,
     const void* comp_start, const void* nproc, const void* tiles,
     const void* g_tiles, int num_tiles, int tw, int tile_size, int chunk,
     int p_out, float alpha_min, float alpha_max, float key_invalid,
     void* d_out, void* stream) {
-  if (num_tiles > 0) {
-    const int threads = block_threads(tile_size);
-    const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk) +
-                        sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
-                                         static_cast<size_t>(chunk));
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    composite_bwd_kernel<<<num_tiles, threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(attrs),
-        static_cast<const int32_t*>(tile_start),
-        static_cast<const int32_t*>(tile_count),
-        static_cast<const int32_t*>(comp_start),
-        static_cast<const int32_t*>(nproc), static_cast<const float*>(tiles),
-        static_cast<const float*>(g_tiles), tw, tile_size, chunk, p_out,
-        alpha_min, alpha_max, key_invalid, static_cast<float*>(d_out));
+  if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (tile_size < 1 || tile_size > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
+  const int virt = map_threads(tile_size);
+  const int threads = virt < kMaxThreads ? virt : kMaxThreads;
+  const int npass = (virt + kMaxThreads - 1) / kMaxThreads;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(attrs);
+  const auto* s = static_cast<const int32_t*>(tile_start);
+  const auto* c = static_cast<const int32_t*>(tile_count);
+  const auto* cs = static_cast<const int32_t*>(comp_start);
+  const auto* np = static_cast<const int32_t*>(nproc);
+  const auto* r = static_cast<const float*>(tiles);
+  const auto* g = static_cast<const float*>(g_tiles);
+  auto* d = static_cast<float*>(d_out);
+  cudaError_t e;
+  switch (npass) {
+    case 1: e = launch<1>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
+                          p_out, alpha_min, alpha_max, key_invalid, d); break;
+    case 2: e = launch<2>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
+                          p_out, alpha_min, alpha_max, key_invalid, d); break;
+    case 3: e = launch<3>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
+                          p_out, alpha_min, alpha_max, key_invalid, d); break;
+    default: e = launch<4>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
+                           p_out, alpha_min, alpha_max, key_invalid, d); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

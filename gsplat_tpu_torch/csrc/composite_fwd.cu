@@ -46,6 +46,14 @@
 //   - staging one chunk ahead: every thread copies its rows of the next
 //     chunk with 16-byte cp.async while the block composites this one, and
 //     turns them into the packed pair records after the next exit vote.
+//   - tiles above 32, up to 64, run in pixel passes: the block stays at 256
+//     threads, and in pass p thread tid takes the 2x2 block of map thread
+//     p * 256 + tid (at tile 64 a pass is a 64x16 band). The kernel is a
+//     template on the pass count, so one pass compiles to the tile-32 code;
+//     with more, every pass's running state stays in registers (at most
+//     128, two blocks an SM), a staged chunk is composited pass after pass,
+//     and the exit vote covers all of the tile's pixels, so nproc is the
+//     tile's and not a pass's.
 // Within a chunk T is held fixed and the exclusive product of (1 - alpha)
 // runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the chunk: the
 // plain PyTorch version's association.
@@ -57,7 +65,10 @@
 namespace {
 
 constexpr int kAttrDim = 16;
-constexpr int kMaxThreads = 256;   // a 32x32 tile's 2x2 pixel blocks
+// threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
+// in pixel passes of kMaxThreads blocks each, up to four (tile 64).
+constexpr int kMaxThreads = 256;
+constexpr int kMaxTile = 64;
 // render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
 constexpr float kSkipMargin = 1e-3f;
 
@@ -91,7 +102,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(
+// One tile in NPASS pixel passes (the two kernels below).
+template <int NPASS>
+__device__ __forceinline__ void composite_tile(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count, int tw, int tile_size, int chunk,
     float alpha_min, float alpha_max, float t_eps, float* __restrict__ tiles,
@@ -114,15 +127,21 @@ __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(
   const int h = ts / 2;
   const float ox = static_cast<float>((t % tw) * ts + h);
   const float oy = static_cast<float>((t / tw) * ts + h);
-  int x0, y0;
-  block_origin(tid, ts, x0, y0);
-  const float px0 = static_cast<float>(x0 - h), px1 = static_cast<float>(x0 + 1 - h);
-  const float py0 = static_cast<float>(y0 - h), py1 = static_cast<float>(y0 + 1 - h);
-  // pixel q of the block: x0 + (q & 1), y0 + (q >> 1)
-  bool valid[4];
+  // pass p runs the 2x2 block of thread p * blockDim.x + tid of
+  // fwd_pixel_blocks' map; pixel q of a block: x0 + (q & 1), y0 + (q >> 1)
+  int x0[NPASS], y0[NPASS];
+  float px0[NPASS], px1[NPASS], py0[NPASS], py1[NPASS];
+  bool valid[NPASS][4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    valid[q] = tid < nblk && x0 + (q & 1) < ts && y0 + (q >> 1) < ts;
+  for (int p = 0; p < NPASS; ++p) {
+    const int v = p * blockDim.x + tid;
+    block_origin(v, ts, x0[p], y0[p]);
+    px0[p] = static_cast<float>(x0[p] - h), px1[p] = static_cast<float>(x0[p] + 1 - h);
+    py0[p] = static_cast<float>(y0[p] - h), py1[p] = static_cast<float>(y0[p] + 1 - h);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      valid[p][q] = v < nblk && x0[p] + (q & 1) < ts && y0[p] + (q >> 1) < ts;
+  }
 
   // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
   // each chunk: it reads only rows it copied itself, so the copy needs no
@@ -138,14 +157,19 @@ __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(
   };
   if (nch > 0) prefetch(0);
 
-  float T[4], cr[4], cg[4], cb[4];
+  float T[NPASS][4], cr[NPASS][4], cg[NPASS][4], cb[NPASS][4];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) T[q] = 1.f, cr[q] = cg[q] = cb[q] = 0.f;
+  for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) T[p][q] = 1.f, cr[p][q] = cg[p][q] = cb[p][q] = 0.f;
   int j = 0;
   for (; j < nch; ++j) {
+    // the whole-tile exit: a vote over every pixel of every pass
     bool alive = false;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) alive |= valid[q] && T[q] >= t_eps;
+    for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) alive |= valid[p][q] && T[p][q] >= t_eps;
     // the barrier also keeps the staging below from overwriting a chunk
     // another thread is still compositing
     if (!__syncthreads_or(alive)) break;
@@ -162,56 +186,104 @@ __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(
     // the next chunk's rows travel while this one is composited
     if (j + 1 < nch) prefetch(j + 1);
     __syncthreads();
-    float t_exc[4] = {1.f, 1.f, 1.f, 1.f};
-    for (int k = 0; k < chunk; ++k) {
-      const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
-      const float dx0 = px0 - g0.x, dx1 = px1 - g0.x;
-      const float dy0 = py0 - g0.y, dy1 = py1 - g0.y;
-      const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
-      const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
-      float power[4];
-      power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
-      power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
-      power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
-      power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
-      bool below = true;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[q];
-      if (__all_sync(0xffffffffu, below)) continue;
+    for (int p = 0; p < NPASS; ++p) {
+      float t_exc[4] = {1.f, 1.f, 1.f, 1.f};
+      for (int k = 0; k < chunk; ++k) {
+        const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
+        const float dx0 = px0[p] - g0.x, dx1 = px1[p] - g0.x;
+        const float dy0 = py0[p] - g0.y, dy1 = py1[p] - g0.y;
+        const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
+        const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
+        float power[4];
+        power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
+        power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
+        power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
+        power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
+        bool below = true;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float raw = g2.x * expf(power[q] > 0.f ? -100.f : power[q]);
-        const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
-        const float w = alpha * t_exc[q] * T[q];
-        cr[q] = __fmaf_rn(g1.y, w, cr[q]);
-        cg[q] = __fmaf_rn(g1.z, w, cg[q]);
-        cb[q] = __fmaf_rn(g1.w, w, cb[q]);
-        t_exc[q] *= 1.f - alpha;
+        for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[p][q];
+        if (__all_sync(0xffffffffu, below)) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float raw = g2.x * expf(power[q] > 0.f ? -100.f : power[q]);
+          const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
+          const float w = alpha * t_exc[q] * T[p][q];
+          cr[p][q] = __fmaf_rn(g1.y, w, cr[p][q]);
+          cg[p][q] = __fmaf_rn(g1.z, w, cg[p][q]);
+          cb[p][q] = __fmaf_rn(g1.w, w, cb[p][q]);
+          t_exc[q] *= 1.f - alpha;
+        }
       }
-    }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) T[q] *= t_exc[q];
+      for (int q = 0; q < 4; ++q) T[p][q] *= t_exc[q];
+    }
   }
   // a tile that exits early leaves its next chunk's copy in flight: retire it
   cp_async_wait_all();
   float* out = tiles + static_cast<size_t>(t) * 4 * npix;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (!valid[q]) continue;
-    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
-    out[p] = cr[q];
-    out[npix + p] = cg[q];
-    out[2 * npix + p] = cb[q];
-    out[3 * npix + p] = T[q];
-  }
+  for (int p = 0; p < NPASS; ++p)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!valid[p][q]) continue;
+      const int px = (y0[p] + (q >> 1)) * ts + x0[p] + (q & 1);
+      out[px] = cr[p][q];
+      out[npix + px] = cg[p][q];
+      out[2 * npix + px] = cb[p][q];
+      out[3 * npix + px] = T[p][q];
+    }
   if (tid == 0) nproc[t] = j;
 }
 
-// Threads of a block at this tile size: one per 2x2 pixel block, in whole
-// warps (render/raster.py::fwd_pixel_blocks).
-int block_threads(int tile_size) {
+#define COMPOSITE_FWD_ARGS                                                       \
+  const float *__restrict__ attrs, const int32_t *__restrict__ tile_start,      \
+      const int32_t *__restrict__ tile_count, int tw, int tile_size, int chunk, \
+      float alpha_min, float alpha_max, float t_eps, float *__restrict__ tiles, \
+      int32_t *__restrict__ nproc
+
+// tiles up to 32: one pass
+__global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(COMPOSITE_FWD_ARGS) {
+  composite_tile<1>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
+                    alpha_max, t_eps, tiles, nproc);
+}
+
+// larger tiles: every pass's state lives in registers, capped so that two
+// blocks share an SM (one block alone waits on its latencies, ~25% slower)
+template <int NPASS>
+__global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_passes(COMPOSITE_FWD_ARGS) {
+  composite_tile<NPASS>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
+                        alpha_max, t_eps, tiles, nproc);
+}
+
+// fwd_pixel_blocks' threads at this tile size: one per 2x2 pixel block, in
+// whole warps (render/raster.py::fwd_pixel_blocks).
+int map_threads(int tile_size) {
   const int nbx = (tile_size + 1) / 2;
   return (nbx * nbx + 31) / 32 * 32;
+}
+
+template <int NPASS>
+cudaError_t launch(int num_tiles, int threads, size_t smem, cudaStream_t stream,
+                   const float* attrs, const int32_t* tile_start,
+                   const int32_t* tile_count, int tw, int tile_size, int chunk,
+                   float alpha_min, float alpha_max, float t_eps, float* tiles,
+                   int32_t* nproc) {
+  void (*kernel)(COMPOSITE_FWD_ARGS);
+  if constexpr (NPASS == 1) {
+    kernel = composite_fwd_kernel;
+  } else {
+    kernel = composite_fwd_passes<NPASS>;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<num_tiles, threads, smem, stream>>>(
+      attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min, alpha_max,
+      t_eps, tiles, nproc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -219,29 +291,37 @@ int block_threads(int tile_size) {
 // attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
 // every segment inside it; tile_start, tile_count: (num_tiles,) int32; tiles:
 // (num_tiles, 4, tile_size^2) float32; nproc: (num_tiles,) int32.
-// tile_size <= 32. alpha_min, alpha_max, t_eps: render/raster.py's ALPHA_MIN,
-// ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch.
+// tile_size <= kMaxTile. alpha_min, alpha_max, t_eps: render/raster.py's
+// ALPHA_MIN, ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a tile above kMaxTile).
 extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     const void* tile_count, int num_tiles,
                                     int tw, int tile_size, int chunk,
                                     float alpha_min, float alpha_max,
                                     float t_eps, void* tiles, void* nproc,
                                     void* stream) {
-  if (num_tiles > 0) {
-    const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          composite_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    composite_fwd_kernel<<<num_tiles, block_threads(tile_size), smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(attrs),
-        static_cast<const int32_t*>(tile_start),
-        static_cast<const int32_t*>(tile_count), tw, tile_size, chunk,
-        alpha_min, alpha_max, t_eps, static_cast<float*>(tiles),
-        static_cast<int32_t*>(nproc));
+  if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (tile_size < 1 || tile_size > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
+  const int virt = map_threads(tile_size);
+  const int threads = virt < kMaxThreads ? virt : kMaxThreads;
+  const int npass = (virt + kMaxThreads - 1) / kMaxThreads;
+  const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(attrs);
+  const auto* s = static_cast<const int32_t*>(tile_start);
+  const auto* c = static_cast<const int32_t*>(tile_count);
+  auto* o = static_cast<float*>(tiles);
+  auto* n = static_cast<int32_t*>(nproc);
+  cudaError_t e;
+  switch (npass) {
+    case 1: e = launch<1>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
+                          alpha_min, alpha_max, t_eps, o, n); break;
+    case 2: e = launch<2>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
+                          alpha_min, alpha_max, t_eps, o, n); break;
+    case 3: e = launch<3>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
+                          alpha_min, alpha_max, t_eps, o, n); break;
+    default: e = launch<4>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
+                           alpha_min, alpha_max, t_eps, o, n); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

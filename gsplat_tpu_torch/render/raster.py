@@ -37,9 +37,23 @@ N_DCOLS = 9   # d-table columns carrying gradients: mean2d(2) conic(3) rgb(3) op
 # the compositors' skip: a pair whose power lies below log(ALPHA_MIN / op)
 # less this margin has alpha 0 at that pixel (skip_threshold)
 SKIP_MARGIN = 1e-3
-# tiles per step of the plain compositor: bounds its (tiles, chunk, pixels)
-# temporaries to a few hundred MB at tile 32, chunk 128
+# tiles per step of the plain compositor at tiles up to 32 (fewer above):
+# bounds its (tiles, chunk, pixels) temporaries to a few hundred MB at chunk 128
 _PLAIN_TILE_BATCH = 256
+# the kernels' largest tile: 256 threads, each a 2x2 pixel block in each of
+# up to four pixel passes
+MAX_TILE = 64
+
+
+def _plain_tile_batch(npix: int) -> int:
+    return max(1, _PLAIN_TILE_BATCH * 1024 // max(npix, 1024))
+
+
+def _check_tile(tile_size: int) -> None:
+    if not 1 <= tile_size <= MAX_TILE:
+        raise ValueError(
+            f"tile_size {tile_size}: the compositing kernels run 256 threads of 2x2 "
+            f"pixel blocks in at most four pixel passes, tiles up to {MAX_TILE}x{MAX_TILE}")
 
 
 def pack_attrs(mean2d, conic, rgb, opacity) -> torch.Tensor:
@@ -65,8 +79,9 @@ def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
     lane = torch.arange(chunk, device=dev)
     tiles = torch.empty((num_tiles, 4, npix), dtype=torch.float32, device=dev)
     nproc = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
-    for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
-        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=dev)
+    batch = _plain_tile_batch(npix)
+    for b0 in range(0, num_tiles, batch):
+        t = torch.arange(b0, min(b0 + batch, num_tiles), device=dev)
         start = tile_start[t].to(torch.int64)
         count = tile_count[t].to(torch.int64)
         astart = (start // chunk) * chunk
@@ -118,12 +133,15 @@ def skip_threshold(op: torch.Tensor) -> torch.Tensor:
 
 def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
     """composite_fwd's and composite_bwd's launch geometry: (threads, 4)
-    int64, the tile pixels (y * tile_size + x) of each thread's 2x2 block in
-    the order (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1); -1
-    where a block passes the tile or a thread rounds the block count up to
-    whole warps. Tiles whose side is a multiple of 16 give each warp a
+    int64, the tile pixels (y * tile_size + x) of each map thread's 2x2
+    block in the order (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 +
+    1); -1 where a block passes the tile or a thread rounds the block count
+    up to whole warps. Tiles whose side is a multiple of 16 give each warp a
     16x8-pixel rectangle, others go row-major over blocks
-    (csrc/composite_fwd.cu::block_origin). Thread t's warp is t // 32."""
+    (csrc/composite_fwd.cu::block_origin). Map thread t's warp is t // 32.
+    The kernels launch min(threads, 256) threads and run map thread t as
+    thread t % 256 in pixel pass t // 256 (one pass up to tile 32, four at
+    tile 64)."""
     nbx = (tile_size + 1) // 2
     threads = -(-nbx * nbx // 32) * 32
     tid = torch.arange(threads)
@@ -164,9 +182,7 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
     if P % chunk:
         raise ValueError(f"pair table rows {P} are not a multiple of chunk {chunk}")
     npix = tile_size * tile_size
-    if not 1 <= tile_size <= 32:
-        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per 2x2 "
-                         "pixel block, at most 256 threads (tiles up to 32x32)")
+    _check_tile(tile_size)
     for tab in (tile_start, tile_count):
         if tab.dtype != torch.int32 or not tab.is_contiguous() or tab.device != attrs.device:
             raise ValueError("tile tables must be contiguous int32 on the table's device")
@@ -218,8 +234,9 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     # pixel basis of the power's gradient: [px^2, py^2, px*py, px, py, 1]
     V = torch.stack([px * px, py * py, px * py, px, py, torch.ones_like(px)])
     lane = torch.arange(chunk, device=dev)
-    for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
-        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=dev)
+    batch = _plain_tile_batch(npix)
+    for b0 in range(0, num_tiles, batch):
+        t = torch.arange(b0, min(b0 + batch, num_tiles), device=dev)
         start = tile_start[t].to(torch.int64)
         count = tile_count[t].to(torch.int64)
         astart = (start // chunk) * chunk
@@ -302,8 +319,9 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     r, g, b, opacity} and the pair's gid as the key (KEY_INVALID on rows
     outside the segment); every other row is inert (zeros, KEY_INVALID).
     The kernel runs composite_fwd's launch geometry (fwd_pixel_blocks: one
-    thread per 2x2 pixel block, a warp a 16x8 rectangle at tile 16 and 32)
-    and its warp skip (skip_threshold)."""
+    thread per 2x2 pixel block, a warp a 16x8 rectangle where the tile is a
+    multiple of 16, pixel passes above tile 32) and its warp skip
+    (skip_threshold)."""
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc,
                                    tiles, g_tiles, tw=tw, tile_size=tile_size,
@@ -318,9 +336,7 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
         raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
                          f"be multiples of chunk {chunk}")
     npix = tile_size * tile_size
-    if not 1 <= tile_size <= 32:
-        raise ValueError(f"tile_size {tile_size}: the kernel runs one thread per 2x2 "
-                         "pixel block, at most 256 threads (tiles up to 32x32)")
+    _check_tile(tile_size)
     num_tiles = tile_start.shape[0]
     for tab in (tile_start, tile_count, comp_start, nproc):
         if tab.dtype != torch.int32 or not tab.is_contiguous() \

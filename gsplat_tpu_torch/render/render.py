@@ -7,8 +7,9 @@ and per-Gaussian gradient reduction are one `torch.autograd.Function`,
 `_Rasterize` (the reference's `_rasterize` custom VJP): its forward gathers
 the pair table and runs composite_fwd (K2); its backward runs composite_bwd
 (K3) into per-tile regions of a prefilled d-table whose rows carry their gid
-keys, sorts the rows by key, and takes per-Gaussian sums as differences of a
-float64 cumsum table at the segment ends (K4). No scatter, no atomics.
+keys, sorts the keys, finds each Gaussian's segment end (K4) and sums each
+segment's rows in a fixed order (segment_sum). No scatter, no atomics: the
+same inputs give the same gradient bits.
 A render whose inputs need no gradient (or under torch.no_grad()) runs the
 forward kernels alone and saves nothing.
 """
@@ -24,8 +25,9 @@ from gsplat_tpu_torch.core.gaussians import Gaussians
 from gsplat_tpu_torch.render.binning import Binning, bin_gaussians, out_budget, tile_grid
 from gsplat_tpu_torch.render.bounds import segment_ends
 from gsplat_tpu_torch.render.project import Projection, project_gaussians
-from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, N_DCOLS, composite_bwd,
-                                            composite_fwd, pack_attrs, untile_image)
+from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, composite_bwd, composite_fwd,
+                                            pack_attrs, untile_image)
+from gsplat_tpu_torch.render.reduce import segment_sum
 
 
 class RenderOutput(NamedTuple):
@@ -84,30 +86,20 @@ def contrib_regions(nproc: torch.Tensor, chunk: int, c_budget: int):
 def reduce_by_gid(d: torch.Tensor, n_rows: int) -> torch.Tensor:
     """(c, 16) d-table -> (n_rows, 16) per-Gaussian sums of its rows' first
     nine columns by their gid keys (row n_rows - 1, the null Gaussian, and
-    columns 9..15 zero): one key sort and row gather, a cumsum table with a
-    leading zero, its entries at the segment ends (K4) and the adjacent
-    difference.
+    columns 9..15 zero): a stable sort of the key column, each gid's
+    segment end in the sorted order (K4, segment_ends) and a fixed-order
+    float64 sum of each segment's rows read through the permutation
+    (segment_sum), rounded once.
 
-    The cumsum table is float64. Each sum is a difference of two running
-    sums over the whole table, and in float32 that difference loses the
-    digits the running sum has grown past: on the 63-Gaussian test scenes
-    (~600 rows) the rotation gradient then sits 1.3e-4 of its group's max
-    from the exact per-pixel oracle, in float64 7e-7, and at the 1080p
-    bench view (1.4M rows) the colour columns miss 1e-3 of their max
-    (PERF.md). The table is column-major, one row per gradient column, so
-    that each cumsum is a 1-D scan: a scan down the (c, 16) table's rows
-    runs one thread per column (0.87 s at 2.4M rows on an H100)."""
+    The reference sums by differences of a float32 cumsum table at the
+    segment ends; each such sum loses the digits the running sum has grown
+    past (1e-3 of the colour columns' max at the 1080p bench view). A
+    float64 cumsum fixes the digits but not the bits: float torch.cumsum on
+    CUDA adds in an order that changes from call to call. The direct sum
+    has neither fault: two calls on one table give the same bits."""
     key_s, perm = torch.sort(d[:, KEY_COL], stable=True)
-    cols = d.index_select(0, perm)[:, :N_DCOLS].t().to(torch.float64).contiguous()
-    S = torch.zeros((N_DCOLS, d.shape[0] + 1), dtype=torch.float64, device=d.device)
-    for i in range(N_DCOLS):
-        torch.cumsum(cols[i], 0, out=S[i, 1:])
     ends = segment_ends(key_s, n_rows - 1)
-    T_b = S.index_select(1, ends)                                    # (9, N)
-    out = d.new_zeros((n_rows, ATTR_DIM))
-    out[:n_rows - 1, :N_DCOLS] = (
-        T_b - torch.cat([T_b.new_zeros((N_DCOLS, 1)), T_b[:, :-1]], dim=1)).t()
-    return out
+    return segment_sum(d, perm, ends, n_rows)
 
 
 class _Rasterize(torch.autograd.Function):

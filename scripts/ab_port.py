@@ -11,7 +11,10 @@ chip_smoke.py, from its own root, so each builds and loads its own kernels
 into its own build/kernels/), then prints every metric of each run, the
 mean per tree and each tree's ratio to A, and the card's name and power
 limit. The metrics: expand_pairs' (K1), composite_fwd's (K2) and
-composite_bwd's (K3) ms at both views, prefix_sum_small's (K5) and
+composite_bwd's (K3) ms at both views (and at tile 64, where a tree runs
+it), segment_ends' (K4) and torch.searchsorted's ms, the per-Gaussian
+reduction's ms (segment_sum, and the float64 cumsum path it replaced,
+where a tree times them), prefix_sum_small's (K5) and
 torch.cumsum's ms at both views, the bench view's frame median, device
 time and bin stage (sparse, dense, dense with the saturation cull), and the
 train step's median, device time and backward stage (sparse, dense, dense
@@ -39,6 +42,13 @@ PATTERNS = [
     ("K1 ms", rf"^  (sparse|dense) expand_pairs: {NUM} ms, plain"),
     ("K2 ms", rf"^  (sparse|dense) composite_fwd: {NUM} ms, plain"),
     ("K3 ms", rf"^  (sparse|dense) composite_bwd: {NUM} ms, plain"),
+    ("K2 ms", rf"^  (sparse tile 64|dense tile 64) composite_fwd: {NUM} ms, plain"),
+    ("K3 ms", rf"^  (sparse tile 64|dense tile 64) composite_bwd: {NUM} ms, plain"),
+    ("K4 ms", rf"^  (sparse|dense) segment_ends: {NUM} ms, plain"),
+    ("searchsorted ms", rf"^  (sparse|dense) segment_ends: .*torch\.searchsorted {NUM} ms"),
+    ("reduction ms", rf"^  (sparse|dense) segment_sum: {NUM} ms, plain"),
+    ("float64 cumsum path ms",
+     rf"^  (sparse|dense) segment_sum: .*cumsum path it replaced {NUM} ms"),
     ("K5 ms", rf"^  (sparse|dense) prefix_sum_small: {NUM} ms, plain"),
     ("cumsum ms", rf"^  (sparse|dense) prefix_sum_small: .*torch\.cumsum {NUM} ms"),
     ("frame median ms", rf"^  (sparse|dense) yaw \+0: pairs .*? median {NUM}"),

@@ -6,7 +6,10 @@ The rows carry what the backward's d-table carries after its key sort:
 integer-valued gids with repeats, gids with no rows, and a KEY_INVALID
 tail (or nothing but it). n = 2048 and P a multiple of 128 meet the TPU
 kernel's tiling rule; the port has none (checked on odd sizes against
-torch.searchsorted's definition)."""
+torch.searchsorted's definition). Key rows with long gaps (gids with no
+rows over thousands of ids: gid 0 and those after it, a run in the middle,
+every gid past the last valid key) and a row in which every key is one gid
+are what the one-pass kernel writes with whole-block fills."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 from gsplat_tpu.render.bounds_pallas import segment_ends as j_segment_ends
 from gsplat_tpu_torch.render.bounds import segment_ends
 from gsplat_tpu_torch.render.raster import KEY_INVALID
+from torch_port_fixtures import GAP_CASES, gap_row
 
 N = 2048
 
@@ -52,3 +56,14 @@ def test_segment_ends_any_size():
     got = segment_ends(torch.from_numpy(keys), 301).numpy()
     want = np.array([(keys < g + 1).sum() for g in range(301)])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", GAP_CASES)
+def test_segment_ends_long_gaps_match_reference(case):
+    keys = gap_row(case)
+    n = 4096
+    want = np.asarray(j_segment_ends(jnp.asarray(keys), n, interpret=True))
+    got = segment_ends(torch.from_numpy(keys), n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    gaps = np.diff(np.concatenate([[0], got.numpy()]))
+    assert (gaps == 0).sum() > 1000

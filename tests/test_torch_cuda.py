@@ -7,15 +7,18 @@ tests/conftest.py (which imports jax) cannot load:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys,
-gids (saturation quanta included), segment ends, prefix sums (a misaligned
-slice and 50 calls in a row too) and compacted rows must be bit-equal;
-images and tiles within 2e-5 abs, nproc equal (crafted tile tables and the
-warp skip's edge cases too);
-composite_bwd's d columns within 1e-4 of each column's max (the kernel sums
-pixels in its own fixed order, the plain version in matmul order) and the
-same bits from two launches (fixture scenes, crafted tiles, skip edges);
-expand_pairs on crafted tables too; render gradients within 2e-4 of each
-group's max of the CPU's."""
+gids (saturation quanta included), segment ends (key rows with long gaps
+too), prefix sums (a misaligned slice and 50 calls in a row too) and
+compacted rows must be bit-equal; images and tiles within 2e-5 abs, nproc
+equal (crafted tile tables, the warp skip's edge cases and tiles of 48 and
+64 too); composite_bwd's d columns within 1e-4 of each column's max (the
+kernel sums pixels in its own fixed order, the plain version in matmul
+order) and the same bits from two launches (fixture scenes, crafted tiles,
+skip edges, tiles of 48 and 64); expand_pairs on crafted tables too; the
+per-Gaussian reduction (segment_sum) within 1e-6 of each column's max of
+its plain version, the same bits twice; render gradients within 2e-4 of
+each group's max of the CPU's, and two gradient passes of one train step
+bit-equal in every parameter group."""
 
 import numpy as np
 import pytest
@@ -28,11 +31,13 @@ from gsplat_tpu_torch.render import bounds as tbounds
 from gsplat_tpu_torch.render import compact as tcompact
 from gsplat_tpu_torch.render import expand as texp
 from gsplat_tpu_torch.render import raster as traster
+from gsplat_tpu_torch.render import reduce as treduce
 from gsplat_tpu_torch.render import scan as tscan
-from torch_port_fixtures import (EXP_H, EXP_S, EXP_TILE, EXP_W,  # noqa: F401
-                                 EXPANSION_CASES, SCENES, crafted_projection,
-                                 crafted_tiles, cuda_device, pair_tables,
-                                 random_projection, saturating_projection, skip_edge_tile)
+from torch_port_fixtures import (D_TABLE_CASES, EXP_H, EXP_S, EXP_TILE,  # noqa: F401
+                                 EXP_W, EXPANSION_CASES, GAP_CASES, SCENES, banded_tile,
+                                 crafted_d_table, crafted_projection, crafted_tiles,
+                                 cuda_device, gap_row, pair_tables, random_projection,
+                                 saturating_projection, skip_edge_tile)
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -126,7 +131,7 @@ def assert_composite_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_composite_fwd_kernel_crafted_tiles(cuda_device, tile, chunk):
     """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
@@ -138,7 +143,7 @@ def test_composite_fwd_kernel_crafted_tiles(cuda_device, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
 @pytest.mark.parametrize("chunk", [8, 32])
 def test_composite_fwd_kernel_skip_edges(cuda_device, tile, chunk):
     """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
@@ -236,7 +241,7 @@ def assert_bwd_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_composite_bwd_kernel_crafted_tiles(cuda_device, tile, chunk):
     """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
@@ -247,13 +252,30 @@ def test_composite_bwd_kernel_crafted_tiles(cuda_device, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
 @pytest.mark.parametrize("chunk", [8, 32])
 def test_composite_bwd_kernel_skip_edges(cuda_device, tile, chunk):
     """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
     power within 1e-3 of the threshold on both sides
     (torch_port_fixtures.skip_edge_tile)."""
     assert_bwd_matches_plain(cuda_device, *skip_edge_tile(tile, chunk), 1, tile, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [48, 64])
+@pytest.mark.parametrize("chunk", [8, 32, 128])
+def test_composite_kernels_banded_tile(cuda_device, tile, chunk):
+    """A tile whose bands (at tile 64 the kernels' pixel passes) saturate
+    at different chunks: the whole-tile exit waits for the last band, both
+    kernels against their plain versions, the backward's same bits twice;
+    and a tile above 64 is refused with the limit in the message."""
+    attrs, ts, tc, _ = banded_tile(tile, chunk)
+    nproc = assert_composite_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
+    assert 0 < int(nproc[0]) < (3 + int(tc[0]) + chunk - 1) // chunk
+    assert_bwd_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
+    tables = [torch.from_numpy(a).to(cuda_device) for a in (attrs, ts, tc)]
+    with pytest.raises(ValueError, match="tiles up to 64x64"):
+        traster.composite_fwd(*tables, tw=1, tile_size=66, chunk=chunk)
 
 
 @pytest.mark.cuda
@@ -294,6 +316,80 @@ def test_segment_ends_kernel_bit_equal(cuda_device, p, n_valid, n):
     assert got.dtype == torch.int32 and torch.equal(got, want)
     q = torch.arange(1, n + 1, device=cuda_device).to(torch.float32)
     assert torch.equal(got.long(), torch.searchsorted(k, q, side="left"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", [(c, 4096) for c in GAP_CASES] + [
+    ("tail", 1 << 20), ("all_invalid", 1 << 20), ("empty", 1 << 20)])
+def test_segment_ends_kernel_long_gaps(cuda_device, case, n):
+    """Key rows with long runs of gids that own no rows (gid 0 onwards, a
+    run in the middle, all gids past the last valid key, every key
+    KEY_INVALID, no keys at all) and a row of one gid: bit-equal, every
+    gid written."""
+    if case == "all_invalid":
+        keys = np.full(3000, traster.KEY_INVALID, np.float32)
+    elif case == "empty":
+        keys = np.zeros(0, np.float32)
+    else:
+        keys = gap_row(case, n=n)
+    k = torch.from_numpy(keys).to(cuda_device)
+    want = tbounds.segment_ends_plain(k, n)
+    got = tbounds.segment_ends(k, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def big_d_table(seed=0, n=100_000, c=400_000):
+    """A (c, 16) d-table in tile order whose gids own 0 to a few thousand
+    rows each (most own 1-3; a few large splats own hundreds or thousands),
+    a fifth of the rows inert -> (d, n_rows)."""
+    rng = np.random.default_rng(seed)
+    owners = np.concatenate([rng.integers(0, n, c - 12_000),
+                             np.repeat(rng.integers(0, n, 6), 2000)])
+    key = owners.astype(np.float32)
+    key[rng.random(c) < 0.2] = traster.KEY_INVALID
+    d = np.zeros((c, traster.ATTR_DIM), np.float32)
+    d[:, :traster.N_DCOLS] = rng.normal(size=(c, traster.N_DCOLS))
+    d[key == traster.KEY_INVALID, :traster.N_DCOLS] = 0.0
+    d[:, traster.KEY_COL] = key
+    return d[rng.permutation(c)], n + 1
+
+
+def assert_tables_close(got, want, rtol):
+    scale = want[:, :traster.N_DCOLS].abs().amax(0).clamp(min=1e-30)
+    err = (got[:, :traster.N_DCOLS] - want[:, :traster.N_DCOLS]).abs().amax(0) / scale
+    assert float(err.max()) <= rtol, err
+    assert (got[:, traster.N_DCOLS:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(D_TABLE_CASES) + ["big"])
+def test_segment_sum_kernel_matches_plain(cuda_device, case):
+    """The reduction against its plain version (float64 index_add_) within
+    1e-6 of each column's max, and against a float64 index_add_ of the rows
+    by their keys; the same bits from two calls; reduce_by_gid launches
+    segment_ends and segment_sum once each."""
+    from gsplat_tpu_torch.render.render import reduce_by_gid
+
+    d, n_rows = big_d_table() if case == "big" else crafted_d_table(case)
+    d = torch.from_numpy(d).to(cuda_device)
+    key_s, perm = torch.sort(d[:, traster.KEY_COL], stable=True)
+    ends = tbounds.segment_ends(key_s, n_rows - 1)
+    want = treduce.segment_sum_plain(d, perm, ends, n_rows)
+    before = treduce.segment_sum.launches, tbounds.segment_ends.launches
+    got = reduce_by_gid(d, n_rows)
+    again = reduce_by_gid(d, n_rows)
+    torch.cuda.synchronize()
+    assert (treduce.segment_sum.launches, tbounds.segment_ends.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    assert_tables_close(got, want, 1e-6)
+    valid = d[:, traster.KEY_COL] != traster.KEY_INVALID
+    ref = torch.zeros((n_rows, traster.ATTR_DIM), dtype=torch.float64, device=cuda_device)
+    ref[:, :traster.N_DCOLS].index_add_(0, d[valid, traster.KEY_COL].long(),
+                                        d[valid, :traster.N_DCOLS].double())
+    ref[-1] = 0
+    assert_tables_close(got.double(), ref, 1e-6)
 
 
 @pytest.mark.cuda
@@ -388,9 +484,8 @@ def test_sat_render_on_gpu(cuda_device, monkeypatch):
     """The saturating scene on the GPU: the sat render's image bit-equal to
     the GPU render without the cull and within 2e-5 of the CPU's, n_sat
     equal. With and without the cull the d-table (composite_bwd's output)
-    is bit-equal. The gradients are held to 1e-6 of each one's max, not bit
-    for bit: reduce_by_gid sums the d-table with a float64 torch.cumsum,
-    whose order of additions on CUDA may change from call to call."""
+    is bit-equal, and so are the gradients: reduce_by_gid sums each
+    Gaussian's rows in an order fixed by the d-table alone."""
     from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
     from gsplat_tpu_torch.render import render as render_mod
     from gsplat_tpu_torch.render.render import render
@@ -425,8 +520,7 @@ def test_sat_render_on_gpu(cuda_device, monkeypatch):
     (_, g_base, d_base), (_, g_sat, d_sat) = (res[str(cuda_device), k] for k in ("base", "sat"))
     assert torch.equal(d_base, d_sat)
     for a, b in zip(g_base, g_sat):
-        scale = max(float(a.abs().max()), 1e-30)
-        assert float((a - b).abs().max()) <= 1e-6 * scale
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -452,6 +546,53 @@ def test_render_gradients_on_gpu_match_cpu(cuda_device):
     for want, got in zip(grads["cpu"], grads[str(cuda_device)]):
         scale = max(float(np.abs(want).max()), 1e-12)
         np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
+
+
+def small_step_grads(device, deterministic=False):
+    """torch.autograd.grad of the photometric loss of one render (the train
+    step's gradients, densification's mean2d offset too) on a fixture scene
+    -> {group: gradient}."""
+    from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.loss import photometric_loss
+
+    s = F.make_scene(seed=5)
+    target = np.random.default_rng(7).random((F.H, F.W, 3)).astype(np.float32)
+    g = gaussians_from_numpy(s.params, s.n_live, 3, 3, device=device)
+    cam = camera_from_numpy(s.R, s.T, F.FOVX, F.FOVY, F.W, F.H, image=target, device=device)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        params = {k: v.clone().requires_grad_() for k, v in g.params().items()}
+        off = torch.zeros((g.capacity, 2), device=device, requires_grad=True)
+        out = render(cam, g.replace(**params), torch.tensor([0.1, 0.2, 0.3], device=device),
+                     tile_size=F.TILE, chunk=F.CHUNK, pair_budget=F.BUDGET,
+                     kept_budget=F.BUDGET - F.CHUNK, mean2d_offset=off)
+        grads = torch.autograd.grad(photometric_loss(out.image, cam.image),
+                                    list(params.values()) + [off])
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return dict(zip(list(params) + ["mean2d_offset"], grads))
+
+
+@pytest.mark.cuda
+def test_step_gradients_on_gpu_are_bit_reproducible(cuda_device):
+    """Two gradient passes of one step on the same inputs give equal bits in
+    every parameter group. The step also runs under
+    torch.use_deterministic_algorithms(True), which raises on an operation
+    PyTorch knows to be nondeterministic (a float cumsum or index_add_ on
+    CUDA) and fills fresh buffers with NaN (every output row the kernels
+    leave unwritten would show); cuDNN may pick other convolution
+    algorithms there, so that run is held to 1e-5 of each group's max."""
+    a, b = small_step_grads(cuda_device), small_step_grads(cuda_device)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert float(a[k].abs().max()) > 0, k
+    c = small_step_grads(cuda_device, deterministic=True)
+    for k in a:
+        assert bool(torch.isfinite(c[k]).all()), k
+        assert float((c[k] - a[k]).abs().max()) <= 1e-5 * float(a[k].abs().max()), k
 
 
 @pytest.mark.cuda
@@ -486,7 +627,8 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     table, total, meta = expansion_inputs(100, 1, 1024, True)
     counts = (texp.expand_pairs, traster.composite_fwd, traster.composite_bwd,
-              tbounds.segment_ends, tscan.prefix_sum_small, tcompact.compact_runs)
+              tbounds.segment_ends, treduce.segment_sum, tscan.prefix_sum_small,
+              tcompact.compact_runs)
     before = [f.launches for f in counts]
     texp.expand_pairs(table, total, 1024, **meta)
     texp.expand_pairs(table, total, 1024, **{**meta, "sat_pack": True})
@@ -497,6 +639,10 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     args, kw = bwd_inputs("sparse", "cpu")
     traster.composite_bwd(*args, **kw)
     tbounds.segment_ends(torch.arange(8, dtype=torch.float32), 10)
+    d, n_rows = crafted_d_table("long_segment")
+    d = torch.from_numpy(d)
+    treduce.segment_sum(d, torch.arange(d.shape[0]), torch.zeros(n_rows - 1, dtype=torch.int32),
+                        n_rows)
     assert [f.launches for f in counts] == before
 
 
@@ -514,6 +660,10 @@ def test_other_devices_raise():
         traster.composite_bwd(*args, **kw)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tbounds.segment_ends(torch.zeros(8, device="meta"), 10)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        treduce.segment_sum(torch.zeros((8, 16), device="meta"),
+                            torch.zeros(8, dtype=torch.int64, device="meta"),
+                            torch.zeros(3, dtype=torch.int32, device="meta"), 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tscan.prefix_sum_small(torch.zeros(8, dtype=torch.int32, device="meta"))
     src, astart, rbase, length, _ = compact_inputs(0, 8)

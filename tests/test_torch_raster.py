@@ -15,7 +15,7 @@ import torch_port_fixtures as F
 from gsplat_tpu.render.raster_pallas import composite_fwd as j_composite
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render.binning import tile_grid
-from torch_port_fixtures import SCENES, crafted_tiles, pair_tables, skip_edge_tile
+from torch_port_fixtures import SCENES, banded_tile, crafted_tiles, pair_tables, skip_edge_tile
 
 torch.set_num_threads(1)
 ATOL = 2e-5
@@ -96,6 +96,32 @@ def test_composite_fwd_crafted_tiles_match_reference(tile, chunk):
     assert (nproc < nch).any()
 
 
+@pytest.mark.parametrize("tile,chunk,table", [(48, 8, "crafted"), (64, 32, "crafted"),
+                                              (48, 8, "banded"), (64, 32, "banded"),
+                                              (64, 8, "skip_edges")])
+def test_composite_fwd_large_tiles_match_reference(tile, chunk, table):
+    """Tiles above 32, which the kernel runs in pixel passes: crafted tiles,
+    skip edges, and a tile whose bands (at tile 64 the passes) saturate at
+    different chunks, where the whole-tile exit waits for the last band."""
+    if table == "crafted":
+        attrs, ts, tc = map(torch.from_numpy, crafted_tiles(3, 2, tile, chunk))
+        _, nproc = both(attrs, ts, tc, 3, tile, chunk)
+        assert (nproc < (ts % chunk + tc + chunk - 1) // chunk).any()
+    elif table == "skip_edges":
+        both(*map(torch.from_numpy, skip_edge_tile(tile, chunk)), 1, tile, chunk)
+    else:
+        attrs, ts, tc, m = banded_tile(tile, chunk)
+        attrs, ts, tc = map(torch.from_numpy, (attrs, ts, tc))
+        tiles, nproc = both(attrs, ts, tc, 1, tile, chunk)
+        assert 0 < int(nproc[0]) < (int(ts[0]) % chunk + int(tc[0]) + chunk - 1) // chunk
+        assert float(tiles[0, 3].max()) < traster.T_EPS
+        # the first group alone saturates the top band and leaves the others
+        part, _ = traster.composite_fwd(attrs, ts, torch.tensor([m], dtype=torch.int32),
+                                        tw=1, tile_size=tile, chunk=chunk)
+        T = part[0, 3].reshape(4, tile // 4, tile).amax((1, 2))
+        assert float(T[0]) < traster.T_EPS < float(T[1:].min())
+
+
 def power_and_alpha(attrs, ts, tc, tile, chunk):
     """The plain compositor's power and alpha of every (pair row, pixel) of
     a one-tile table (tw 1), with the rows' skip thresholds."""
@@ -151,10 +177,12 @@ def test_skip_threshold_keeps_alpha_at_zero():
     assert (raw < traster.ALPHA_MIN).all()
 
 
-@pytest.mark.parametrize("tile", [1, 5, 8, 12, 15, 16, 24, 32])
+@pytest.mark.parametrize("tile", [1, 5, 8, 12, 15, 16, 24, 32, 33, 48, 63, 64])
 def test_fwd_pixel_blocks_cover_the_tile(tile):
-    """Every pixel of the tile in exactly one thread's 2x2 block, whole
-    warps; at tiles of 16 and 32 each warp's pixels form a 16x8 rectangle."""
+    """Every pixel of the tile in exactly one map thread's 2x2 block, whole
+    warps; at tiles that are multiples of 16 each warp's pixels form a 16x8
+    rectangle, and at tile 64 pixel pass p (map threads 256 p .. 256 p +
+    255) covers rows 16 p .. 16 p + 15."""
     blocks = traster.fwd_pixel_blocks(tile)
     assert blocks.shape[1] == 4 and blocks.shape[0] % 32 == 0
     assert blocks.shape[0] == -(-((tile + 1) // 2) ** 2 // 32) * 32
@@ -165,6 +193,10 @@ def test_fwd_pixel_blocks_cover_the_tile(tile):
             p = blocks[32 * w:32 * (w + 1)].reshape(-1)
             x, y = p % tile, p // tile
             assert (int(x.max() - x.min()), int(y.max() - y.min())) == (15, 7)
+    if tile == 64:
+        for p in range(4):
+            rows = blocks[256 * p:256 * (p + 1)].reshape(-1) // tile
+            assert (int(rows.min()), int(rows.max())) == (16 * p, 16 * p + 15)
 
 
 def test_untile_image():

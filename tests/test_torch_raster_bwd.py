@@ -18,7 +18,7 @@ from gsplat_tpu.render.raster_pallas import composite_bwd as j_composite_bwd
 from gsplat_tpu_torch.render import raster as traster
 from gsplat_tpu_torch.render.binning import out_budget, tile_grid
 from gsplat_tpu_torch.render.render import contrib_regions
-from torch_port_fixtures import SCENES, pair_tables, skip_edge_tile
+from torch_port_fixtures import SCENES, banded_tile, crafted_tiles, pair_tables, skip_edge_tile
 
 torch.set_num_threads(1)
 RTOL_COL = 2e-4
@@ -159,3 +159,29 @@ def test_composite_bwd_skip_edges_match_reference(chunk):
     assert skipped[:2].all() and skipped.any() and not skipped.all()
     assert (got[rows[skipped], :traster.N_DCOLS] == 0).all()
     assert (np.abs(got[rows[~skipped], :traster.N_DCOLS]).max(1) > 0).any()
+
+
+@pytest.mark.parametrize("tile,chunk,table", [(48, 8, "crafted"), (64, 32, "crafted"),
+                                              (64, 8, "banded")])
+def test_composite_bwd_large_tiles_match_reference(tile, chunk, table):
+    """Tiles above 32, which the kernel replays in pixel passes, against the
+    JAX kernel: crafted tiles, and a tile whose bands (at tile 64 the
+    passes) saturate at different chunks, so the rows of every replayed
+    chunk take pixels of some passes that are still open and some that are
+    saturated."""
+    if table == "crafted":
+        attrs, ts, tc = map(torch.from_numpy, crafted_tiles(3, 2, tile, chunk))
+        tw = 3
+    else:
+        attrs, ts, tc = map(torch.from_numpy, banded_tile(tile, chunk)[:3])
+        tw = 1
+    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=tw, tile_size=tile, chunk=chunk)
+    p_out = out_budget(attrs.shape[0], ts.shape[0], chunk)
+    np_c, comp_start, overflow = contrib_regions(nproc, chunk, p_out)
+    assert not bool(overflow)
+    g = torch.from_numpy(np.random.default_rng(tile).normal(size=tiles.shape).astype(np.float32))
+    got, want = both(attrs, ts, tc, tiles, g, comp_start, np_c, p_out, tw=tw, tile=tile,
+                     chunk=chunk)
+    assert_rows_match(got, want, np.arange(p_out))
+    valid = got[:, traster.KEY_COL] != traster.KEY_INVALID
+    assert valid.sum() > chunk and np.abs(got[valid, :traster.N_DCOLS]).max() > 0

@@ -16,6 +16,8 @@ from typing import Dict, NamedTuple
 import numpy as np
 import pytest
 
+from gsplat_tpu_torch.render.raster import ATTR_DIM, KEY_COL, KEY_INVALID, N_DCOLS
+
 W, H = 64, 48
 TILE = 16
 CHUNK = 32
@@ -214,6 +216,84 @@ def skip_edge_tile(tile, chunk):
     wide = np.array([tile / 2, tile / 2, 1e-3, 0.0, 1e-3, 0.3, 0.6, 0.9, 0.7], np.float32)
     attrs[3 + n, :9] = wide
     return attrs, np.array([3], np.int32), np.array([n + 1], np.int32)
+
+
+def banded_tile(tile, chunk):
+    """One tile (tw 1) whose horizontal bands saturate at different chunks:
+    four groups of whole chunks, at least 16 pairs each, of opaque splats
+    wide in x and tile / 8 px tall, group b centred on band b of four (rows
+    [b * tile / 4, (b + 1) * tile / 4)), so the top band's pixels fall below
+    T_EPS after the first group and the bottom band's after the last; then a
+    chunk of faint splats over the whole tile, past the whole-tile exit. At
+    tile 64 the bands are the kernels' pixel passes. The segment starts at
+    row 3 -> (attrs, tile_start, tile_count, pairs per group) with the
+    arrays in numpy."""
+    rng = np.random.default_rng(tile + chunk)
+    m = -(-16 // chunk) * chunk
+    n = 4 * m + chunk
+    band = np.minimum(np.arange(n) // m, 4)
+    sx, sy = 3.0 * tile, tile / 8.0
+    attrs = np.zeros((-(-(3 + n) // chunk) * chunk + chunk, 16), np.float32)
+    r = attrs[3:3 + n]
+    r[:, 0] = rng.uniform(0, tile, n)
+    r[:, 1] = (np.minimum(band, 3) + 0.5) * tile / 4 + rng.uniform(-1, 1, n)
+    r[:, 2], r[:, 3], r[:, 4] = 1 / sx ** 2, 0.0, 1 / sy ** 2
+    r[:, 5:8] = rng.random((n, 3))
+    r[:, 8] = np.where(band < 4, 0.99, 0.05)
+    r[band == 4, 1] = tile / 2
+    r[band == 4, 4] = 1 / (3.0 * tile) ** 2
+    r[:, 9] = np.arange(n)
+    return attrs, np.array([3], np.int32), np.array([n], np.int32), m
+
+
+# gid-sorted key rows of the d-table, as the backward's key sort leaves
+# them (segment_ends)
+GAP_CASES = ("leading", "middle", "tail", "one_gid")
+
+
+def gap_row(case, p=512, n=4096):
+    """(p,) sorted f32 keys with long runs of gids that have no rows."""
+    rng = np.random.default_rng(len(case))
+    keys = np.full(p, KEY_INVALID, np.float32)
+    if case == "leading":        # gid 0 and the 2999 after it own nothing
+        keys[:300] = np.sort(rng.integers(3000, n, 300))
+    elif case == "middle":       # gids 10..2999 own nothing
+        keys[:400] = np.sort(np.concatenate([rng.integers(0, 10, 200),
+                                             rng.integers(3000, 3010, 200)]))
+    elif case == "tail":         # every gid past 99 owns nothing
+        keys[:128] = np.sort(rng.integers(0, 100, 128))
+    elif case == "one_gid":      # every row is gid 1234
+        keys[:] = 1234.0
+    return keys
+
+
+# crafted d-tables of the per-Gaussian reduction (render.reduce_by_gid)
+D_TABLE_CASES = ("gid0_empty", "trailing_empty", "one_gid", "all_invalid", "long_segment")
+
+
+def crafted_d_table(case, n_rows=40, c=256, seed=0):
+    """A (c, 16) d-table in no gid order: `case` says which gids own rows."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((c, ATTR_DIM), np.float32)
+    d[:, :N_DCOLS] = rng.normal(size=(c, N_DCOLS)) * \
+        10.0 ** rng.uniform(-3, 3, N_DCOLS)
+    n = n_rows - 1
+    if case == "gid0_empty":
+        key = rng.integers(1, n, c)
+    elif case == "trailing_empty":
+        key = rng.integers(0, n // 3, c)
+    elif case == "one_gid":
+        key = np.full(c, 7)
+    elif case == "all_invalid":
+        key = np.full(c, -1)
+    elif case == "long_segment":     # gid 5 owns 100 rows, more than a warp's 32
+        key = np.concatenate([np.full(100, 5), rng.integers(0, n, c - 100)])
+    key = key.astype(np.float32)
+    key[rng.random(c) < 0.2] = -1                     # inert rows among them
+    key[key < 0] = KEY_INVALID
+    d[key == KEY_INVALID, :N_DCOLS] = 0.0
+    d[:, KEY_COL] = key
+    return d[rng.permutation(c)], n_rows
 
 
 # crafted expansion tables (expand_pairs): a 640x416 image at tile 16, 40 x 26
