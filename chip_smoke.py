@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32 and at tile 64.
+at tile 32 and at tile 64, and the render CLI over a dataset on disk.
 
     python3 chip_smoke.py
 
@@ -53,12 +53,16 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            sparse at pair and sat budget 2,621,440, dense at the fitted
            budgets), on a length that is no multiple of its 8192-element
            tile, and with a bias and a clip: bit-equal; one call enqueues
-           one kernel and at most one memset (torch.profiler); its ms and
+           one kernel and at most one memset (a CUDA graph capture); its ms and
            torch.cumsum's, timed in turns
   compact_runs   the kernel against its plain version on the same view's
-           real regions: bit-equal (region rows copied, the null gid
-           elsewhere); a starved budget whose regions overlap and pass the
-           end syncs without error; the ms of the reference's src-map gather
+           real regions, into a buffer poisoned with a sentinel: bit-equal
+           (region rows copied, the null gid elsewhere), no sentinel left;
+           at a starved budget whose regions overlap and pass the end: it
+           syncs without error, no sentinel is left, every row one region
+           covers equals the plain version's and no row two cover holds the
+           fill; one call enqueues one kernel and no memset
+           (a CUDA graph capture); the ms of the reference's src-map gather
            (index_select with the map precomputed)
   serve    render() with per-view and per-stage ms: the sparse cell (2.25
            tile pairs per Gaussian) for 4 views, the bench camera + 3 yaw
@@ -101,14 +105,38 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            and loss cotangent (the checks above, the skip census and the
            bound recounted at that tile); then a served frame (timed) and one
            train step at tile 64, its loss within 2e-4 of the tile-32 step 1
+  render_cli (sparse)  after the sparse cell: a COLMAP source written with
+           the port's writers (a PINHOLE camera whose focal lengths give
+           back fovx 1.2 and fovy 0.8; the bench view and the yaw +2, -3,
+           +5 degree views, each with the target image as its PNG; the
+           first 2^18 of the scene's xyz as points3D.bin, read back equal)
+           and a model directory holding the sparse scene's PLY as
+           iteration 30000 with a cfg_args naming the source; then
+           render_cli.main(--resolution 1 --eval) in process: every render
+           PNG bit-equal to the quantised render of the Scene's own camera,
+           the gt PNGs to the quantised target; the bench view (the test
+           camera) n_pairs within 0.1% of the JAX package's 2,105,855; the
+           default budget of 2^20 regrown until n_dropped is 0; K1 against
+           its plain version on the bench view at each budget the CLI
+           rendered it at (2^20 and 2^21 truncate), bit-equal. Printed: a
+           frame's render device ms, its copy to the host and PNG encode,
+           the regrowth renders, the decode ms of a 1080p PNG, whether the
+           native library loaded. Then render_cli at the default
+           --resolution -1: 1600x900 frames (the 1.6K cap), each equal to
+           the render at that camera; K1 there as at 1080p, and K2 against
+           its plain version at the bench view's final budget. Then a fresh Scene on the same source:
+           create_from_pcd over the 2^18 points on the card, parameters
+           finite, its wall time and the 3-NN search's share
 The launch counts of the seven kernels are zeroed just before each serve,
-each train and the tile-64 serve-and-train phase (the main path) and must
-cover every render and step run there (K5 and K6 in the sat phases); the
+each train, the tile-64 serve-and-train phase and each render_cli run (the
+main paths) and must cover every render and step run there (K5 and K6 in
+the sat phases; K1 and K2 in render_cli); the
 kernels line sums them and must show every kernel. The kernels JSON rows
 hold the sparse bench view's times and bound for K1-K4 and segment_sum, the
 dense view's for K5 and K6 (the cell whose users run the cull), the other
 view's beside them (`other_view`), the larger error of the two cells, the
-launches of each cell's main path beside their total (`launches_by_view`),
+launches of each cell's main path and of render_cli beside their total
+(`launches_by_view`),
 and for K2 and K3 their times and bounds at tile 64 (`tile_64`).
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
@@ -118,6 +146,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -286,25 +315,46 @@ def in_turns(fns, reps):
     return [sum(v) / len(v) for v in got]
 
 
-def enqueued(fn, tries=5):
-    """(kernel names, memset names) of what one synced call of fn() puts on
-    the card, under torch.profiler's CUDA tracing. A trace that holds no
-    device activity at all (the tracer drops one now and then on the chip
-    machine) is taken again, up to `tries` times."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType (cuda.h)
+CU_GRAPH_NODE_KERNEL, CU_GRAPH_NODE_MEMSET = 0, 2
 
-    fn()
-    for _ in range(tries):
+
+def enqueued(fn):
+    """(kernels, memsets, a note) of what one call of fn() puts on the
+    card: the call captured into a CUDA graph, its nodes counted through
+    libcuda (cuGraphGetNodes, cuGraphNodeGetType). A capture holds every
+    launch on the stream; a torch.profiler trace of a call of one short
+    kernel came back empty now and then on an H100. The note
+    counts the other nodes, or says why the capture failed (0, 0 then)."""
+    import ctypes
+
+    def cu(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    try:
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
             fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
-            break
-    memsets = [e.name for e in dev if e.name.lower().startswith("memset")]
-    kernels = [e.name[:60] for e in dev if not e.name.lower().startswith(("memset", "memcpy"))]
-    return kernels, memsets
+        libcuda = ctypes.CDLL("libcuda.so.1")
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        cu(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        cu(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        kinds = []
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            cu(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+            kinds.append(kind.value)
+        del graph
+    except (RuntimeError, OSError, AttributeError, TypeError) as e:
+        return 0, 0, f"capture failed: {e!r}"
+    kernels, memsets = kinds.count(CU_GRAPH_NODE_KERNEL), kinds.count(CU_GRAPH_NODE_MEMSET)
+    return kernels, memsets, f"{len(kinds) - kernels - memsets} other node(s)"
 
 
 def wall_ms(fn):
@@ -403,14 +453,16 @@ def phase_oracle(s):
             "tiny scene n_pairs/n_culled/n_contrib equal on GPU and CPU, cull active")
 
 
-def phase_expand(s, label, g, cam, pair_fit, kept):
+def expand_check(s, label, g, cam, S, kept, size=None):
+    """K1 against its plain version on the camera's expansion table at pair
+    budget S, every slot's key and gid bit-equal -> (table, total, kwargs,
+    max |diff|)."""
     from gsplat_tpu_torch.render import expand
     from gsplat_tpu_torch.render.binning import depth_shift, expansion_table, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
 
-    tw, th = tile_grid(W, H, TILE)
+    tw, th = tile_grid(*(size or (W, H)), TILE)
     db = depth_shift(tw * th)
-    S = pair_fit
     do_cull = S < 8 * g.capacity or kept < S      # bin_gaussians' rule
     p = project_gaussians(g, cam)
     table, total = expansion_table(p.mean2d, p.radius, p.depth, p.conic, p.opacity,
@@ -425,7 +477,14 @@ def phase_expand(s, label, g, cam, pair_fit, kept):
     s.check(bad == 0, f"{label} expand_pairs vs plain at S={S}, cull {do_cull}, "
             f"total {int(total)}: {bad} mismatching slots (want 0)")
     err = max(int((key_k - key_p).abs().max()), int((gid_k - gid_p).abs().max()))
-    del key_k, gid_k, key_p, gid_p
+    return table, total, kw, err
+
+
+def phase_expand(s, label, g, cam, pair_fit, kept):
+    from gsplat_tpu_torch.render import expand
+
+    S = pair_fit
+    table, total, kw, err = expand_check(s, label, g, cam, S, kept)
     ms = device_ms(lambda: expand.expand_pairs(table, total, S, **kw), 20)
     plain_ms = device_ms(lambda: expand.expand_pairs_plain(table, total, S, **kw), 3)
     # the table and total read once, keys and gids written once; only the
@@ -442,15 +501,20 @@ def phase_expand(s, label, g, cam, pair_fit, kept):
                 bytes=nbytes, ops=ops, library_ms=None)
 
 
-def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE):
+def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None):
+    """K2 against its plain version on the camera's pair table: tiles within
+    ATOL, nproc equal but where a tile's transmittance sits at T_EPS ->
+    (gathered, tile starts, tile counts, tw, K2's tiles, K2's nproc, max
+    |tiles diff|)."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
     from gsplat_tpu_torch.render.render import pair_table
 
-    tw, _ = tile_grid(W, H, tile)
+    w, h = size or (W, H)
+    tw, _ = tile_grid(w, h, tile)
     p = project_gaussians(g, cam)
-    b = bin_gaussians(p.mean2d, p.radius, p.depth, width=W, height=H,
+    b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
     gathered = pair_table(p, b, kept)
@@ -484,6 +548,14 @@ def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE):
             f"{gathered.shape[0]} pairs: max |tiles diff| {err:.3g} (tol {ATOL})")
     s.check(n_bad == 0, f"{label} composite_fwd nproc: {len(bad_tiles)} tiles differ, "
             f"{n_bad} of them away from the T_EPS boundary (want 0)")
+    return gathered, ts, tc, tw, tiles_k, np_k, err
+
+
+def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE):
+    from gsplat_tpu_torch.render import raster
+
+    gathered, ts, tc, tw, tiles_k, np_k, err = composite_check(s, label, g, cam, pair_fit,
+                                                                kept, tile)
     # a tile's pairs past its exit: those beyond its nproc-th chunk of the
     # chunk-aligned grid its segment is swept on
     tc64 = tc.to(torch.int64)
@@ -853,10 +925,10 @@ def phase_scan(s, label, seen):
             f"{label} prefix_sum_small vs plain over {n} sorted quanta (sum {int(c_p[-1])}): "
             f"{bad} mismatching sums (want 0); length {odd} equal {odd_eq}; bias -7 "
             f"clip {hi} equal {clip_eq}")
-    kernels, memsets = enqueued(lambda: scan.prefix_sum_small(q))
-    s.check(len(kernels) == 1 and len(memsets) <= 1,
-            f"{label} prefix_sum_small: one call enqueues {len(kernels)} kernel(s) "
-            f"{kernels} and {len(memsets)} memset(s) (want 1 kernel, at most 1 memset)")
+    kernels, memsets, note = enqueued(lambda: scan.prefix_sum_small(q))
+    s.check(kernels == 1 and memsets <= 1,
+            f"{label} prefix_sum_small: one call enqueues {kernels} kernel(s) and {memsets} "
+            f"memset(s), {note} (a CUDA graph capture; want 1 kernel, at most 1 memset)")
     ms, lib_ms = in_turns([lambda: scan.prefix_sum_small(q),
                            lambda: torch.cumsum(q, 0, dtype=torch.int32)], 20)
     plain_ms = device_ms(lambda: scan.prefix_sum_small_plain(q), 20)
@@ -872,36 +944,64 @@ def phase_scan(s, label, seen):
     return row, c_k
 
 
+def covered_count(rbase, length, out_size):
+    """(out_size,) int64: how many of the regions cover each row."""
+    starts = torch.clamp(rbase.long(), 0, out_size)
+    ends = torch.maximum(torch.clamp(rbase.long() + length.long(), 0, out_size), starts)
+    cover = torch.zeros(out_size + 1, dtype=torch.int64, device=rbase.device)
+    ones = torch.ones_like(starts)
+    cover.index_add_(0, starts, ones).index_add_(0, ends, -ones)
+    return torch.cumsum(cover, 0)[:out_size]
+
+
 def phase_compact(s, label, seen, C, sat):
     """K6 against its plain version on the view's real regions, and on a
-    starved budget -> K6 row."""
+    starved budget, each into a buffer poisoned with a sentinel -> K6 row."""
     from gsplat_tpu_torch.render import compact
     from gsplat_tpu_torch.render.binning import sat_regions
 
     s.phase(f"kernel compact_runs ({label})")
     src, fill = seen["src"], 1 << 30   # packed gids (gid < 2^24) stay below 2^30
+    sentinel = -(1 << 30)              # no gid, and not the fill
     astart, rbase, _, _, region, needed = sat_regions(
         C, seen["starts"], seen["tile_count"], chunk=CHUNK, sat_budget=sat)
     needed = int(needed)
     args = (src, astart, rbase, region, sat, fill)
-    o_k = compact.compact_runs(*args)
+    o_k = compact.compact_runs(*args, out=torch.full((sat,), sentinel, dtype=torch.int32,
+                                                     device=src.device))
     o_p = compact.compact_runs_plain(*args)
     starved = max(-(-needed // 4 // CHUNK) * CHUNK, CHUNK)
     st = sat_regions(C, seen["starts"], seen["tile_count"], chunk=CHUNK,
                      sat_budget=starved)
-    o_s = compact.compact_runs(src, st[0], st[1], st[4], starved, fill)
+    st_args = (src, st[0], st[1], st[4], starved, fill)
+    o_s = compact.compact_runs(*st_args, out=torch.full((starved,), sentinel,
+                                                        dtype=torch.int32, device=src.device))
+    o_sp = compact.compact_runs_plain(*st_args)
     torch.cuda.synchronize()
     bad = int((o_k != o_p).sum())
     err = float((o_k - o_p).abs().max())
     n_fill = int((o_k == fill).sum())
-    s.check(bad == 0 and needed <= sat and n_fill == sat - needed,
-            f"{label} compact_runs vs plain: {astart.shape[0]} regions, {needed} region "
-            f"rows into {sat}: {bad} mismatching rows (want 0), {n_fill} fill rows "
-            f"(want {sat - needed})")
-    s.check(o_s.shape == (starved,) and int((o_s != fill).sum()) > 0,
+    s.check(bad == 0 and needed <= sat and n_fill == sat - needed
+            and int((o_k == sentinel).sum()) == 0,
+            f"{label} compact_runs vs plain, into a poisoned buffer: {astart.shape[0]} regions, "
+            f"{needed} region rows into {sat}: {bad} mismatching rows (want 0), {n_fill} fill "
+            f"rows (want {sat - needed}), {int((o_k == sentinel).sum())} rows unwritten (want 0)")
+    cover = covered_count(st[1], st[4], starved)
+    once = cover == 1
+    bad_once = int((o_s[once] != o_sp[once]).sum())
+    left = int((o_s == sentinel).sum())
+    s.check(o_s.shape == (starved,) and left == 0 and bad_once == 0
+            and int((o_s[cover > 1] == fill).sum()) == 0,
             f"{label} compact_runs at a starved budget {starved} (regions overlap, the "
-            f"largest is {int(region.max())} rows): synced without error")
-    del o_p, o_s
+            f"largest is {int(region.max())} rows), into a poisoned buffer: synced without "
+            f"error; {left} rows unwritten (want 0); of the {int(once.sum())} rows one region "
+            f"covers, {bad_once} differ from the plain version (want 0); no fill in the "
+            f"{int((cover > 1).sum())} rows two or more cover")
+    del o_p, o_s, o_sp, cover, once
+    kernels, memsets, note = enqueued(lambda: compact.compact_runs(*args))
+    s.check(kernels == 1 and memsets == 0,
+            f"{label} compact_runs: one call enqueues {kernels} kernel(s) and {memsets} "
+            f"memset(s), {note} (a CUDA graph capture; want 1 kernel, no fill before it)")
     ms = device_ms(lambda: compact.compact_runs(*args), 20)
     plain_ms = device_ms(lambda: compact.compact_runs_plain(*args), 5)
     # the reference's src-map gather alone, its map precomputed
@@ -1440,6 +1540,325 @@ def serve_sat(s, g, cam_args, budget, label):
                                                 stages=stage_ms)
 
 
+CLI_ITERATION = 30_000
+CLI_POINTS = 1 << 18     # the source's sparse cloud: a real scene's holds 10^5-10^6
+CLI_BUDGET = 1 << 20     # render_cli's default pair budget, below the bench view's pairs
+
+
+def write_cli_source(root, g, cam_args, target):
+    """A COLMAP scene written with the port's own writers: one PINHOLE
+    camera whose focal lengths give back fovx and fovy, the bench view and
+    the yaw +2, -3, +5 degree views as images 00000-00003 (llffhold 8 puts
+    the bench view in the test set), the target image as each view's PNG,
+    and the first CLI_POINTS of the scene's xyz as points3D.bin -> seconds
+    of its parts."""
+    from gsplat_tpu_torch.io import colmap, png
+
+    R, T, fovx, fovy = cam_args
+    sparse = Path(root) / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    (Path(root) / "images").mkdir()
+    colmap.write_intrinsics_binary({1: colmap.Camera(
+        id=1, model="PINHOLE", width=W, height=H,
+        params=np.array([W / (2 * math.tan(fovx / 2)), H / (2 * math.tan(fovy / 2)),
+                         W / 2, H / 2]))}, sparse / "cameras.bin")
+    images = {}
+    for i, deg in enumerate((0.0, 2.0, -3.0, 5.0)):
+        Ri, Ti = yaw_camera(cam_args, deg)[:2]
+        images[i + 1] = colmap.Image(id=i + 1, qvec=colmap.rotmat2qvec(Ri.T), tvec=Ti,
+                                     camera_id=1, name=f"{i:05d}.png")
+    colmap.write_extrinsics_binary(images, sparse / "images.bin")
+    t0 = time.perf_counter()
+    data = png.encode_png((np.clip(target, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8))
+    t_encode = time.perf_counter() - t0
+    for img in images.values():
+        (Path(root) / "images" / img.name).write_bytes(data)
+    xyz = g.xyz[:CLI_POINTS].double().cpu().numpy()
+    rgb = (g.f_dc[:CLI_POINTS].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    t0 = time.perf_counter()
+    colmap.write_points3D_binary(xyz, rgb, np.zeros(CLI_POINTS), sparse / "points3D.bin")
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = colmap.read_points3D_binary(sparse / "points3D.bin")
+    t_read = time.perf_counter() - t0
+    same = np.array_equal(back[0], xyz) and np.array_equal(back[1], rgb)
+    return dict(encode=t_encode, points_write=t_write, points_read=t_read, points_same=same)
+
+
+class CliTimer:
+    """Wraps render_cli's render and save_png: per render, its device ms
+    (CUDA events), wall ms, budget, n_pairs and n_dropped; per PNG, its
+    encode ms and the host gap before it (the copy of the image to the
+    host: render_set does nothing else between the render's end and
+    save_png)."""
+
+    def __init__(self, render_cli):
+        self.mod, self.renders, self.saves = render_cli, [], []
+        self.real = render_cli.render, render_cli.save_png
+        self.last_end = None
+
+    def __enter__(self):
+        real_render, real_save = self.real
+
+        def render(cam, g, bg, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = real_render(cam, g, bg, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+            self.last_end = time.perf_counter()
+            self.renders.append(dict(
+                cam=cam.image_name, width=cam.width, height=cam.height,
+                budget=kw["pair_budget"], n_pairs=int(out.n_pairs),
+                n_dropped=int(out.n_dropped), device_ms=e0.elapsed_time(e1),
+                wall_ms=(self.last_end - t0) * 1e3))
+            return out
+
+        def save_png(path, img):
+            t0 = time.perf_counter()
+            real_save(path, img)
+            self.saves.append(dict(path=Path(path), ms=(time.perf_counter() - t0) * 1e3,
+                                   gap_ms=(t0 - self.last_end) * 1e3))
+            self.last_end = time.perf_counter()
+
+        self.mod.render, self.mod.save_png = render, save_png
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.render, self.mod.save_png = self.real
+
+
+def run_cli(s, label, model, resolution, zero, counts):
+    """render_cli.main over the model, the launch counts from zero ->
+    (CliTimer, launches, wall seconds)."""
+    from gsplat_tpu_torch import render_cli
+
+    zero()
+    t0 = time.perf_counter()
+    with CliTimer(render_cli) as timer:
+        rc = render_cli.main(["--model_path", str(model), "--resolution", str(resolution),
+                              "--eval"])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counts.items()}
+    n = len(timer.renders)
+    s.check(rc == 0 and all(launches[k] >= n for k in FWD_KERNELS),
+            f"{label}: render_cli exit {rc}; kernel launches {launches} cover its {n} renders "
+            f"({', '.join(FWD_KERNELS)})")
+    return timer, launches, wall
+
+
+def cli_frames(timer):
+    """Each camera's written render: its last render (n_dropped 0), the
+    renders before it (dropped pairs), and the two PNGs after it."""
+    frames, pending = [], []
+    saves = iter(timer.saves)
+    for r in timer.renders:
+        pending.append(r)
+        if r["n_dropped"] == 0:
+            frames.append(dict(final=r, regrown=pending[:-1], render_png=next(saves),
+                               gt_png=next(saves)))
+            pending = []
+    return frames
+
+
+def check_cli_pngs(s, label, model, scene, frames, split_of):
+    """Every PNG the CLI wrote decodes bit-equal to the quantised render of
+    the Scene's own camera (at the budget the CLI ended at) and, for gt, to
+    its quantised target."""
+    from gsplat_tpu_torch.io import png
+    from gsplat_tpu_torch.render.render import render
+
+    bg = torch.zeros(3, device=scene.gaussians.device)
+    bad, n = [], 0
+    for split, cams in (("train", scene.get_train_cameras()),
+                        ("test", scene.get_test_cameras())):
+        for idx, cam in enumerate(cams):
+            budget = split_of[(split, idx)]["final"]["budget"]
+            out = render(cam, scene.gaussians, bg, tile_size=TILE, chunk=CHUNK,
+                         pair_budget=budget)
+            want = (torch.clamp(out.image, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+            gt = (torch.clamp(cam.image, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+            base = Path(model) / split / f"ours_{CLI_ITERATION}"
+            got = png.read_png(base / "renders" / f"{idx:05d}.png")
+            got_gt = png.read_png(base / "gt" / f"{idx:05d}.png")
+            n += 1
+            if not (np.array_equal(got, want) and np.array_equal(got_gt, gt)
+                    and got.shape == (cam.height, cam.width, 3)):
+                bad.append(f"{split}/{idx:05d} ({int((got != want).sum())} render, "
+                           f"{int((got_gt != gt).sum())} gt values differ)")
+    s.check(n == 4 and not bad,
+            f"{label}: {n} render PNGs (and their gt) decode bit-equal to the quantised render "
+            f"of the Scene's own camera; mismatching: {bad or 'none'}")
+
+
+def cli_kernel_checks(s, label, scene, split_of, composite=False):
+    """K1 against its plain version on the bench view's camera at every
+    budget the CLI rendered it at (the first ones truncate: its pairs
+    exceed them), and, with `composite`, K2 against its plain version at
+    the budget the CLI ended at, at the camera's own frame size."""
+    cam, f = scene.get_test_cameras()[0], split_of[("test", 0)]
+    size, budgets = (cam.width, cam.height), [r["budget"] for r in f["regrown"] + [f["final"]]]
+    totals = [int(expand_check(s, f"{label} bench view {cam.width}x{cam.height}",
+                               scene.gaussians, cam, S, S, size)[1]) for S in budgets]
+    s.check(len(budgets) == 1 or totals[0] > budgets[0],
+            f"{label}: K1 held to its plain version at the bench view's budgets {budgets} "
+            f"(live slots {totals}), the truncating one among them when the CLI regrew")
+    if composite:
+        composite_check(s, f"{label} bench view {cam.width}x{cam.height}", scene.gaussians,
+                        cam, budgets[-1], budgets[-1], size=size)
+    torch.cuda.empty_cache()
+
+
+def phase_render_cli(s, g, cam_args, target, tmp):
+    """python -m gsplat_tpu_torch.render_cli over a COLMAP scene on disk
+    rendering the bench model, at --resolution 1 and at the default -1
+    (1600x900), then a fresh Scene on the same source -> launches."""
+    from gsplat_tpu_torch.config import ModelParams
+    from gsplat_tpu_torch.core import gaussians as gaussians_mod
+    from gsplat_tpu_torch.io import native_loader, png
+    from gsplat_tpu_torch.scene import Scene
+
+    src, model = Path(tmp) / "cli_source", Path(tmp) / "cli_model"
+    part = write_cli_source(src, g, cam_args, target)
+    s.check(part["points_same"],
+            f"points3D.bin of {CLI_POINTS} points reads back equal: written in "
+            f"{part['points_write']:.3f} s, read in {part['points_read']:.3f} s")
+    ply = model / "point_cloud" / f"iteration_{CLI_ITERATION}" / "point_cloud.ply"
+    ply.parent.mkdir(parents=True)
+    shutil.copyfile(Path(tmp) / "sparse" / "point_cloud.ply", ply)
+    (model / "cfg_args").write_text(
+        f"Namespace(sh_degree=3, source_path='{src}', model_path='{model}', "
+        "images='images', resolution=-1, white_background=False, data_device='cuda', "
+        "eval=True)")
+    counts = kernel_counts()
+
+    def zero():
+        for f in counts.values():
+            f.launches = 0
+
+    t0 = time.perf_counter()
+    native = native_loader.available()
+    t_native = time.perf_counter() - t0
+    print(f"  native library (native/libgsplat_io.so): "
+          + (f"loaded ({t_native:.1f} s, make included)" if native else
+             f"not available ({native_loader.build_error}); images decode through "
+             "io/png.py and resize with the port's LANCZOS"), flush=True)
+
+    s.phase("render_cli (sparse)")
+    timer, launches, wall = run_cli(s, "render_cli --resolution 1", model, 1, zero, counts)
+    frames = cli_frames(timer)
+    split_of = {}
+    for split, n_cams in (("train", 3), ("test", 1)):    # render_cli's order
+        for idx in range(n_cams):
+            split_of[(split, idx)] = frames[len(split_of)]
+    bench = split_of[("test", 0)]["final"]
+    regrown = sum(len(f["regrown"]) for f in frames)
+    s.check(len(frames) == 4 and bench["cam"] == "00000"
+            and abs(bench["n_pairs"] - REF_SPARSE_PAIRS) <= 1e-3 * REF_SPARSE_PAIRS
+            and regrown > 0 and all(f["final"]["n_dropped"] == 0 for f in frames),
+            f"render_cli --resolution 1: {len(frames)} frames of {W}x{H}; the bench view's "
+            f"n_pairs {bench['n_pairs']} vs JAX package {REF_SPARSE_PAIRS} (diff "
+            f"{bench['n_pairs'] - REF_SPARSE_PAIRS:+d}, tol 0.1%); {regrown} renders dropped "
+            f"pairs and regrew the budget from {CLI_BUDGET} (to "
+            f"{sorted({f['final']['budget'] for f in frames})}); every written frame "
+            "n_dropped 0")
+    scene = Scene(ModelParams(source_path=str(src), model_path=str(model), resolution=1,
+                              eval=True), load_iteration=-1, shuffle=False)
+    check_cli_pngs(s, "render_cli --resolution 1", model, scene, frames, split_of)
+    cli_kernel_checks(s, "render_cli --resolution 1", scene, split_of)
+    del scene
+    target_q = (np.clip(target, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    gts = sorted(model.glob(f"*/ours_{CLI_ITERATION}/gt/*.png"))
+    s.check(len(gts) == 4 and all(np.array_equal(png.read_png(p), target_q) for p in gts),
+            f"render_cli --resolution 1: its {len(gts)} gt PNGs equal the target image "
+            "quantised as save_png quantises it")
+    for f in frames:
+        r = f["final"]
+        print(f"  render_cli {r['cam']} {r['width']}x{r['height']}: render {r['device_ms']:.3f} "
+              f"device ms ({r['wall_ms']:.3f} wall, budget {r['budget']}; "
+              f"{len(f['regrown'])} regrowth renders before it, "
+              f"{sum(x['wall_ms'] for x in f['regrown']):.3f} wall ms), copy to the host "
+              f"{f['render_png']['gap_ms']:.3f} ms, PNG encode {f['render_png']['ms']:.3f} ms; "
+              f"gt copy {f['gt_png']['gap_ms']:.3f} ms and encode {f['gt_png']['ms']:.3f} ms",
+              flush=True)
+    first = timer.renders[0]["wall_ms"]
+    setup = wall * 1e3 - sum(r["wall_ms"] for r in timer.renders) \
+        - sum(x["ms"] + x["gap_ms"] for x in timer.saves)
+    print(f"  render_cli --resolution 1: {wall:.3f} s wall for {len(frames)} frames "
+          f"({wall / len(frames) * 1e3:.1f} ms a frame); Scene set-up and the rest "
+          f"{setup:.1f} ms; first render {first:.3f} wall ms", flush=True)
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        png.read_png(src / "images" / "00000.png")
+    t_dec = (time.perf_counter() - t0) / reps * 1e3
+    paeth = Path(tmp) / "paeth.png"
+    png.write_png(paeth, (np.clip(target, 0, 1) * 255 + 0.5).astype(np.uint8), png.PAETH)
+    t0 = time.perf_counter()
+    png.read_png(paeth)
+    t_paeth = (time.perf_counter() - t0) * 1e3
+    print(f"  PNG {W}x{H}: decode {t_dec:.1f} ms (Up rows, as the port writes them), "
+          f"{t_paeth:.1f} ms (Paeth rows: the wavefront); encode of the target "
+          f"{part['encode'] * 1e3:.1f} ms", flush=True)
+
+    s.phase("render_cli (sparse, --resolution -1)")
+    timer2, launches2, wall2 = run_cli(s, "render_cli --resolution -1", model, -1, zero,
+                                       counts)
+    frames2 = cli_frames(timer2)
+    split_of2 = {}
+    for split, n_cams in (("train", 3), ("test", 1)):
+        for idx in range(n_cams):
+            split_of2[(split, idx)] = frames2[len(split_of2)]
+    s.check(len(frames2) == 4 and all(f["final"]["width"] == 1600 and f["final"]["height"] == 900
+                                      and f["final"]["n_dropped"] == 0 for f in frames2),
+            f"render_cli --resolution -1: {len(frames2)} frames of "
+            f"{sorted({(f['final']['width'], f['final']['height']) for f in frames2})} (want "
+            "1600x900, the 1.6K cap), n_dropped 0")
+    t0 = time.perf_counter()
+    scene = Scene(ModelParams(source_path=str(src), model_path=str(model), eval=True),
+                  load_iteration=-1, shuffle=False)
+    t_scene = time.perf_counter() - t0
+    check_cli_pngs(s, "render_cli --resolution -1", model, scene, frames2, split_of2)
+    cli_kernel_checks(s, "render_cli --resolution -1", scene, split_of2, composite=True)
+    del scene
+    print(f"  render_cli --resolution -1: {wall2:.3f} s wall for {len(frames2)} frames; its "
+          f"ground truth resized by the {'native bilinear' if native else 'LANCZOS'} path "
+          f"(a Scene at -1: {t_scene:.3f} s)", flush=True)
+
+    s.phase("fresh Scene (sparse source)")
+    real_knn, knn_s = gaussians_mod._mean_knn_dist2, []
+
+    def knn(points):
+        t = time.perf_counter()
+        out = real_knn(points)
+        knn_s.append(time.perf_counter() - t)
+        return out
+
+    gaussians_mod._mean_knn_dist2 = knn
+    try:
+        t0 = time.perf_counter()
+        fresh = Scene(ModelParams(source_path=str(src), model_path=str(Path(tmp) / "fresh"),
+                                  eval=True), shuffle=False)
+        torch.cuda.synchronize()
+        t_fresh = time.perf_counter() - t0
+    finally:
+        gaussians_mod._mean_knn_dist2 = real_knn
+    fg = fresh.gaussians
+    finite = all(bool(torch.isfinite(t).all()) for t in fg.params().values())
+    s.check(finite and int(fg.n_live) == CLI_POINTS and fg.capacity == CLI_POINTS
+            and fg.xyz.device.type == "cuda"
+            and (Path(tmp) / "fresh" / "cameras.json").exists(),
+            f"fresh Scene: create_from_pcd over {int(fg.n_live)} points on {fg.xyz.device} "
+            f"(capacity {fg.capacity}), parameters finite {finite}, cameras.json written")
+    print(f"  fresh Scene: {t_fresh:.3f} s wall, of it the 3-NN search (scipy cKDTree) "
+          f"{knn_s[0]:.3f} s ({knn_s[0] / t_fresh:.1%})", flush=True)
+    del fresh, fg
+    torch.cuda.empty_cache()
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1506,7 +1925,10 @@ def main() -> int:
         s.check(abs(loss1 - REF_SPARSE_LOSS) <= 2e-4,
                 f"sparse step-1 loss {loss1:.6f} vs JAX package {REF_SPARSE_LOSS} "
                 f"(diff {loss1 - REF_SPARSE_LOSS:+.2e}, tol 2e-4)")
-        del g, sparse, bench, target
+        del sparse, bench
+        torch.cuda.empty_cache()
+        l_cli = phase_render_cli(s, g, cam_args, target, tmp)
+        del g, target
         torch.cuda.empty_cache()
 
         s.phase("scene dense")
@@ -1521,10 +1943,11 @@ def main() -> int:
                 f"dense n_culled {got} vs JAX package {REF_DENSE_CULLED}: diff "
                 f"{got - REF_DENSE_CULLED:+d} "
                 f"({(got - REF_DENSE_CULLED) / REF_DENSE_CULLED:+.5%}, tol 0.1%)")
-    launches = {k: l_sparse[k] + l_dense[k] for k in l_sparse}
+    launches = {k: l_sparse[k] + l_dense[k] + l_cli[k] for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
-          f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at tile {TILE_WIDE}")
+          f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at tile {TILE_WIDE}; "
+          f"render_cli's renders {l_cli['composite_fwd']}")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
@@ -1548,7 +1971,8 @@ def main() -> int:
         (view, main_cell), (other, other_cell) = views
         o = other_cell[name]
         rows.append(dict(main_cell[name], view=view,
-                         launches_by_view={"sparse": l_sparse[name], "dense": l_dense[name]},
+                         launches_by_view={"sparse": l_sparse[name], "dense": l_dense[name],
+                                           "render_cli": l_cli[name]},
                          max_abs_err=max(k_sparse[name]["max_abs_err"],
                                          k_dense[name]["max_abs_err"]),
                          other_view=dict(view=other, **{k: o[k] for k in (

@@ -1,6 +1,7 @@
-"""The training step's configuration: the port's own copy of
-gsplat_tpu/config.py's `OptimizationParams` (upstream 3DGS hyperparameter
-names and defaults, verbatim) and of the `MeshParams` fields the step reads.
+"""The port's configuration: its own copy of gsplat_tpu/config.py's
+`ModelParams` and `OptimizationParams` (upstream 3DGS names and defaults,
+verbatim) and of the `MeshParams` fields the training step and the render
+CLI read.
 
 The JAX package's config module imports no jax, but the port imports nothing
 of that package, so the dataclasses are copied here.
@@ -9,6 +10,23 @@ of that package, so the dataclasses are copied here.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class ModelParams:
+    """Upstream `ModelParams` (reference src/arguments/params.h:25-48).
+    data_device is the device `Scene` puts the cameras' target images and
+    the Gaussians on: upstream's default "cuda" (the JAX package's "tpu" is
+    informational there)."""
+
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    data_device: str = "cuda"
+    eval: bool = False
 
 
 @dataclass

@@ -1,24 +1,32 @@
 """The Gaussian model state: a capacity-padded dataclass of tensors.
 
-Port of gsplat_tpu/core/gaussians.py. Arrays are padded to a fixed capacity
-with a live count, as in the reference, so states compare array for array;
-padded rows are inert by construction (opacity logit -30, log-scale -30,
-identity quaternion).
+Port of gsplat_tpu/core/gaussians.py (Gaussians, inverse_sigmoid, and the
+fresh-scene init create_from_pcd with its 3-NN distances). Arrays are padded
+to a fixed capacity with a live count, as in the reference, so states
+compare array for array; padded rows are inert by construction (opacity
+logit -30, log-scale -30, identity quaternion).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+
+from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.core.sh import num_sh_coeffs, rgb2sh
 
 PAD_OPACITY_LOGIT = -30.0
 PAD_LOG_SCALE = -30.0
 
 # the six optimized leaves, in upstream's parameter-group order
 PARAM_KEYS = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 @dataclass
@@ -101,3 +109,63 @@ def _pad_rows(cap: int, device: Union[str, torch.device]) -> Callable:
         return torch.from_numpy(np.concatenate([arr, fill], axis=0)).to(device)
 
     return pad
+
+
+def create_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    capacity: int,
+    max_sh_degree: int = 3,
+    spatial_lr_scale: float = 1.0,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Gaussians:
+    """Point-cloud initialization (upstream create_from_pcd) on `device`
+    (CUDA unless named): SH dc from RGB, isotropic log-scale from the mean
+    3-NN distance, identity rotations, opacity = logit(0.1). Built in numpy
+    on the host, as the reference builds it, then moved in one copy a leaf."""
+    device = resolve_device(device)
+    n = len(points)
+    if n > capacity:
+        raise ValueError(f"{n} init points exceed capacity {capacity}")
+    pts = np.asarray(points, np.float32)
+    f_dc = np.asarray(rgb2sh(np.asarray(colors, np.float64)), np.float32)
+    m = num_sh_coeffs(max_sh_degree) - 1
+    f_rest = np.zeros((n, m, 3), np.float32)
+
+    dist2 = np.maximum(np.asarray(_mean_knn_dist2(np.asarray(points, np.float64))), 1e-7)
+    scaling = np.repeat(
+        np.log(np.sqrt(dist2))[:, None], 3, axis=1
+    ).astype(np.float32)
+    rotation = np.zeros((n, 4), np.float32)
+    rotation[:, 0] = 1.0
+    opacity = np.full((n, 1), np.log(0.1 / 0.9), np.float32)  # logit(0.1)
+
+    pad = _pad_rows(capacity, device)
+    zeros = torch.zeros(capacity, dtype=torch.float32, device=device)
+    return Gaussians(
+        xyz=pad("xyz", pts),
+        f_dc=pad("f_dc", f_dc),
+        f_rest=pad("f_rest", f_rest),
+        opacity=pad("opacity", opacity),
+        scaling=pad("scaling", scaling),
+        rotation=pad("rotation", rotation),
+        max_radii2D=zeros,
+        xyz_gradient_accum=zeros.clone(),
+        denom=zeros.clone(),
+        n_live=torch.tensor(n, dtype=torch.int32, device=device),
+        active_sh_degree=0,
+        max_sh_degree=max_sh_degree,
+        spatial_lr_scale=float(spatial_lr_scale),
+    )
+
+
+def _mean_knn_dist2(points: np.ndarray) -> np.ndarray:
+    """Mean squared distance to the 3 nearest neighbors (upstream simple-knn
+    `distCUDA2` semantics), via scipy cKDTree on the host."""
+    if len(points) <= 3:
+        return np.full(len(points), 1e-4, np.float32)
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    dists, _ = tree.query(points, k=4)  # first col is self (0)
+    return ((dists[:, 1:] ** 2).mean(axis=1)).astype(np.float32)

@@ -25,6 +25,15 @@ C3 = (
 )
 
 
+def rgb2sh(rgb):
+    """RGB in [0, 1] -> the degree-0 SH coefficient (arrays or tensors)."""
+    return (rgb - 0.5) / C0
+
+
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """sh (..., K, 3) with K >= (deg+1)^2; dirs (..., 3) unit view directions.
     Returns (..., 3), before the upstream +0.5 offset."""

@@ -1,13 +1,15 @@
-"""PLY IO for the standard 3DGS `point_cloud.ply` layout.
+"""PLY IO for point clouds and the standard 3DGS `point_cloud.ply` layout.
 
-The port's own numpy copy of gsplat_tpu/io/ply.py (read_ply, write_ply,
-save_gaussian_ply, load_gaussian_ply): a self-contained binary_little_endian
-codec, so a trained upstream or gsplat_tpu model loads without plyfile.
+The port's own numpy copy of gsplat_tpu/io/ply.py (BasicPointCloud,
+read_ply, write_ply, fetch_ply, store_ply, save_gaussian_ply,
+load_gaussian_ply): a self-contained binary_little_endian codec, so a
+trained upstream or gsplat_tpu model loads without plyfile.
 """
 
 from __future__ import annotations
 
 import io
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -23,6 +25,15 @@ _PLY_DTYPES = {
     "float": "f4",
     "double": "f8",
 }
+
+
+@dataclass
+class BasicPointCloud:
+    """Mirrors upstream 3DGS's BasicPointCloud (points/colors/normals)."""
+
+    points: np.ndarray  # (N,3) float
+    colors: np.ndarray  # (N,3) float in [0,1]
+    normals: np.ndarray  # (N,3) float
 
 
 def read_ply(path: str | Path) -> Dict[str, np.ndarray]:
@@ -78,6 +89,45 @@ def write_ply(path: str | Path, columns: Dict[str, np.ndarray]) -> None:
     with open(p, "wb") as f:
         f.write(hdr.getvalue().encode("ascii"))
         f.write(rec.tobytes())
+
+
+def fetch_ply(path: str | Path) -> BasicPointCloud:
+    """Upstream `fetchPly`: read xyz/rgb/normals point cloud (colors /255)."""
+    cols = read_ply(path)
+    pts = np.stack([cols["x"], cols["y"], cols["z"]], axis=-1).astype(np.float64)
+    if "red" in cols:
+        colors = (
+            np.stack([cols["red"], cols["green"], cols["blue"]], axis=-1).astype(np.float64)
+            / 255.0
+        )
+    else:
+        colors = np.zeros_like(pts)
+    if "nx" in cols:
+        normals = np.stack([cols["nx"], cols["ny"], cols["nz"]], axis=-1).astype(np.float64)
+    else:
+        normals = np.zeros_like(pts)
+    return BasicPointCloud(points=pts, colors=colors, normals=normals)
+
+
+def store_ply(path: str | Path, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Upstream `storePly`: xyz float + rgb uchar + zero normals."""
+    xyz = np.asarray(xyz, dtype=np.float32)
+    rgb = np.asarray(rgb, dtype=np.uint8)
+    zeros = np.zeros(len(xyz), dtype=np.float32)
+    write_ply(
+        path,
+        {
+            "x": xyz[:, 0],
+            "y": xyz[:, 1],
+            "z": xyz[:, 2],
+            "nx": zeros,
+            "ny": zeros,
+            "nz": zeros,
+            "red": rgb[:, 0],
+            "green": rgb[:, 1],
+            "blue": rgb[:, 2],
+        },
+    )
 
 
 def save_gaussian_ply(

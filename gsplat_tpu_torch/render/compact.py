@@ -11,14 +11,20 @@ same kernel serves any chunk size.
 The plain version is the reference's XLA form (binning.py:556-570): a
 source map over the output rows, src(o) = o + astart_t - rbase_t for the
 region t that holds o, telescoped as deltas scattered at the region starts
-and one cumsum, then one index_select. Rows no region covers (and rows whose
-source lies outside src) hold `fill`; the reference's src map left its own
-rows there instead, which nothing reads.
+and one cumsum, then one index_select. Rows no region covers (and rows
+whose source lies outside src) hold `fill`; the reference's src map left
+its own rows there instead, which nothing reads. On the binning's overflow
+the regions past the budget are clamped to end at it and overlap: the
+first of them covers every row past the packed prefix, so a row that one
+region covers still maps to that region's source, and a row several cover
+holds what the reference's telescope gives it (the kernel writes either
+region's value there; nothing reads it).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,8 +34,10 @@ from gsplat_tpu_torch import _build
 def compact_runs_plain(src: torch.Tensor, astart: torch.Tensor, rbase: torch.Tensor,
                        length: torch.Tensor, out_size: int, fill: int) -> torch.Tensor:
     """src (S,) int32; astart, rbase, length (T,) int32 with the regions
-    [rbase_t, rbase_t + length_t) in ascending order and disjoint ->
-    (out_size,) int32 out[rbase_t + j] = src[astart_t + j], `fill` elsewhere."""
+    [rbase_t, rbase_t + length_t) in ascending order and disjoint, or
+    clamped as the binning clamps them on overflow ->
+    (out_size,) int32 out[rbase_t + j] = src[astart_t + j] in every row one
+    region covers, `fill` in every row none covers."""
     dev = src.device
     starts = torch.clamp(rbase.to(torch.int64), 0, out_size)
     ends = torch.clamp(rbase.to(torch.int64) + length.to(torch.int64), 0, out_size)
@@ -49,16 +57,22 @@ def compact_runs_plain(src: torch.Tensor, astart: torch.Tensor, rbase: torch.Ten
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
 
 def compact_runs(src: torch.Tensor, astart: torch.Tensor, rbase: torch.Tensor,
-                 length: torch.Tensor, out_size: int, fill: int) -> torch.Tensor:
-    """compact_runs_plain's function. On the card each region is copied by
-    its own block in no order: where regions overlap (a clamped budget
-    overflow) those rows hold either region's value."""
+                 length: torch.Tensor, out_size: int, fill: int,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """compact_runs_plain's function. On the card one launch writes every
+    row of the output once: each block copies its region and fills the gap
+    to the next, all blocks the rows before the first region and after the
+    last. Where regions overlap (a clamped budget overflow) those rows hold
+    either region's value. `out`, a contiguous (out_size,) int32 tensor on
+    src's device, is written in place of a new one (the tests poison it to
+    show that no row is left unwritten)."""
     if src.device.type == "cpu":
-        return compact_runs_plain(src, astart, rbase, length, out_size, fill)
+        got = compact_runs_plain(src, astart, rbase, length, out_size, fill)
+        return got if out is None else out.copy_(got)
     if src.device.type != "cuda":
         raise ValueError(f"compact_runs runs on cuda or cpu, not {src.device}")
     if src.dtype != torch.int32 or src.dim() != 1 or not src.is_contiguous():
@@ -68,7 +82,13 @@ def compact_runs(src: torch.Tensor, astart: torch.Tensor, rbase: torch.Tensor,
     num_tiles = tables[0].shape[0]
     if any(t.shape != (num_tiles,) for t in tables):
         raise ValueError("astart, rbase and length must be (T,) each")
-    out = torch.full((out_size,), fill, dtype=torch.int32, device=src.device)
+    if out is None:
+        out = torch.empty((out_size,), dtype=torch.int32, device=src.device)
+    elif (out.dtype != torch.int32 or out.shape != (out_size,) or not out.is_contiguous()
+          or out.device != src.device):
+        raise ValueError(f"out must be a contiguous int32 ({out_size},) tensor on {src.device}")
+    if out_size == 0:
+        return out
     aligned = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load("compact_runs")
     fn = lib.compact_runs_launch
@@ -76,7 +96,7 @@ def compact_runs(src: torch.Tensor, astart: torch.Tensor, rbase: torch.Tensor,
     fn.restype = ctypes.c_int
     with torch.cuda.device(src.device):
         err = fn(src.data_ptr(), src.shape[0], *(t.data_ptr() for t in tables),
-                 num_tiles, out_size, int(aligned), out.data_ptr(),
+                 num_tiles, out_size, int(fill), int(aligned), out.data_ptr(),
                  torch.cuda.current_stream(src.device).cuda_stream)
     _build.check(lib, err, "compact_runs launch")
     compact_runs.launches += 1

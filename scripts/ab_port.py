@@ -14,8 +14,8 @@ limit. The metrics: expand_pairs' (K1), composite_fwd's (K2) and
 composite_bwd's (K3) ms at both views (and at tile 64, where a tree runs
 it), segment_ends' (K4) and torch.searchsorted's ms, the per-Gaussian
 reduction's ms (segment_sum, and the float64 cumsum path it replaced,
-where a tree times them), prefix_sum_small's (K5) and
-torch.cumsum's ms at both views, the bench view's frame median, device
+where a tree times them), prefix_sum_small's (K5), torch.cumsum's and
+compact_runs' (K6) ms at both views, the bench view's frame median, device
 time and bin stage (sparse, dense, dense with the saturation cull), and the
 train step's median, device time and backward stage (sparse, dense, dense
 with the cull). The full logs and a JSON summary go to --out (default
@@ -51,6 +51,7 @@ PATTERNS = [
      rf"^  (sparse|dense) segment_sum: .*cumsum path it replaced {NUM} ms"),
     ("K5 ms", rf"^  (sparse|dense) prefix_sum_small: {NUM} ms, plain"),
     ("cumsum ms", rf"^  (sparse|dense) prefix_sum_small: .*torch\.cumsum {NUM} ms"),
+    ("K6 ms", rf"^  (sparse|dense) compact_runs: {NUM} ms"),
     ("frame median ms", rf"^  (sparse|dense) yaw \+0: pairs .*? median {NUM}"),
     ("frame device ms", rf"^  (sparse|dense) yaw \+0: device busy \(torch\.profiler\) {NUM} ms"),
     ("frame median ms", rf"^  (dense sat): pairs .*? median {NUM}"),

@@ -75,3 +75,28 @@ def test_compact_runs_chunk_8_regions_and_bounds():
                                torch.tensor([16, 8, 16]), 36, -5)
     want = [*range(8, 24), *range(40, 48), 96, 97, 98, 99] + [-5] * 8
     assert got.tolist() == want
+
+
+def test_compact_runs_plain_overlapping_regions():
+    """The binning's clamped overflow (regions that overlap and pass the
+    end): every row one region covers holds that region's source row, every
+    row none covers the fill, through the CPU wrapper and into `out`."""
+    rng = np.random.default_rng(9)
+    length = torch.from_numpy(rng.integers(0, 12, 30).astype(np.int32) * 8)
+    out_size = int(length.sum()) // 3
+    rend = torch.cumsum(length.long(), 0)
+    rbase = torch.minimum(rend - length, torch.clamp(out_size - length.long(), min=0)).int()
+    astart = torch.from_numpy(rng.integers(0, 400, 30).astype(np.int32) * 8)
+    src = torch.from_numpy(rng.integers(0, 1 << 20, 4000).astype(np.int32))
+    out = torch.full((out_size,), -99, dtype=torch.int32)
+    got = compact.compact_runs(src, astart, rbase, length, out_size, -5, out=out)
+    assert got is out
+    owners = [[] for _ in range(out_size)]
+    for t, (a, r, n) in enumerate(zip(astart.tolist(), rbase.tolist(), length.tolist())):
+        for j in range(n):
+            if r + j < out_size:
+                owners[r + j].append(int(src[a + j]))
+    once = [o[0] for o in owners if len(o) == 1]
+    assert len(once) > 0 and any(len(o) > 1 for o in owners)
+    assert got[[len(o) == 1 for o in owners]].tolist() == once
+    assert (got[[len(o) == 0 for o in owners]] == -5).all()

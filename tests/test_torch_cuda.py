@@ -9,7 +9,8 @@ tests/conftest.py (which imports jax) cannot load:
 Tests marked `cuda` skip where torch.cuda.is_available() is false. Keys,
 gids (saturation quanta included), segment ends (key rows with long gaps
 too), prefix sums (a misaligned slice and 50 calls in a row too) and
-compacted rows must be bit-equal; images and tiles within 2e-5 abs, nproc
+compacted rows must be bit-equal (into a poisoned buffer, every row
+written); images and tiles within 2e-5 abs, nproc
 equal (crafted tile tables, the warp skip's edge cases and tiles of 48 and
 64 too); composite_bwd's d columns within 1e-4 of each column's max (the
 kernel sums pixels in its own fixed order, the plain version in matmul
@@ -18,7 +19,8 @@ skip edges, tiles of 48 and 64); expand_pairs on crafted tables too; the
 per-Gaussian reduction (segment_sum) within 1e-6 of each column's max of
 its plain version, the same bits twice; render gradients within 2e-4 of
 each group's max of the CPU's, and two gradient passes of one train step
-bit-equal in every parameter group."""
+bit-equal in every parameter group; render_cli's PNGs equal to the
+render of each camera."""
 
 import numpy as np
 import pytest
@@ -462,21 +464,122 @@ def test_compact_runs_kernel_bit_equal(cuda_device, seed, chunk):
     assert torch.equal(got, want) and int((got == -7).sum()) >= 24 * chunk
 
 
-@pytest.mark.cuda
-def test_compact_runs_kernel_starved_stays_in_bounds(cuda_device):
-    """The binning's overflow: rbase clamped to sat_budget - region, so the
-    regions overlap and one passes the whole budget. Every write stays in the
-    output (the sync raises nothing) and every row holds the fill or a value
-    of the source."""
+def covered_once(rbase, length, out_size):
+    """(out_size,) int64: how many regions cover each row."""
+    cover = torch.zeros(out_size + 1, dtype=torch.int64)
+    for r, n in zip(rbase.tolist(), length.tolist()):
+        cover[min(max(r, 0), out_size)] += 1
+        cover[min(max(r + n, r, 0), out_size)] -= 1
+    return torch.cumsum(cover, 0)[:out_size]
+
+
+def starved_inputs(out_chunks=32):
+    """The binning's overflow: rbase clamped to out_size - region, so the
+    regions overlap (at 32 chunks the largest passes the whole budget and
+    covers every row; at 96 some rows lie under one region only)."""
     src, astart, _, length, _ = compact_inputs(4, 128)
-    out_size = 32 * 128                               # < the largest region
+    out_size = out_chunks * 128
     rend = torch.cumsum(length.long(), 0)
     rbase = torch.minimum(rend - length, torch.clamp(out_size - length.long(), min=0))
-    args = [t.to(cuda_device) for t in (src, astart, rbase.int(), length)]
+    return src, astart, rbase.int(), length, out_size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_chunks", [32, 96])
+def test_compact_runs_kernel_starved_stays_in_bounds(cuda_device, out_chunks):
+    """Every write stays in the output (the sync raises nothing), every row
+    holds the fill or a value of the source, and every row one region covers
+    holds that region's value (the plain version's)."""
+    src, astart, rbase, length, out_size = starved_inputs(out_chunks)
+    args = [t.to(cuda_device) for t in (src, astart, rbase, length)]
     got = tcompact.compact_runs(*args, out_size, -7)
+    want = tcompact.compact_runs_plain(*args, out_size, -7)
     torch.cuda.synchronize()
-    assert int(length.max()) > out_size
+    cover = covered_once(rbase, length, out_size).to(cuda_device)
+    once = cover == 1
+    assert int((cover > 1).sum()) > 0
+    assert int(length.max()) > out_size if out_chunks == 32 else int(once.sum()) > 0
     assert bool(torch.isin(got[got != -7].cpu(), src).all())
+    assert torch.equal(got[once], want[once])
+
+
+SENTINEL = -123_456_789
+
+
+def poison_cases():
+    """(name, src, astart, rbase, length, out_size): ascending disjoint runs
+    with a long tail, the starved overlap, no regions, an empty output, a
+    last region that ends exactly at out_size, a gap before the first
+    region and between two, sources outside src, and a misaligned chunk."""
+    src, astart, rbase, length, out_size = compact_inputs(0, 128)
+    yield "ascending", src, astart, rbase, length, out_size + 300_000
+    yield ("starved",) + starved_inputs()
+    yield ("starved, rows under one region",) + starved_inputs(96)
+    ar = torch.arange(100, dtype=torch.int32)
+    yield "no regions", ar, *(torch.zeros(0, dtype=torch.int32),) * 3, 70_000
+    yield "out_size 0", ar, torch.tensor([0]), torch.tensor([0]), torch.tensor([8]), 0
+    yield ("ends at out_size", ar, torch.tensor([8, 40, 60]), torch.tensor([0, 16, 24]),
+           torch.tensor([16, 8, 12]), 36)
+    yield ("gaps", ar, torch.tensor([3, 50, 9]), torch.tensor([10, 30, 44]),
+           torch.tensor([7, 5, 3]), 61)
+    yield ("outside src", ar, torch.tensor([-3, 97]), torch.tensor([0, 10]),
+           torch.tensor([6, 6]), 16)
+    yield ("chunk 3",) + compact_inputs(3, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(9))
+def test_compact_runs_kernel_writes_every_row(cuda_device, case):
+    """One launch into a buffer poisoned with a sentinel: no sentinel is
+    left, and every row no region covers or one region covers equals the
+    plain version's."""
+    name, src, astart, rbase, length, out_size = list(poison_cases())[case]
+    args = [t.to(device=cuda_device, dtype=torch.int32) for t in (src, astart, rbase, length)]
+    out = torch.full((out_size,), SENTINEL, dtype=torch.int32, device=cuda_device)
+    before = tcompact.compact_runs.launches
+    got = tcompact.compact_runs(*args, out_size, -7, out=out)
+    want = tcompact.compact_runs_plain(*args, out_size, -7)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr(), name
+    assert tcompact.compact_runs.launches == before + (out_size > 0), name
+    assert int((got == SENTINEL).sum()) == 0, name
+    defined = (covered_once(rbase, length, out_size) <= 1).to(cuda_device)
+    assert torch.equal(got[defined], want[defined]), name
+
+
+@pytest.mark.cuda
+def test_render_cli_on_gpu(cuda_device, tmp_path):
+    """render_cli.main on the card over a tiny COLMAP scene: every PNG
+    decodes equal to the quantised render of the Scene's own camera."""
+    from gsplat_tpu_torch import render_cli
+    from gsplat_tpu_torch.config import ModelParams
+    from gsplat_tpu_torch.io import png
+    from gsplat_tpu_torch.io.ply import save_gaussian_ply
+    from gsplat_tpu_torch.io.synthetic import make_colmap_scene
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.scene import Scene
+
+    src = make_colmap_scene(tmp_path / "src", n_cams=9, width=96, height=64, n_points=60)
+    rng = np.random.default_rng(2)
+    n = 300
+    model = tmp_path / "model"
+    save_gaussian_ply(model / "point_cloud" / "iteration_4" / "point_cloud.ply",
+                      rng.normal(size=(n, 3)) * 0.8, rng.random((n, 3)), np.zeros((n, 15, 3)),
+                      rng.normal(size=(n, 1)), np.full((n, 3), -2.5), np.tile([1.0, 0, 0, 0], (n, 1)))
+    (model / "cfg_args").write_text(f"Namespace(source_path='{src}')")
+    before = (texp.expand_pairs.launches, traster.composite_fwd.launches)
+    assert render_cli.main(["--model_path", str(model), "--pair_budget", "256",
+                            "--chunk_size", "32"]) == 0
+    assert texp.expand_pairs.launches > before[0] and traster.composite_fwd.launches > before[1]
+    scene = Scene(ModelParams(source_path=str(src), model_path=str(model), eval=True),
+                  load_iteration=-1, shuffle=False)
+    bg = torch.zeros(3, device=cuda_device)
+    for split, cams in (("train", scene.get_train_cameras()), ("test", scene.get_test_cameras())):
+        for idx, cam in enumerate(cams):
+            out = render(cam, scene.gaussians, bg, tile_size=32, chunk=32, pair_budget=1 << 14)
+            want = (np.clip(out.image.cpu().numpy(), 0, 1) * 255 + 0.5).astype(np.uint8)
+            got = png.read_png(model / split / "ours_4" / "renders" / f"{idx:05d}.png")
+            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda
