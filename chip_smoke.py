@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32 and at tile 64, and the render CLI over a dataset on disk.
+at tile 32 and at tile 64, the render CLI over a dataset on disk, and the
+training CLI: from a checkpoint of the 1M scene, and 1000 iterations of the
+repo's quality-proxy scene held to the JAX package's record.
 
     python3 chip_smoke.py
 
@@ -127,15 +129,48 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            its plain version at the bench view's final budget. Then a fresh Scene on the same source:
            create_from_pcd over the 2^18 points on the card, parameters
            finite, its wall time and the 3-NN search's share
+  train cli (sparse, full width)  after render_cli, on its COLMAP source
+           (the bench view the test camera, the 3 yaw views trained on, at
+           --resolution 1): the sparse scene saved with a fresh Adam state
+           as start.npz (loads back bit-equal); cli.main in process from
+           it: 40 iterations, densify at 15 and 30 (threshold
+           TRAIN_GRAD_THRESHOLD), the opacity reset at 30, sat probes every
+           10, eval and a checkpoint at 20, the default pair budget 2^20
+           regrown by the loop, the capacity grown past 2^20 and the live
+           rows past 2^20 (at most 2^22); losses finite, n_dropped 0 at the
+           final budget (its steps, and the final state rendered at it on
+           the 4 cameras: the last regrowth may fall on iteration 40),
+           metrics.jsonl, TB events, the eval line and the final PLY. K1 (at the truncating budget and the final one),
+           K2-K4, segment_sum, and K5 and K6 on one _sat_probe's inputs,
+           against their plain versions on the state after the last
+           densify (pairs with gids above 2^20). Then the CLI resumed from
+           chkpnt20: the final checkpoint's arrays and PLY bit-equal to the
+           straight run's. Then densify_and_prune on the card against the
+           CPU on the loop's state at iteration 15 and its noise: the row
+           choice, n_live and n_dropped bit-equal, floats within 1e-6.
+           Printed: step ms (median, min, max), densify ms and n_live,
+           regrowths, checkpoint seconds and bytes, eval ms, probes
+  train quality (1k, tile 16)  after the dense cell: scripts/
+           quality_proxy.py --iters 1000 at its defaults with the port (the
+           120-camera textured scene of scripts/selfcheck_train.py rendered
+           by the port at tile 16, 960x540, 60,000 Gaussians), cli.main;
+           held to artifacts/qproxy_sat30/out/: cameras.json within 1e-6,
+           the loss at 100 and 200 within 2%, n_gaussians at 700 within
+           1%, the test PSNR at 1000 within 0.3 dB of 38.648; K2 and K3
+           against their plain versions at tile 16 on one of its views.
+           Printed: it/s, densify and eval events, the contrib budget fit,
+           the scene build and training wall times
 The launch counts of the seven kernels are zeroed just before each serve,
-each train, the tile-64 serve-and-train phase and each render_cli run (the
-main paths) and must cover every render and step run there (K5 and K6 in
-the sat phases; K1 and K2 in render_cli); the
+each train, the tile-64 serve-and-train phase, each render_cli run and each
+train CLI run (the main paths) and must cover every render and step run
+there (K5 and K6 in the sat phases and the loop's probes; K1 and K2 in
+render_cli); the
 kernels line sums them and must show every kernel. The kernels JSON rows
 hold the sparse bench view's times and bound for K1-K4 and segment_sum, the
 dense view's for K5 and K6 (the cell whose users run the cull), the other
-view's beside them (`other_view`), the larger error of the two cells, the
-launches of each cell's main path and of render_cli beside their total
+view's beside them (`other_view`), the largest error of the two cells and
+the train phases' checks, the launches of each cell's main path, of
+render_cli and of the two train phases beside their total
 (`launches_by_view`),
 and for K2 and K3 their times and bounds at tile 64 (`tile_64`).
 Numbers are printed with the card they ran on; TF32 is switched off for
@@ -453,28 +488,28 @@ def phase_oracle(s):
             "tiny scene n_pairs/n_culled/n_contrib equal on GPU and CPU, cull active")
 
 
-def expand_check(s, label, g, cam, S, kept, size=None):
+def expand_check(s, label, g, cam, S, kept, size=None, tile=TILE):
     """K1 against its plain version on the camera's expansion table at pair
-    budget S, every slot's key and gid bit-equal -> (table, total, kwargs,
-    max |diff|)."""
+    budget S and the tile size, every slot's key and gid bit-equal ->
+    (table, total, kwargs, max |diff|)."""
     from gsplat_tpu_torch.render import expand
     from gsplat_tpu_torch.render.binning import depth_shift, expansion_table, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
 
-    tw, th = tile_grid(*(size or (W, H)), TILE)
+    tw, th = tile_grid(*(size or (W, H)), tile)
     db = depth_shift(tw * th)
     do_cull = S < 8 * g.capacity or kept < S      # bin_gaussians' rule
     p = project_gaussians(g, cam)
     table, total = expansion_table(p.mean2d, p.radius, p.depth, p.conic, p.opacity,
-                                   tw=tw, th=th, tile_size=TILE, db=db,
+                                   tw=tw, th=th, tile_size=tile, db=db,
                                    do_cull=do_cull)
-    kw = dict(tw=tw, tile_size=TILE, db=db, num_tiles=tw * th, n_orig=g.capacity,
+    kw = dict(tw=tw, tile_size=tile, db=db, num_tiles=tw * th, n_orig=g.capacity,
               do_cull=do_cull)
     key_k, gid_k = expand.expand_pairs(table, total, S, **kw)
     key_p, gid_p = expand.expand_pairs_plain(table, total, S, **kw)
     torch.cuda.synchronize()
     bad = int(((key_k != key_p) | (gid_k != gid_p)).sum())
-    s.check(bad == 0, f"{label} expand_pairs vs plain at S={S}, cull {do_cull}, "
+    s.check(bad == 0, f"{label} expand_pairs vs plain at S={S}, tile {tile}, cull {do_cull}, "
             f"total {int(total)}: {bad} mismatching slots (want 0)")
     err = max(int((key_k - key_p).abs().max()), int((gid_k - gid_p).abs().max()))
     return table, total, kw, err
@@ -648,7 +683,7 @@ def fit_contrib(n_contrib):
     return -(-int(n_contrib) // 512) * 512 + 512
 
 
-def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE):
+def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE, size=None):
     """The forward tiles of a pair table and the cotangent of the real
     photometric loss (bg 0) with respect to them."""
     from gsplat_tpu_torch.render import raster
@@ -658,12 +693,12 @@ def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE):
                                         chunk=CHUNK)
     with torch.enable_grad():
         t = tiles.clone().requires_grad_()
-        rgb, _ = raster.untile_image(t, tw, th, tile, W, H)
+        rgb, _ = raster.untile_image(t, tw, th, tile, *(size or (W, H)))
         (g,) = torch.autograd.grad(photometric_loss(rgb, target), [t])
     return tiles, nproc, g.contiguous()
 
 
-def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE):
+def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=None):
     """composite_bwd against its plain version at the bench view's fitted
     budgets, on its real pair table and loss cotangent -> (K3 row, the
     kernel's d-table)."""
@@ -673,15 +708,16 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE):
     from gsplat_tpu_torch.render.render import contrib_regions, pair_table
 
     s.phase(f"kernel composite_bwd ({label})")
-    tw, th = tile_grid(W, H, tile)
+    w, h = size or (W, H)
+    tw, th = tile_grid(w, h, tile)
     p = project_gaussians(g, cam)
-    b = bin_gaussians(p.mean2d, p.radius, p.depth, width=W, height=H,
+    b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
     gathered = pair_table(p, b, kept)
     del p
     ts, tc = b.tile_start, b.tile_count
-    tiles, nproc, g_tiles = loss_cotangent(gathered, ts, tc, tw, th, target, tile)
+    tiles, nproc, g_tiles = loss_cotangent(gathered, ts, tc, tw, th, target, tile, size)
     contrib = fit_contrib(int(nproc.sum()) * CHUNK)
     np_c, comp_start, overflow = contrib_regions(nproc, CHUNK, contrib)
     args = (gathered, ts, tc, comp_start, np_c, tiles, g_tiles)
@@ -879,7 +915,7 @@ def phase_expand_sat(s, label, g, cam, pair_fit):
     return max(int((key_k - key_p).abs().max()), int((gid_k - gid_p).abs().max()))
 
 
-def sat_kernel_inputs(g, cam, pair_budget, kept, sat):
+def sat_kernel_inputs(g, cam, pair_budget, kept, sat, tile=TILE, size=None):
     """The view's real inputs of K5 and K6: bin with the saturation cull and
     capture what binning.saturation_cull receives -> (the sorted packed
     gids' kept prefix, the kept segments, the Binning)."""
@@ -895,8 +931,9 @@ def sat_kernel_inputs(g, cam, pair_budget, kept, sat):
 
     binning.saturation_cull = capture
     try:
-        b = binning.bin_gaussians(p.mean2d, p.radius, p.depth, width=W, height=H,
-                                  tile_size=TILE, chunk=CHUNK, pair_budget=pair_budget,
+        w, h = size or (W, H)
+        b = binning.bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
+                                  tile_size=tile, chunk=CHUNK, pair_budget=pair_budget,
                                   cull_conic=p.conic, cull_opacity=p.opacity,
                                   kept_budget=kept, sat_budget=sat)
     finally:
@@ -1543,13 +1580,31 @@ def serve_sat(s, g, cam_args, budget, label):
 CLI_ITERATION = 30_000
 CLI_POINTS = 1 << 18     # the source's sparse cloud: a real scene's holds 10^5-10^6
 CLI_BUDGET = 1 << 20     # render_cli's default pair budget, below the bench view's pairs
+# the source's views: (yaw degrees, shift of the camera centre along world x).
+# The bench view is the test camera (llffhold 8); the three train views stand
+# apart so that the cameras' extent (1.1 x the largest distance of a train
+# centre from their mean) is CLI_SHIFT * 1.1 and densify's clone/split
+# threshold percent_dense * extent (0.01 x 0.759) falls among the sparse
+# scene's Gaussian scales (all 0.0076 at the start; Adam moves each): rows
+# whose largest scale shrank clone, the others split
+CLI_SHIFT = 0.69
+CLI_VIEWS = ((0.0, 0.0), (2.0, CLI_SHIFT), (-3.0, -CLI_SHIFT), (5.0, 0.0))
+
+
+def cli_view(cam_args, i):
+    """View i of the CLI source (CLI_VIEWS): the bench camera turned by its
+    yaw and its centre shifted along world x -> (R, T, fovx, fovy)."""
+    deg, shift = CLI_VIEWS[i]
+    R, T, fovx, fovy = yaw_camera(cam_args, deg)
+    center = -R @ T + np.array([shift, 0.0, 0.0])
+    return R, -R.T @ center, fovx, fovy
 
 
 def write_cli_source(root, g, cam_args, target):
     """A COLMAP scene written with the port's own writers: one PINHOLE
-    camera whose focal lengths give back fovx and fovy, the bench view and
-    the yaw +2, -3, +5 degree views as images 00000-00003 (llffhold 8 puts
-    the bench view in the test set), the target image as each view's PNG,
+    camera whose focal lengths give back fovx and fovy, the views of
+    CLI_VIEWS as images 00000-00003 (llffhold 8 puts the bench view in the
+    test set), the target image as each view's PNG,
     and the first CLI_POINTS of the scene's xyz as points3D.bin -> seconds
     of its parts."""
     from gsplat_tpu_torch.io import colmap, png
@@ -1563,8 +1618,8 @@ def write_cli_source(root, g, cam_args, target):
         params=np.array([W / (2 * math.tan(fovx / 2)), H / (2 * math.tan(fovy / 2)),
                          W / 2, H / 2]))}, sparse / "cameras.bin")
     images = {}
-    for i, deg in enumerate((0.0, 2.0, -3.0, 5.0)):
-        Ri, Ti = yaw_camera(cam_args, deg)[:2]
+    for i in range(len(CLI_VIEWS)):
+        Ri, Ti = cli_view(cam_args, i)[:2]
         images[i + 1] = colmap.Image(id=i + 1, qvec=colmap.rotmat2qvec(Ri.T), tvec=Ti,
                                      camera_id=1, name=f"{i:05d}.png")
     colmap.write_extrinsics_binary(images, sparse / "images.bin")
@@ -1859,6 +1914,658 @@ def phase_render_cli(s, g, cam_args, target, tmp):
     return {k: launches[k] + launches2[k] for k in launches}
 
 
+# ---- the training loop and its CLI (train/loop.py, cli.py) ----
+
+TRAIN_ITERS = 40
+# the densify threshold of the train cli phase, lowered from the default
+# 2e-4: against the bench scene's random target the mean view-space
+# gradient at iteration 15 has quantiles 1.1e-6 (75%) and 6.1e-6 (90%), so
+# 2e-4 splits 606 of 1M rows and the scene never passes 2^20 live rows;
+# 5e-6 splits ~1 in 10 at 15 and again at 30, so the rows pass 2^20 and stay
+# far below 2^22 (each densify can at most double them)
+TRAIN_GRAD_THRESHOLD = 5e-6
+TRAIN_FLAGS = ["--resolution", "1", "--eval", "--iterations", str(TRAIN_ITERS),
+               "--densify_from_iter", "5", "--densification_interval", "15",
+               "--densify_until_iter", "35", "--opacity_reset_interval", "30",
+               "--sat_probe_interval", "10", "--test_iterations", "20"]
+# scripts/quality_proxy.py --iters 1000 at its defaults, and the JAX
+# package's record of that run (artifacts/qproxy_sat30/out/metrics.jsonl)
+QP_W, QP_H, QP_CAMS, QP_GT, QP_ITERS = 960, 540, 120, 60_000, 1000
+QP_BUDGET, QP_CAPACITY, QP_TILE = 1 << 21, 1 << 17, 16
+QP_RECORD = Path(__file__).resolve().parent / "artifacts" / "qproxy_sat30" / "out"
+QP_LOSS_RTOL, QP_COUNT_RTOL, QP_PSNR_TOL = 0.02, 0.01, 0.3
+
+
+class LoopSpy:
+    """Wraps the training loop's module-level functions for one CLI run and
+    records what the loop did: each step's host ms (synced), loss, pair
+    budget and dropped pairs; each densify (ms, n_live before and after, the
+    rows it keeps, clones and splits, and the largest scales of the rows
+    over the gradient threshold), capacity growth, sat probe, evaluation,
+    checkpoint (s, bytes), PLY and opacity reset; the seconds of the Scene's
+    set-up and of the start checkpoint's load; the Printer's lines; on the
+    first densify, a host copy of its inputs (`stash`); the state after the
+    last densify (`last`)."""
+
+    def __init__(self, stash=False):
+        from gsplat_tpu_torch import cli
+        from gsplat_tpu_torch.train import loop
+
+        self.loop, self.cli, self.want_stash = loop, cli, stash
+        self.steps, self.densify, self.grow, self.probes = [], [], [], []
+        self.evals, self.ckpts, self.plys, self.lines = [], [], [], []
+        self.resets, self.stash, self.last, self.result = 0, None, None, None
+        self.setup = {"Scene": 0.0, "load_checkpoint": 0.0, "save_ply": 0.0}
+
+    def __enter__(self):
+        from gsplat_tpu_torch.train.densify import densify_selection
+
+        loop, spy = self.loop, self
+        names = ("make_train_step", "densify_and_prune", "grow_capacity", "_sat_probe",
+                 "evaluate", "save_checkpoint", "save_ply", "reset_opacity", "Printer",
+                 "Scene", "load_checkpoint")
+        self.real = {k: getattr(loop, k) for k in names}
+        self.real_train = self.cli.train
+        real = self.real
+
+        def make_train_step(*a, **kw):
+            step = real["make_train_step"](*a, **kw)
+
+            def timed(g, opt_state, cam, bg, it, ema, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(g, opt_state, cam, bg, it, ema, **k)
+                torch.cuda.synchronize()
+                spy.steps.append(dict(it=it, ms=(time.perf_counter() - t0) * 1e3,
+                                      loss=float(out[2]), budget=kw["pair_budget"],
+                                      n_pairs=int(out[4]), n_dropped=int(out[5]),
+                                      capacity=g.capacity))
+                return out
+
+            return timed
+
+        def densify_and_prune(g, opt_state, noise, **kw):
+            if spy.want_stash and spy.stash is None:
+                spy.stash = dict(g=g.replace(**{k: v.cpu() for k, v in vars(g).items()
+                                                if isinstance(v, torch.Tensor)}),
+                                 mu={k: v.cpu() for k, v in opt_state.mu.items()},
+                                 nu={k: v.cpu() for k, v in opt_state.nu.items()},
+                                 count=opt_state.count.cpu(), noise=noise.cpu(), kw=kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["densify_and_prune"](g, opt_state, noise, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            _, kind, valid, _ = densify_selection(g, **kw)
+            kinds = [int(((kind == k) & valid).sum()) for k in range(4)]
+            grads = g.xyz_gradient_accum / g.denom.clamp(min=1.0)
+            over = g.live_mask & (g.denom > 0) & (grads >= kw["max_grad"])
+            scale = torch.exp(g.scaling[over]).amax(dim=-1)
+            qs = (torch.quantile(scale, torch.tensor([0.1, 0.5, 0.9], device=scale.device))
+                  .tolist() if scale.numel() else [])
+            spy.densify.append(dict(it=spy.steps[-1]["it"], ms=ms, before=int(g.n_live),
+                                    after=int(out[0].n_live), dropped=int(out[2]),
+                                    capacity=g.capacity, kinds=kinds, scale_q=qs,
+                                    small=kw["percent_dense"] * kw["extent"]))
+            spy.last = out[0]
+            return out
+
+        def grow_capacity(g, new_cap):
+            spy.grow.append((spy.steps[-1]["it"], g.capacity, new_cap))
+            spy.last = real["grow_capacity"](g, new_cap)
+            return spy.last
+
+        def _sat_probe(g, cam, bg, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["_sat_probe"](g, cam, bg, **kw)
+            spy.probes.append(dict(it=spy.steps[-1]["it"], counts=[int(v) for v in out],
+                                   ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        def evaluate(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real["evaluate"](*a, **kw)
+            torch.cuda.synchronize()
+            spy.evals.append(dict(it=spy.steps[-1]["it"], ms=(time.perf_counter() - t0) * 1e3))
+
+        def save_checkpoint(path, *a, **kw):
+            t0 = time.perf_counter()
+            real["save_checkpoint"](path, *a, **kw)
+            spy.ckpts.append(dict(path=Path(path), s=time.perf_counter() - t0,
+                                  bytes=Path(path).stat().st_size))
+
+        def save_ply(path, g):
+            t0 = time.perf_counter()
+            real["save_ply"](path, g)
+            spy.setup["save_ply"] += time.perf_counter() - t0
+            spy.plys.append(Path(path))
+
+        def timed_setup(name):
+            def f(*a, **kw):
+                t0 = time.perf_counter()
+                out = real[name](*a, **kw)
+                torch.cuda.synchronize()
+                spy.setup[name] += time.perf_counter() - t0
+                return out
+            return f
+
+        def reset_opacity(g, opt_state):
+            spy.resets += 1
+            return real["reset_opacity"](g, opt_state)
+
+        class Printer(real["Printer"]):
+            def print(self, msg):
+                spy.lines.append(msg)
+                super().print(msg)
+
+        def train(*a, **kw):
+            spy.result = self.real_train(*a, **kw)
+            return spy.result
+
+        for k, f in (("make_train_step", make_train_step),
+                     ("densify_and_prune", densify_and_prune),
+                     ("grow_capacity", grow_capacity), ("_sat_probe", _sat_probe),
+                     ("evaluate", evaluate), ("save_checkpoint", save_checkpoint),
+                     ("save_ply", save_ply), ("reset_opacity", reset_opacity),
+                     ("Printer", Printer), ("Scene", timed_setup("Scene")),
+                     ("load_checkpoint", timed_setup("load_checkpoint"))):
+            setattr(loop, k, f)
+        self.cli.train = train
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.real.items():
+            setattr(self.loop, k, f)
+        self.cli.train = self.real_train
+
+    def step_ms(self):
+        ms = [st["ms"] for st in self.steps]
+        return statistics.median(ms), min(ms), max(ms)
+
+    def wall_split(self, wall):
+        """The run's wall seconds by part, largest first, the rest (parsing,
+        logging, the camera picks, the budget reads, cfg_args, cameras.json,
+        metrics and TB records) by difference -> printable text."""
+        parts = {"steps": sum(st["ms"] for st in self.steps) / 1e3,
+                 "densify": sum(d["ms"] for d in self.densify) / 1e3,
+                 "sat probes": sum(p["ms"] for p in self.probes) / 1e3,
+                 "evaluation": sum(e["ms"] for e in self.evals) / 1e3,
+                 "checkpoint saves": sum(c["s"] for c in self.ckpts),
+                 "PLY saves": self.setup["save_ply"],
+                 "Scene set-up": self.setup["Scene"],
+                 "start checkpoint load": self.setup["load_checkpoint"]}
+        parts["the rest"] = wall - sum(parts.values())
+        return ", ".join(f"{k} {v:.3f} s ({v / wall:.1%})"
+                         for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+
+
+def run_train_cli(s, label, argv, counts, stash=False):
+    """cli.main(argv) in process, the launch counts from zero -> (LoopSpy,
+    launches, wall seconds)."""
+    from gsplat_tpu_torch import cli
+
+    for f in counts.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with LoopSpy(stash) as spy:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counts.items()}
+    need = TRAIN_KERNELS + (SAT_KERNELS if spy.probes else ())
+    s.check(rc == 0 and all(launches[k] >= len(spy.steps) for k in TRAIN_KERNELS)
+            and all(launches[k] >= len(spy.probes) for k in need),
+            f"{label}: cli.main exit {rc}; kernel launches {launches} cover its "
+            f"{len(spy.steps)} steps ({', '.join(TRAIN_KERNELS)}) and {len(spy.probes)} sat "
+            f"probes ({', '.join(SAT_KERNELS)})")
+    return spy, launches, wall
+
+
+def same_checkpoints(a, b):
+    """The arrays of two .npz checkpoints bit-equal -> names that differ."""
+    za, zb = np.load(a), np.load(b)
+    if sorted(za.files) != sorted(zb.files):
+        return ["(key sets differ)"]
+    return [k for k in za.files if not np.array_equal(za[k], zb[k])]
+
+
+def densify_card_vs_cpu(s, label, stash):
+    """densify_and_prune on the card and on the CPU on the state the loop
+    densified first, with its noise: row choice, n_live and n_dropped
+    bit-equal, parameters and moments within 1e-6 of each leaf's max."""
+    from gsplat_tpu_torch.train import densify as td
+    from gsplat_tpu_torch.train.optim import AdamState
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = stash["g"].replace(**{k: v.to(dev) for k, v in vars(stash["g"]).items()
+                                  if isinstance(v, torch.Tensor)})
+        opt = AdamState(mu={k: v.to(dev) for k, v in stash["mu"].items()},
+                        nu={k: v.to(dev) for k, v in stash["nu"].items()},
+                        count=stash["count"].to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = [t.cpu() for t in td.densify_selection(g, **stash["kw"])]
+        res = td.densify_and_prune(g, opt, stash["noise"].to(dev), **stash["kw"])
+        torch.cuda.synchronize()
+        out[dev] = sel, res, (time.perf_counter() - t0) * 1e3
+    (sel_c, (g_c, o_c, d_c), ms_c), (sel_g, (g_g, o_g, d_g), ms_g) = out["cpu"], out["cuda"]
+    same_sel = all(torch.equal(a, b) for a, b in zip(sel_c, sel_g))
+    kinds = [int(((sel_c[1] == k) & sel_c[2]).sum()) for k in range(4)]
+    pairs = [(k, getattr(g_c, k), getattr(g_g, k)) for k in
+             ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")]
+    pairs += [(f"mu_{k}", o_c.mu[k], o_g.mu[k]) for k in o_c.mu]
+    pairs += [(f"nu_{k}", o_c.nu[k], o_g.nu[k]) for k in o_c.nu]
+    rel = {k: float((b.cpu() - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+           for k, a, b in pairs}
+    s.check(same_sel and int(d_c) == int(d_g) and int(g_c.n_live) == int(g_g.n_live)
+            and max(rel.values()) <= 1e-6 and kinds[1] > 0 and kinds[2] > 0,
+            f"{label} densify_and_prune on the card vs the CPU at capacity "
+            f"{stash['g'].capacity} ({int(stash['g'].n_live)} live; kept/clone/split0/split1 "
+            f"{kinds}, clones and splits each above 0): row choice bit-equal {same_sel}, n_live {int(g_g.n_live)} vs "
+            f"{int(g_c.n_live)}, n_dropped {int(d_g)} vs {int(d_c)}; largest relative "
+            f"difference {max(rel, key=rel.get)} {max(rel.values()):.3g} (tol 1e-6); "
+            f"{ms_g:.1f} ms on the card, {ms_c:.1f} ms on the CPU")
+    return max(rel.values())
+
+
+def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None):
+    """K1-K6 and segment_sum against their plain versions on a state of the
+    loop, at its tile size and frame size: K1 at each of `budgets`, K2-K4
+    and segment_sum at the last, K5 and K6 in one _sat_probe's inputs ->
+    ({kernel: max |err|}, K1's live slots at each budget, the pairs whose
+    gid is a live row at or above 2^20)."""
+    from gsplat_tpu_torch.render import raster
+
+    errs = {}
+    totals = []
+    for S in budgets:
+        _, total, _, err = expand_check(s, f"{label} K1 at budget {S}", g, cam, S, S, size,
+                                        tile)
+        totals.append(int(total))
+        errs["expand_pairs"] = max(errs.get("expand_pairs", 0.0), float(err))
+    S = budgets[-1]
+    res = composite_check(s, label, g, cam, S, S, tile, size)
+    gid = res[0][:, raster.KEY_COL]
+    high = int(((gid >= (1 << 20)) & (gid < g.capacity)).sum())    # the null gid is capacity
+    errs["composite_fwd"] = res[-1]
+    del res, gid
+    k3, d = phase_backward(s, label, g, cam, target, S, S, tile, size)
+    errs["composite_bwd"] = k3["max_abs_err"]
+    errs["segment_ends"] = phase_ends(s, label, d, g.capacity)["max_abs_err"]
+    errs["segment_sum"] = phase_reduce(s, label, d, g.capacity + 1)["max_abs_err"]
+    del d
+    seen, b = sat_kernel_inputs(g, cam, S, None, S, tile, size)   # what _sat_probe renders
+    del b
+    k5, C = phase_scan(s, label, seen)
+    errs["prefix_sum_small"] = k5["max_abs_err"]
+    errs["compact_runs"] = phase_compact(s, label, seen, C, S)["max_abs_err"]
+    del seen, C
+    torch.cuda.empty_cache()
+    return errs, totals, high
+
+
+def phase_train_cli(s, g, cam_args, target, tmp, counts):
+    """python -m gsplat_tpu_torch.cli over render_cli's COLMAP source (the
+    bench view the test camera, 3 yaw views to train on, 1920x1080), from
+    a start checkpoint of the 1M-Gaussian sparse scene; then resumed from
+    its iteration-20 checkpoint -> (launches, kernel errors)."""
+    from gsplat_tpu_torch import ckpt
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.io.ply import load_gaussian_ply
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.optim import init_adam_state
+
+    s.phase("train cli (sparse, full width)")
+    src, tmp = Path(tmp) / "cli_source", Path(tmp)
+    start = tmp / "start.npz"
+    opt0 = init_adam_state(g.params())
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(start, g, opt0, 0)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g0, o0, step0 = ckpt.load_checkpoint(start, 1 << 17, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = (step0 == 0 and g0.capacity == g.capacity
+            and all(torch.equal(getattr(g0, k), getattr(g, k)) for k in vars(g)
+                    if isinstance(getattr(g, k), torch.Tensor))
+            and all(torch.equal(o0.mu[k], opt0.mu[k]) and torch.equal(o0.nu[k], opt0.nu[k])
+                    for k in opt0.mu))
+    s.check(same, f"start checkpoint ({int(g.n_live)} Gaussians, capacity {g.capacity}, "
+            f"{start.stat().st_size / 1e6:.1f} MB) loads back bit-equal: saved in "
+            f"{t_save:.2f} s, loaded in {t_load:.2f} s")
+    del g0, o0, opt0
+    torch.cuda.empty_cache()
+
+    straight, resumed = tmp / "train_straight", tmp / "train_resumed"
+    argv = ["-s", str(src), *TRAIN_FLAGS,
+            "--densify_grad_threshold", str(TRAIN_GRAD_THRESHOLD)]
+    spy, launches, wall = run_train_cli(
+        s, "train cli", argv + ["-m", str(straight), "--start_checkpoint", str(start),
+                                "--checkpoint_iterations", "20", str(TRAIN_ITERS)],
+        counts, stash=True)
+    lines = spy.lines
+    regrow = [ln for ln in lines if "pair budget" in ln]
+    losses = [st["loss"] for st in spy.steps]
+    final_budget = int(ckpt.load_checkpoint_extras(
+        straight / f"chkpnt{TRAIN_ITERS}.npz")["pair_budget"])
+    after = [st for st in spy.steps if st["budget"] == final_budget]
+    # the last regrowth may fall on the loop's last check (iteration 40): the
+    # final state rendered at the final budget on every camera shows it holds
+    g_end, scene_end = spy.result
+    bg0 = torch.zeros(3, device="cuda")
+    end_dropped = [int(render(c, g_end, bg0, tile_size=TILE, chunk=CHUNK,
+                              pair_budget=final_budget).n_dropped)
+                   for c in scene_end.get_train_cameras() + scene_end.get_test_cameras()]
+    del g_end, scene_end
+    final_cap = spy.steps[-1]["capacity"]
+    s.check(len(spy.steps) == TRAIN_ITERS and all(math.isfinite(x) for x in losses)
+            and regrow and all(st["n_dropped"] == 0 for st in after)
+            and not any(end_dropped),
+            f"train cli: {len(spy.steps)} steps, losses finite (first {losses[0]:.5f}, last "
+            f"{losses[-1]:.5f}); pair budget regrown {len(regrow)} time(s) (budgets at "
+            f"iterations 1, 11, 21, 31: {[st['budget'] for st in spy.steps][::10]}, final "
+            f"{final_budget}); n_dropped of the {len(after)} steps at the final budget "
+            f"{[st['n_dropped'] for st in after]}, of the final state rendered at it on the "
+            f"4 cameras {end_dropped} (want 0 each)")
+    ev = [d["it"] for d in spy.densify]
+    s.check(ev == [15, 30] and any(c > (1 << 20) for _, _, c in spy.grow)
+            and spy.resets == 1 and [p["it"] for p in spy.probes] == [10, 20, 30, 40]
+            and [e["it"] for e in spy.evals] == [20]
+            and [c["path"].name for c in spy.ckpts] == ["chkpnt20.npz", f"chkpnt{TRAIN_ITERS}.npz"]
+            and any(p.parent.name == f"iteration_{TRAIN_ITERS}" for p in spy.plys),
+            f"train cli events: densify at {ev} (want [15, 30]), capacity growth "
+            f"{spy.grow} (past 2^20), opacity resets {spy.resets} (want 1, at 30), sat probes "
+            f"at {[p['it'] for p in spy.probes]}, evaluations at {[e['it'] for e in spy.evals]}, "
+            f"checkpoints {[c['path'].name for c in spy.ckpts]}, PLYs "
+            f"{[p.parent.name for p in spy.plys]}")
+    s.check(final_cap <= (1 << 22) and int(spy.last.n_live) > (1 << 20),
+            f"train cli: {int(spy.last.n_live)} live rows after the last densify (want above "
+            f"2^20 = {1 << 20}), capacity {final_cap} (want at most 2^22; gids stay below "
+            f"the 2^24 the f32 gid and the sat probe's guard allow)")
+    eval_lines = [ln for ln in lines if "eval test" in ln]
+    metrics = straight / "metrics.jsonl"
+    tb = list((straight / "tb").glob("events.out.tfevents.*"))
+    recs = [json.loads(x) for x in metrics.read_text().splitlines()] if metrics.exists() else []
+    ply = straight / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
+    raw = load_gaussian_ply(ply)
+    s.check(eval_lines and any("test_psnr" in r for r in recs) and tb
+            and len(raw["xyz"]) == int(spy.result[0].n_live)
+            and all(np.isfinite(v).all() for v in raw.values()),
+            f"train cli outputs: eval line {eval_lines}; metrics.jsonl {len(recs)} records; "
+            f"TB event files {len(tb)}; final PLY {len(raw['xyz'])} Gaussians, finite, loads "
+            "back through the port")
+    med, lo, hi = spy.step_ms()
+    print(f"  train cli: step {med:.1f} ms median (min {lo:.1f}, max {hi:.1f}; host clock, "
+          f"synced, {len(spy.steps)} steps); wall {wall:.1f} s", flush=True)
+    for d in spy.densify:
+        print(f"  densify at {d['it']}: {d['ms']:.1f} ms, n_live {d['before']} -> "
+              f"{d['after']} (capacity {d['capacity']}, dropped {d['dropped']}); rows "
+              f"kept/clone/split0/split1 {d['kinds']}; largest scale of the rows over the "
+              f"gradient threshold, quantiles 10/50/90% {d['scale_q']}, clone at or below "
+              f"{d['small']:.6f}")
+    print(f"  train cli wall: {spy.wall_split(wall)}", flush=True)
+    for ln in lines:
+        if "budget" in ln or "capacity" in ln or "AUTO" in ln or "eval" in ln:
+            print(f"  loop: {ln}")
+    for c in spy.ckpts:
+        print(f"  checkpoint {c['path'].name}: {c['bytes'] / 1e6:.1f} MB saved in "
+              f"{c['s']:.2f} s")
+    for e in spy.evals:
+        print(f"  eval at {e['it']}: {e['ms']:.1f} ms")
+    for p in spy.probes:
+        print(f"  sat probe at {p['it']}: n_sat, n_pairs, n_culled, n_dropped {p['counts']} "
+              f"({p['ms']:.1f} ms)")
+    if spy.stash is not None:
+        st = spy.stash["g"]
+        n = int(st.n_live)
+        grads = (st.xyz_gradient_accum[:n] / st.denom[:n].clamp(min=1)).numpy()
+        qs = np.quantile(grads, [0.1, 0.25, 0.5, 0.75, 0.9])
+        print(f"  densify at 15 inputs: mean view-space gradient quantiles 10/25/50/75/90% "
+              f"{qs.tolist()}; over the threshold {TRAIN_GRAD_THRESHOLD}: "
+              f"{int((grads >= TRAIN_GRAD_THRESHOLD).sum())} of {n}", flush=True)
+
+    # the state after the last densify: the kernels at the loop's shapes
+    R, T, fovx, fovy = cli_view(cam_args, 1)
+    target_q = (np.clip(target, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    target_t = torch.from_numpy(target_q.astype(np.float32) / 255.0).to("cuda")
+    cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
+    budgets = [spy.steps[0]["budget"], final_budget]
+    errs, totals, high = loop_kernel_checks(s, "train cli state after densify 30", spy.last,
+                                            cam, target_t, budgets)
+    s.check(totals[0] > budgets[0] and high > 0,
+            f"train cli: K1 held at the truncating budget {budgets[0]} (live slots {totals[0]}) "
+            f"and at the loop's final one {budgets[-1]} ({totals[-1]}); {high} pairs carry a gid "
+            f"of a live row at or above 2^20 (capacity {spy.last.capacity}, "
+            f"{int(spy.last.n_live)} live)")
+    last_state, stash = spy.last, spy.stash
+    del spy
+    torch.cuda.empty_cache()
+
+    s.phase("train cli resumed from chkpnt20")
+    t0 = time.perf_counter()
+    ckpt.load_checkpoint(straight / "chkpnt20.npz", 1 << 17, device="cuda")
+    torch.cuda.synchronize()
+    t_load20 = time.perf_counter() - t0
+    spy2, launches2, wall2 = run_train_cli(
+        s, "train cli resumed", argv + ["-m", str(resumed), "--start_checkpoint",
+                                        str(straight / "chkpnt20.npz"),
+                                        "--checkpoint_iterations", str(TRAIN_ITERS)], counts)
+    final = f"chkpnt{TRAIN_ITERS}.npz"
+    differ = same_checkpoints(straight / final, resumed / final)
+    ply2 = resumed / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
+    same_ply = ply2.read_bytes() == ply.read_bytes()
+    s.check(len(spy2.steps) == TRAIN_ITERS - 20 and not differ and same_ply
+            and [d["it"] for d in spy2.densify] == [30],
+            f"train cli resumed at 21 (chkpnt20 loaded in {t_load20:.2f} s): "
+            f"{len(spy2.steps)} steps, densify at {[d['it'] for d in spy2.densify]}; final "
+            f"checkpoint arrays bit-equal to the straight run's (differing: {differ or 'none'}); "
+            f"final PLY bytes equal {same_ply}")
+    print(f"  train cli resumed wall: {spy2.wall_split(wall2)}", flush=True)
+    del spy2, last_state
+    torch.cuda.empty_cache()
+
+    s.phase("densify on the card vs the CPU (the loop's state at iteration 15)")
+    errs["densify"] = densify_card_vs_cpu(s, "train cli", stash)
+    del stash
+    return {k: launches[k] + launches2[k] for k in launches}, errs
+
+
+def textured_scene(n, seed=0):
+    """scripts/selfcheck_train.py::textured_scene in numpy: many small solid
+    Gaussians on a ground plane, a sphere shell and a torus, with
+    high-frequency procedural colours -> (points, colours)."""
+    rng = np.random.default_rng(seed)
+    n_pl, n_sh = n // 3, n // 3
+    n_to = n - n_pl - n_sh
+    pl = np.stack([
+        rng.uniform(-1.2, 1.2, n_pl),
+        np.full(n_pl, -1.05) + rng.normal(0, 0.003, n_pl),
+        rng.uniform(-1.2, 1.2, n_pl),
+    ], 1)
+    sh = rng.normal(size=(n_sh, 3))
+    sh /= np.linalg.norm(sh, axis=1, keepdims=True)
+    sh *= 0.75
+    phi = rng.uniform(0, 2 * np.pi, n_to)
+    theta = rng.uniform(0, 2 * np.pi, n_to)
+    to = np.stack([
+        (1.0 + 0.28 * np.cos(theta)) * np.cos(phi),
+        0.28 * np.sin(theta) - 0.3,
+        (1.0 + 0.28 * np.cos(theta)) * np.sin(phi),
+    ], 1)
+    pts = np.concatenate([pl, sh, to])
+    f = 9.0
+    base = 0.5 + 0.5 * np.stack([
+        np.sin(f * pts[:, 0]) * np.sin(f * 1.3 * pts[:, 2]),
+        np.sin(f * 0.8 * pts[:, 1] + 2.1) * np.cos(f * pts[:, 0]),
+        np.cos(f * 1.7 * pts[:, 2] + 0.7),
+    ], 1)
+    checker = ((np.floor(pts[:, 0] * 4) + np.floor(pts[:, 2] * 4)) % 2)[:, None]
+    colors = np.clip(0.75 * base + 0.25 * checker, 0, 1)
+    return pts, colors
+
+
+def rig(n_cams, radius=3.5):
+    """scripts/selfcheck_train.py::rig: cameras on a wavy circle looking at
+    the origin -> [(R cam-to-world, T world-to-cam)]."""
+    out = []
+    for i in range(n_cams):
+        ang = 2 * math.pi * i / n_cams
+        el = 0.35 * math.sin(3 * ang)
+        pos = np.array([
+            radius * math.cos(el) * math.sin(ang),
+            radius * math.sin(el),
+            radius * math.cos(el) * math.cos(ang),
+        ])
+        fwd = -pos / np.linalg.norm(pos)
+        up = np.array([0.0, 1.0, 0.0])
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        R_w2c = np.stack([right, np.cross(fwd, right), fwd])
+        out.append((R_w2c.T, -R_w2c @ pos))
+    return out
+
+
+def write_quality_scene(root):
+    """scripts/make_synthetic_scene.py --textured at quality_proxy.py's
+    defaults, with the port: the ground truth rendered at tile 16, chunk
+    128, pair budget 2^21 -> seconds of its parts."""
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.core.gaussians import create_from_pcd
+    from gsplat_tpu_torch.io import colmap, png
+    from gsplat_tpu_torch.render.render import render
+
+    t_all = time.perf_counter()
+    pts, colors = textured_scene(QP_GT)
+    cap = 1 << int(np.ceil(np.log2(QP_GT + 1)))
+    g = create_from_pcd(pts, colors, capacity=cap, device="cuda")
+    live = g.live_mask[:, None]
+    g = g.replace(opacity=torch.where(live, torch.full_like(g.opacity, 2.5), g.opacity),
+                  scaling=torch.where(live, torch.full_like(g.scaling, math.log(0.012)),
+                                      g.scaling))
+    sparse, images = Path(root) / "sparse" / "0", Path(root) / "images"
+    sparse.mkdir(parents=True)
+    images.mkdir()
+    fovx = 0.9
+    focal = 0.5 * QP_W / math.tan(fovx / 2)
+    fovy = 2 * math.atan(0.5 * QP_H / focal)
+    colmap.write_intrinsics_binary({1: colmap.Camera(
+        id=1, model="PINHOLE", width=QP_W, height=QP_H,
+        params=np.array([focal, focal, QP_W / 2, QP_H / 2]))}, sparse / "cameras.bin")
+    bg = torch.zeros(3, device="cuda")
+    imgs, t_render, t_encode = {}, 0.0, 0.0
+    for i, (R, T) in enumerate(rig(QP_CAMS), start=1):
+        cam = make_camera(R, T, fovx, fovy, QP_W, QP_H, device="cuda")
+        t0 = time.perf_counter()
+        img = render(cam, g, bg, tile_size=QP_TILE, chunk=CHUNK, pair_budget=QP_BUDGET).image
+        arr = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+        t_render += time.perf_counter() - t0
+        name = f"img_{i:03d}.png"
+        t0 = time.perf_counter()
+        png.write_png(images / name, arr)
+        t_encode += time.perf_counter() - t0
+        imgs[i] = colmap.Image(id=i, qvec=colmap.rotmat2qvec(R.T), tvec=T, camera_id=1,
+                               name=name)
+    colmap.write_extrinsics_binary(imgs, sparse / "images.bin")
+    noisy = pts + np.random.default_rng(7).normal(size=pts.shape) * 0.03
+    rgb8 = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
+    colmap.write_points3D_binary(noisy, rgb8, np.zeros(len(pts)), sparse / "points3D.bin")
+    return dict(render=t_render, encode=t_encode, total=time.perf_counter() - t_all)
+
+
+def record_at(records, step, key):
+    return next(r[key] for r in records if r["step"] == step and key in r)
+
+
+def phase_train_quality(s, tmp, counts):
+    """scripts/quality_proxy.py --iters 1000 with the port: the repo's
+    120-camera textured synthetic scene at 960x540, tile 16, held to the
+    JAX package's record of the same run -> (launches, kernel errors)."""
+    s.phase("train quality (1k, tile 16)")
+    root = Path(tmp) / "qproxy"
+    part = write_quality_scene(root / "scene")
+    print(f"  quality scene: {QP_GT} Gaussians rendered to {QP_CAMS} PNGs of {QP_W}x{QP_H} "
+          f"in {part['total']:.1f} s (renders {part['render']:.1f} s, PNG encodes "
+          f"{part['encode']:.1f} s)", flush=True)
+    argv = ["-s", str(root / "scene"), "-m", str(root / "out"), "--eval",
+            "--iterations", str(QP_ITERS), "--capacity", str(QP_CAPACITY),
+            "--pair_budget", str(QP_BUDGET), "--tile_size", str(QP_TILE),
+            "--test_iterations", str(QP_ITERS), "--quiet"]
+    spy, launches, wall = run_train_cli(s, "train quality", argv, counts)
+    recs = [json.loads(x) for x in (root / "out" / "metrics.jsonl").read_text().splitlines()]
+    ref = [json.loads(x) for x in (QP_RECORD / "metrics.jsonl").read_text().splitlines()]
+    got_cams = json.loads((root / "out" / "cameras.json").read_text())
+    ref_cams = json.loads((QP_RECORD / "cameras.json").read_text())
+
+    def cam_equal(a, b):
+        if {k: a[k] for k in ("id", "img_name", "width", "height")} != \
+                {k: b[k] for k in ("id", "img_name", "width", "height")}:
+            return False
+        fa = np.array([a["fx"], a["fy"], *a["position"], *np.ravel(a["rotation"])])
+        fb = np.array([b["fx"], b["fy"], *b["position"], *np.ravel(b["rotation"])])
+        return bool((np.abs(fa - fb) <= 1e-6 * np.maximum(1.0, np.abs(fb))).all())
+
+    bad = [i for i, (a, b) in enumerate(zip(got_cams, ref_cams)) if not cam_equal(a, b)]
+    s.check(len(got_cams) == len(ref_cams) == QP_CAMS and not bad,
+            f"quality cameras.json: {len(got_cams)} cameras equal to the committed record's "
+            f"within 1e-6 (differing: {bad[:5] or 'none'})")
+    for it in (100, 200):
+        got, want = record_at(recs, it, "loss"), record_at(ref, it, "loss")
+        s.check(abs(got - want) <= QP_LOSS_RTOL * want,
+                f"quality loss at {it}: {got:.5f} vs the JAX record {want:.5f} "
+                f"({(got - want) / want:+.2%}, tol {QP_LOSS_RTOL:.0%})")
+    print("  quality loss at 300/400/500: " + ", ".join(
+        f"{record_at(recs, it, 'loss'):.5f} (record {record_at(ref, it, 'loss'):.5f})"
+        for it in (300, 400, 500)), flush=True)
+    got, want = record_at(recs, 700, "n_gaussians"), record_at(ref, 700, "n_gaussians")
+    s.check(abs(got - want) <= QP_COUNT_RTOL * want,
+            f"quality n_gaussians at 700: {got} vs the JAX record {want} "
+            f"({(got - want) / want:+.2%}, tol {QP_COUNT_RTOL:.0%})")
+    got, want = record_at(recs, QP_ITERS, "test_psnr"), record_at(ref, QP_ITERS, "test_psnr")
+    s.check(abs(got - want) <= QP_PSNR_TOL,
+            f"quality test PSNR at {QP_ITERS}: {got:.3f} vs the JAX record {want:.3f} "
+            f"({got - want:+.3f} dB, tol {QP_PSNR_TOL} dB)")
+    print("  quality n_gaussians by 100: " + " ".join(
+        f"{r['step']}:{r['n_gaussians']}" for r in recs if "n_gaussians" in r), flush=True)
+    print(f"  quality train PSNR at {QP_ITERS}: {record_at(recs, QP_ITERS, 'train_psnr'):.3f} "
+          f"(record {record_at(ref, QP_ITERS, 'train_psnr'):.3f})")
+    med, lo, hi = spy.step_ms()
+    rate = [r["it_per_s"] for r in recs if "it_per_s" in r]
+    print(f"  quality: {len(spy.steps)} steps, {len(spy.steps) / wall:.2f} it/s over the "
+          f"whole run ({wall:.1f} s wall with Scene set-up, evaluation and saves); step "
+          f"{med:.2f} ms median (min {lo:.2f}, max {hi:.2f}; synced, host clock); it/s by "
+          f"100 {rate}", flush=True)
+    for d in spy.densify:
+        print(f"  quality densify at {d['it']}: {d['ms']:.1f} ms, n_live {d['before']} -> "
+              f"{d['after']}; rows kept/clone/split0/split1 {d['kinds']}")
+    for ln in spy.lines:
+        if "budget" in ln or "capacity" in ln or "AUTO" in ln or "eval" in ln:
+            print(f"  quality loop: {ln}")
+    for e in spy.evals:
+        print(f"  quality eval at {e['it']}: {e['ms']:.1f} ms")
+    print(f"  quality phase: scene build {part['total']:.1f} s, training {wall:.1f} s",
+          flush=True)
+
+    print(f"  quality wall: {spy.wall_split(wall)}", flush=True)
+
+    # the final state on one of the run's views: every kernel the run
+    # launched, at tile 16, 960x540 and the run's pair budgets
+    g, scene = spy.result
+    cam = scene.get_train_cameras()[0]
+    budgets = list(dict.fromkeys([spy.steps[0]["budget"], spy.steps[-1]["budget"]]))
+    errs, totals, _ = loop_kernel_checks(s, "quality tile 16", g, cam, cam.image, budgets,
+                                         QP_TILE, (QP_W, QP_H))
+    print(f"  quality kernels held at tile {QP_TILE}, {QP_W}x{QP_H}, capacity {g.capacity} "
+          f"({int(g.n_live)} live), pair budgets {budgets} (K1's live slots {totals})",
+          flush=True)
+    del g, scene, spy
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1928,6 +2635,7 @@ def main() -> int:
         del sparse, bench
         torch.cuda.empty_cache()
         l_cli = phase_render_cli(s, g, cam_args, target, tmp)
+        l_train, e_train = phase_train_cli(s, g, cam_args, target, tmp, kernel_counts())
         del g, target
         torch.cuda.empty_cache()
 
@@ -1943,11 +2651,18 @@ def main() -> int:
                 f"dense n_culled {got} vs JAX package {REF_DENSE_CULLED}: diff "
                 f"{got - REF_DENSE_CULLED:+d} "
                 f"({(got - REF_DENSE_CULLED) / REF_DENSE_CULLED:+.5%}, tol 0.1%)")
-    launches = {k: l_sparse[k] + l_dense[k] + l_cli[k] for k in l_sparse}
+        del g, target, dense
+        torch.cuda.empty_cache()
+        l_quality, e_quality = phase_train_quality(s, tmp, kernel_counts())
+    by_view = {"sparse": l_sparse, "dense": l_dense, "render_cli": l_cli,
+               "train_cli": l_train, "train_quality": l_quality}
+    launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
           f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at tile {TILE_WIDE}; "
-          f"render_cli's renders {l_cli['composite_fwd']}")
+          f"render_cli's renders {l_cli['composite_fwd']}; the train CLI's steps and probes "
+          f"(K1 {l_train['expand_pairs']}, K5 {l_train['prefix_sum_small']}) and the quality "
+          f"run's (K1 {l_quality['expand_pairs']}, K5 {l_quality['prefix_sum_small']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
@@ -1971,10 +2686,10 @@ def main() -> int:
         (view, main_cell), (other, other_cell) = views
         o = other_cell[name]
         rows.append(dict(main_cell[name], view=view,
-                         launches_by_view={"sparse": l_sparse[name], "dense": l_dense[name],
-                                           "render_cli": l_cli[name]},
+                         launches_by_view={v: c[name] for v, c in by_view.items()},
                          max_abs_err=max(k_sparse[name]["max_abs_err"],
-                                         k_dense[name]["max_abs_err"]),
+                                         k_dense[name]["max_abs_err"],
+                                         e_train.get(name, 0.0), e_quality.get(name, 0.0)),
                          other_view=dict(view=other, **{k: o[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))
         wide = f"{name} tile {TILE_WIDE}"

@@ -1,15 +1,21 @@
-"""The port's configuration: its own copy of gsplat_tpu/config.py's
-`ModelParams` and `OptimizationParams` (upstream 3DGS names and defaults,
-verbatim) and of the `MeshParams` fields the training step and the render
-CLI read.
+"""Configuration surface: the port's copy of gsplat_tpu/config.py.
 
-The JAX package's config module imports no jax, but the port imports nothing
-of that package, so the dataclasses are copied here.
+The reference's four parameter groups (names, defaults and CLI flags;
+reference src/arguments/params.h:25-133, params.cpp:9-66) plus the
+`MeshParams` group, with the JAX package's flags, short aliases and
+defaults. The one difference: `ModelParams.data_device` defaults to
+"cuda" (upstream's default; the device `Scene` and the training loop put
+their tensors on). The JAX package's config module imports no jax, but the
+port imports nothing of that package, so the module is copied here.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import argparse
+import dataclasses
+import io
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 
 @dataclass
@@ -54,22 +60,166 @@ class OptimizationParams:
 
 
 @dataclass
-class MeshParams:
-    """The render budgets and tiling of gsplat_tpu's `MeshParams` (the fields
-    the training step reads; the mesh axes, profiling and sharding fields
-    belong to slices not yet ported)."""
+class PipelineParams:
+    """Reference `PipelineParams` (src/arguments/params.h:93-106).
 
-    tile_size: int = 32          # pixels per tile side
+    convert_SHs_python / compute_cov3D_python toggle WHERE upstream computes
+    SH colors and 3D covariances (Python vs inside the CUDA rasterizer). In the
+    port both always happen in torch ahead of the compositing kernels, so the
+    flags are accepted for CLI compatibility and are semantically no-ops;
+    `debug` turns on autograd's anomaly mode (like --detect_anomaly)."""
+
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
+
+
+@dataclass
+class OtherParams:
+    """Reference `OtherParams` (src/arguments/params.h:108-133)."""
+
+    ip: str = "127.0.0.1"
+    port: int = 6009
+    debug_from: int = -1
+    detect_anomaly: bool = False
+    save_iterations: List[int] = field(default_factory=lambda: [7_000, 30_000])
+    test_iterations: List[int] = field(default_factory=lambda: [7_000, 30_000])
+    quiet: bool = False
+    checkpoint_iterations: List[int] = field(default_factory=list)
+    start_checkpoint: str = ""
+
+
+@dataclass
+class MeshParams:
+    """Execution parameters, the JAX package's fields and defaults: the
+    Gaussian set lives in tensors of size ``capacity`` with a live count, and
+    tile binning writes into a fixed ``pair_budget``-sized buffer (grown by
+    the training loop). The port trains on one device: the training loop
+    raises for a mesh of more than one device or more than one process
+    (data_axis, tile_axis, coordinator_address, num_processes, process_id;
+    multi-GPU training is ROADMAP Queue 1 item 5). shard_gaussians is
+    ignored on one device, as in the JAX package; precision is a no-op in
+    both packages. profile_dir captures a torch.profiler trace.
+    """
+
+    data_axis: int = 1           # camera-batch shards
+    tile_axis: int = 1           # intra-image tile shards
+    # multi-process bootstrap: the JAX package's flags; the port's training
+    # loop raises for num_processes > 1 (multi-GPU is a later slice)
+    coordinator_address: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+    profile_dir: str = ""        # capture a torch.profiler trace into this dir
+    profile_steps: int = 10      # steps to trace (starting at iteration 20)
+    tile_size: int = 32          # pixels per tile side (32x32: ~45% fewer pairs than 16)
     chunk_size: int = 128        # pairs per compositing chunk
-    pair_budget: int = 1 << 20   # max (Gaussian, tile) pairs per render
-    kept_frac: float = -1.0      # post-sort sizing: -1 AUTO (fitted by the
-                                 # training loop; the step starts unsplit), 1 = no
-                                 # split, (0, 1) = fraction of pair_budget
-    sat_frac: float = -1.0       # saturation bound cull: -1 AUTO (the step
-                                 # starts with it off; the training loop that
-                                 # turns it on is not ported yet), 0 off, > 0
-                                 # on, sizing the packed survivors as a
-                                 # fraction of pair_budget
-    contrib_frac: float = -1.0   # backward d-table sizing: -1 AUTO (starts at
-                                 # the never-overflowing worst case), 1 =
-                                 # worst case, (0, 1) = fraction of pair_budget
+    capacity: int = 1 << 17      # initial Gaussian capacity (padded, static)
+    pair_budget: int = 1 << 20   # max (Gaussian, tile) pairs per render (static)
+    kept_frac: float = -1.0      # post-sort stage sizing. -1 (default) =
+                                 # AUTO: the driver fits the kept-pair budget
+                                 # from n_pairs/n_culled telemetry (exploiting
+                                 # the tight tile cull; overflow regrows).
+                                 # 1 = no split; fractions in (0,1) size it as
+                                 # a fraction of pair_budget.
+    sat_frac: float = -1.0       # saturation bound cull: pairs behind a
+                                 # PROVABLE per-tile transmittance bound are
+                                 # cut before the attribute gather / kernels /
+                                 # backward (bit-identical image and
+                                 # gradients). -1 (default) = AUTO: the training
+                                 # loop starts with it off, probes n_sat
+                                 # telemetry every sat_probe_interval iters and
+                                 # enables the cull once it would cut >= 2x
+                                 # (density-proportional win; pure overhead on
+                                 # sparse scenes). 0 = off; > 0 = on, sizing
+                                 # the compacted survivor array as a fraction
+                                 # of pair_budget (regrown adaptively).
+    sat_probe_interval: int = 500  # iterations between auto-mode probes
+    contrib_frac: float = -1.0   # backward d-array / gradient-reduction
+                                 # sizing. -1 (default) = AUTO: fitted from
+                                 # n_contrib telemetry (only pairs composited
+                                 # before per-tile saturation carry gradient;
+                                 # overflow steps zero grads and regrow).
+                                 # 1 = worst-case; fractions in (0,1) size it
+                                 # as a fraction of pair_budget.
+    shard_gaussians: bool = False  # ZeRO-style layout: Gaussian params, Adam
+                                 # moments and densify accumulators sharded over
+                                 # the data axis (large-N memory scaling); the
+                                 # infrequent densify/reset/checkpoint steps
+                                 # gather->run->reshard (transiently replicated)
+    precision: str = "f32"       # rasterizer accumulation precision
+
+
+PARAM_GROUPS = (ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams)
+
+Params = Tuple[ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams]
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """CLI mirroring the reference's boost::program_options registration
+    (src/arguments/params.cpp:9-66): every field becomes ``--<name>``; bools are
+    store_true flags; int lists are multitoken."""
+    p = argparse.ArgumentParser(prog="gsplat-tpu-torch", description=__doc__)
+    # upstream short aliases (arguments/__init__.py in upstream 3DGS)
+    shorts = {"source_path": "-s", "model_path": "-m", "resolution": "-r",
+              "images": "-i", "white_background": "-w"}
+    for group_cls in PARAM_GROUPS:
+        grp = p.add_argument_group(group_cls.__name__)
+        for f in dataclasses.fields(group_cls):
+            name = f"--{f.name}"
+            extra = [shorts[f.name]] if f.name in shorts else []
+            default = f.default if f.default is not dataclasses.MISSING else f.default_factory()  # type: ignore[misc]
+            if f.type in ("bool", bool):
+                grp.add_argument(name, *extra, action="store_true", default=default)
+            elif f.type in ("List[int]", List[int]):
+                grp.add_argument(name, *extra, nargs="*", type=int, default=default)
+            elif f.type in ("int", int):
+                grp.add_argument(name, *extra, type=int, default=default)
+            elif f.type in ("float", float):
+                grp.add_argument(name, *extra, type=float, default=default)
+            else:
+                grp.add_argument(name, *extra, type=str, default=default)
+    return p
+
+
+def parse_parameters(argv: Optional[List[str]] = None) -> Params:
+    """Reference `parse_parameters` (src/arguments/params.cpp:322-341)."""
+    ns = build_arg_parser().parse_args(argv)
+    out = []
+    for group_cls in PARAM_GROUPS:
+        kwargs = {f.name: getattr(ns, f.name) for f in dataclasses.fields(group_cls)}
+        out.append(group_cls(**kwargs))
+    return tuple(out)  # type: ignore[return-value]
+
+
+def print_params(params, out=None) -> str:
+    """Reference `print_params` (src/arguments/params.h:36-132): used for both console
+    output and `cfg_args` persistence (src/utils/train_utils.cpp:69-74)."""
+    buf = io.StringIO()
+    title = {
+        "ModelParams": "Model",
+        "OptimizationParams": "Optimization",
+        "PipelineParams": "Pipeline",
+        "OtherParams": "Other",
+        "MeshParams": "Mesh",
+    }[type(params).__name__]
+    buf.write(f"> {title} parameters:\n")
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if isinstance(v, bool):
+            v = "true" if v else "false"
+        elif isinstance(v, list):
+            v = " ".join(str(x) for x in v) + " "
+        buf.write(f"  {f.name}: {v}\n")
+    s = buf.getvalue()
+    if out is not None:
+        out.write(s)
+    return s
+
+
+def cfg_args_string(model: ModelParams) -> str:
+    """The `cfg_args` file content upstream viewers expect: a python-repr Namespace
+    with the ModelParams fields (reference persists print_params instead,
+    src/utils/train_utils.cpp:69-74; we write the upstream-compatible form)."""
+    fields = dataclasses.asdict(model)
+    inner = ", ".join(f"{k}={v!r}" for k, v in fields.items())
+    return f"Namespace({inner})"

@@ -1,10 +1,11 @@
 """The Gaussian model state: a capacity-padded dataclass of tensors.
 
-Port of gsplat_tpu/core/gaussians.py (Gaussians, inverse_sigmoid, and the
-fresh-scene init create_from_pcd with its 3-NN distances). Arrays are padded
-to a fixed capacity with a live count, as in the reference, so states
-compare array for array; padded rows are inert by construction (opacity
-logit -30, log-scale -30, identity quaternion).
+Port of gsplat_tpu/core/gaussians.py (Gaussians with its SH-degree
+annealing, inverse_sigmoid, the fresh-scene init create_from_pcd with its
+3-NN distances, and grow_capacity). Arrays are padded to a fixed capacity
+with a live count, as in the reference, so states compare array for array;
+padded rows are inert by construction (opacity logit -30, log-scale -30,
+identity quaternion).
 """
 
 from __future__ import annotations
@@ -90,6 +91,26 @@ class Gaussians:
     def replace(self, **changes) -> "Gaussians":
         return replace(self, **changes)
 
+    def oneup_sh_degree(self) -> "Gaussians":
+        """Reference gaussian_model.cpp:307-313: one more SH band, up to the
+        model's maximum."""
+        if self.active_sh_degree < self.max_sh_degree:
+            return self.replace(active_sh_degree=self.active_sh_degree + 1)
+        return self
+
+
+def pad_fill(name: str, shape, device: Union[str, torch.device]) -> torch.Tensor:
+    """The inert rows of leaf `name`, (shape) float32 on `device`: opacity
+    logit -30, log-scale -30, the identity quaternion, zeros elsewhere."""
+    if name == "opacity":
+        return torch.full(shape, PAD_OPACITY_LOGIT, dtype=torch.float32, device=device)
+    if name == "scaling":
+        return torch.full(shape, PAD_LOG_SCALE, dtype=torch.float32, device=device)
+    fill = torch.zeros(shape, dtype=torch.float32, device=device)
+    if name == "rotation":
+        fill[..., 0] = 1.0
+    return fill
+
 
 def _pad_rows(cap: int, device: Union[str, torch.device]) -> Callable:
     """pad(name, arr) -> (cap, ...) float32 tensor on `device`: the host
@@ -98,14 +119,7 @@ def _pad_rows(cap: int, device: Union[str, torch.device]) -> Callable:
 
     def pad(name: str, arr: np.ndarray) -> torch.Tensor:
         arr = np.asarray(arr, np.float32)
-        n = arr.shape[0]
-        fill = np.zeros((cap - n,) + arr.shape[1:], np.float32)
-        if name == "opacity":
-            fill[:] = PAD_OPACITY_LOGIT
-        elif name == "scaling":
-            fill[:] = PAD_LOG_SCALE
-        elif name == "rotation":
-            fill[:, 0] = 1.0
+        fill = pad_fill(name, (cap - arr.shape[0],) + arr.shape[1:], "cpu").numpy()
         return torch.from_numpy(np.concatenate([arr, fill], axis=0)).to(device)
 
     return pad
@@ -169,3 +183,17 @@ def _mean_knn_dist2(points: np.ndarray) -> np.ndarray:
     tree = cKDTree(points)
     dists, _ = tree.query(points, k=4)  # first col is self (0)
     return ((dists[:, 1:] ** 2).mean(axis=1)).astype(np.float32)
+
+
+def grow_capacity(g: Gaussians, new_capacity: int) -> Gaussians:
+    """Re-pad every leaf to a larger capacity on the tensors' own device:
+    the parameters with the inert rows, the accumulators with zeros. Nothing
+    goes through the host."""
+    assert new_capacity >= g.capacity
+    extra = new_capacity - g.capacity
+
+    def pad(name: str, a: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a, pad_fill(name, (extra,) + tuple(a.shape[1:]), a.device)])
+
+    return g.replace(**{k: pad(k, getattr(g, k)) for k in PARAM_KEYS + (
+        "max_radii2D", "xyz_gradient_accum", "denom")})

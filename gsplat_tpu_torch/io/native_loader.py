@@ -52,6 +52,16 @@ class _CImageMeta(ctypes.Structure):
 
 # why the library is missing, once a build was tried and failed
 build_error: Optional[str] = None
+_fallback_said = False
+
+
+def say_fallback(instead: str) -> None:
+    """Print, once a process, that the library is missing, why, and what the
+    caller does instead."""
+    global _fallback_said
+    if not _fallback_said:
+        _fallback_said = True
+        print(f"native IO library unavailable ({build_error}); {instead}", flush=True)
 
 
 def _build() -> bool:
@@ -75,14 +85,18 @@ def _build() -> bool:
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """Load (building on demand, once) the native library; None if unavailable."""
-    global _lib
+    global _lib, build_error
     if _lib is not None:
         return _lib
     if build_error is not None:
         return None
     if not _LIB_PATH.exists() and not _build():
         return None
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError as e:  # built on another machine: its libjpeg/libpng are missing here
+        build_error = f"{_LIB_PATH.name} does not load: {e}"
+        return None
     lib.colmap_read_cameras_bin.restype = ctypes.c_int
     lib.colmap_read_images_bin.restype = ctypes.c_int
     lib.colmap_read_points3d_bin.restype = ctypes.c_int64

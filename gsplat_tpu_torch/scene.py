@@ -168,6 +168,8 @@ def _predecode_images_native(infos, resolution, resolution_scale, white_backgrou
     cannot decode (unsupported format, corrupt file) stay lazy and take the
     port's own decoders in load_camera. No-op when the library does not load."""
     if not native_loader.available():
+        native_loader.say_fallback("images decode through io/png.py and resize with the "
+                                   "port's LANCZOS")
         return
     bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
     groups: Dict[tuple, list] = {}

@@ -1,28 +1,96 @@
-"""The training step: render -> L1 + D-SSIM loss -> gradients -> per-group
-Adam -> densification statistics.
+"""The training driver: the train step, and the loop around it.
 
-Port of gsplat_tpu/train/loop.py::make_train_step and the budget helpers it
-reads. The gradients come from autograd through the
-projection and render._Rasterize (the composite_bwd and segment_ends
-kernels on CUDA). The
-rest of the reference's loop (densify/prune/reset, adaptive budgets,
-evaluation, checkpoints) comes with a later slice of the port.
+Port of gsplat_tpu/train/loop.py. `make_train_step` is one step: render ->
+L1 + D-SSIM loss -> gradients (autograd through the projection and
+render._Rasterize: composite_bwd, segment_ends and segment_sum on CUDA) ->
+per-group Adam -> densification statistics. `train` is the reference's
+single-device driver, its events in the reference's order each iteration:
+SH annealing every 1000 iterations; the camera pick from Python's global
+`random`; the random background; the step; the adaptive pair, sat, kept and
+contrib budgets, read back every 10 iterations only; the saturation cull's
+AUTO probe and enable; logging and metrics; evaluation; PLY saves;
+densify/prune with capacity growth; the opacity reset; the checkpoint, last.
+A KeyboardInterrupt saves an interrupt checkpoint; checkpoints carry the
+loop's state for an exact resume.
+
+Where the port differs from the reference:
+- randomness: the reference's JAX key chain (PRNGKey(0), split for each
+  draw) is one torch.Generator on the training device, seeded 0; the
+  random background (`draw_background`) and the split noise
+  (`densify.split_noise`) draw from it in the loop's order, through
+  module-level functions a test can replace. Its state is checkpointed as
+  `extra_torch_rng` (the reference's `extra_rng_key`); a checkpoint of the
+  JAX package resumes with everything but its key.
+- --profile_dir captures a torch.profiler trace of steps 20 to
+  20 + profile_steps (the reference: jax.profiler).
+- one device only: a mesh of more than one device, or more than one
+  process, raises (multi-GPU training is ROADMAP Queue 1 item 5);
+  --shard_gaussians on one device is ignored, as in the reference.
+- no live viewer or network GUI yet (ROADMAP Queue 1 item 4): without
+  --quiet the loop prints one line saying so, and trains on.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import pickle
+import random
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from gsplat_tpu_torch.config import MeshParams, OptimizationParams
+from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.ckpt import (load_checkpoint, load_checkpoint_extras, save_checkpoint,
+                                   save_ply)
+from gsplat_tpu_torch.config import (MeshParams, ModelParams, OptimizationParams, OtherParams,
+                                     PipelineParams, cfg_args_string, print_params)
 from gsplat_tpu_torch.core.camera import Camera
-from gsplat_tpu_torch.core.gaussians import Gaussians
+from gsplat_tpu_torch.core.gaussians import Gaussians, grow_capacity
 from gsplat_tpu_torch.render.render import render
-from gsplat_tpu_torch.train.densify import add_densification_stats
-from gsplat_tpu_torch.train.loss import photometric_loss
-from gsplat_tpu_torch.train.optim import (AdamState, adam_update, current_lrs,
+from gsplat_tpu_torch.scene import Scene
+from gsplat_tpu_torch.train.densify import (add_densification_stats, densify_and_prune,
+                                            reset_opacity, split_noise)
+from gsplat_tpu_torch.train.loss import photometric_loss, psnr
+from gsplat_tpu_torch.train.metrics import MetricsLogger
+from gsplat_tpu_torch.train.optim import (AdamState, adam_update, current_lrs, init_adam_state,
                                           make_lr_fns)
+
+
+class Printer:
+    """Timestamped logger (reference src/utils/train_utils.cpp:13-32, with the
+    quiet logic un-inverted)."""
+
+    def __init__(self, quiet: bool = False):
+        self.quiet = quiet
+
+    def print(self, msg: str) -> None:
+        if not self.quiet:
+            ts = time.strftime("%Y-%m-%d %H:%M:%S")
+            print(f"[{ts}] {msg}", flush=True)
+
+
+def initialize_random_seed(seed: int = 0) -> None:
+    """Reference src/utils/train_utils.cpp:34-48: Python's and numpy's global
+    generators (the loop's own torch.Generator is seeded in train)."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def prepare_output_and_logger(model: ModelParams, all_params) -> Path:
+    """Output dir + cfg_args persistence (reference train_utils.cpp:52-93)."""
+    path = model.model_path
+    if not path:
+        path = time.strftime("./output/%Y-%m-%dT%H-%M-%S")
+        model.model_path = path
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "cfg_args").write_text(cfg_args_string(model))
+    with open(out / "params.txt", "w") as f:
+        for p in all_params:
+            print_params(p, out=f)
+    return out
 
 
 def _kept_budget(mesh: MeshParams, budget: int) -> Optional[int]:
@@ -116,3 +184,488 @@ def make_train_step(
                 out.n_culled, out.n_contrib, out.n_sat)
 
     return train_step
+
+
+@torch.no_grad()
+def _sat_probe(g: Gaussians, cam: Camera, bg: torch.Tensor, *, tile_size: int, chunk: int,
+               pair_budget: int):
+    """One render with a sat budget that cannot overflow, for its telemetry
+    only -> (n_sat, n_pairs, n_culled, n_dropped): n_sat is the chunk-aligned
+    rows the saturation bound cull keeps (prefix_sum_small and compact_runs
+    on CUDA)."""
+    out = render(cam, g, bg, tile_size=tile_size, chunk=chunk, pair_budget=pair_budget,
+                 sat_budget=pair_budget)
+    return out.n_sat, out.n_pairs, out.n_culled, out.n_dropped
+
+
+@torch.no_grad()
+def eval_render(g: Gaussians, cam: Camera, bg: torch.Tensor, *, tile_size: int, chunk: int,
+                pair_budget: int) -> torch.Tensor:
+    return render(cam, g, bg, tile_size=tile_size, chunk=chunk,
+                  pair_budget=pair_budget).image
+
+
+@torch.no_grad()
+def eval_step(g: Gaussians, cam: Camera, bg: torch.Tensor, *, lambda_dssim: float,
+              tile_size: int, chunk: int, pair_budget: int):
+    out = render(cam, g, bg, tile_size=tile_size, chunk=chunk, pair_budget=pair_budget)
+    return (photometric_loss(out.image, cam.image, lambda_dssim),
+            psnr(out.image, cam.image), out.n_dropped)
+
+
+def draw_background(gen: torch.Generator) -> torch.Tensor:
+    """A random background, (3,) float32 uniform in [0, 1) on the
+    generator's device (the reference's jax.random.uniform(key, (3,)))."""
+    return torch.rand(3, generator=gen, dtype=torch.float32, device=gen.device)
+
+
+def _check_one_device(mesh: MeshParams, device: torch.device) -> None:
+    """The port trains on one device: raise for a larger mesh or more than
+    one process instead of running it on one GPU."""
+    data_axis = mesh.data_axis
+    if data_axis == -1:  # auto: every device of the training device's kind
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        data_axis = max(n_dev // mesh.tile_axis, 1)
+    dist = torch.distributed
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if data_axis * mesh.tile_axis > 1 or mesh.num_processes > 1 or world > 1:
+        raise ValueError(
+            f"mesh {data_axis}x{mesh.tile_axis} over {max(mesh.num_processes, world)} "
+            "process(es): the port trains on one device in one process "
+            "(data_axis * tile_axis = 1, num_processes <= 1); multi-GPU training "
+            "is ROADMAP Queue 1 item 5")
+
+
+def train(
+    model: ModelParams,
+    opt: OptimizationParams,
+    pipe: PipelineParams,
+    other: OtherParams,
+    mesh: MeshParams,
+    *,
+    progress_every: int = 100,
+) -> Tuple[Gaussians, Scene]:
+    """The full training entry point (reference train_utils.cpp:97-146,
+    completed), on model.data_device (CUDA unless named)."""
+    _check_one_device(mesh, resolve_device(model.data_device))
+    printer = Printer(other.quiet)
+    out_dir = prepare_output_and_logger(model, (model, opt, pipe, other, mesh))
+    printer.print(f"Output folder: {out_dir}")
+
+    scene = Scene(model, capacity=mesh.capacity)
+    g = scene.gaussians
+    printer.print(
+        f"Loaded scene: {len(scene.get_train_cameras())} train / "
+        f"{len(scene.get_test_cameras())} test cameras, "
+        f"{int(g.n_live)} initial Gaussians (capacity {g.capacity}), "
+        f"extent {scene.cameras_extent:.3f}"
+    )
+    device = g.device
+
+    opt_state = init_adam_state(g.params())
+    first_iter = 0
+    resume_extras: dict = {}
+    if other.start_checkpoint:
+        g, opt_state, first_iter = load_checkpoint(other.start_checkpoint, mesh.capacity,
+                                                   device=device)
+        resume_extras = load_checkpoint_extras(other.start_checkpoint)
+        printer.print(f"Restored checkpoint {other.start_checkpoint} at iter {first_iter}")
+
+    bg = torch.tensor([1.0, 1.0, 1.0] if model.white_background else [0.0, 0.0, 0.0],
+                      dtype=torch.float32, device=device)
+
+    train_cams = scene.get_train_cameras()
+    w, h = train_cams[0].width, train_cams[0].height
+    pair_budget = mesh.pair_budget
+    if "pair_budget" in resume_extras:  # resume with the grown budget, no re-ramp
+        pair_budget = max(pair_budget, int(resume_extras["pair_budget"]))
+    if mesh.shard_gaussians:
+        printer.print("--shard_gaussians ignored on a 1-device mesh")
+
+    # AUTO budgets (kept_frac / contrib_frac / sat_frac = -1, the defaults):
+    # start unsplit / worst-case and fit from telemetry. Manual fractions and
+    # explicit 0/1 keep their fixed semantics.
+    kept_auto = mesh.kept_frac < 0.0
+    kept_budget = _kept_budget(mesh, pair_budget)  # None in auto/off modes
+    if "kept_budget" in resume_extras:
+        if kept_budget is not None:
+            kept_budget = max(kept_budget, int(resume_extras["kept_budget"]))
+        elif kept_auto:
+            kept_budget = int(resume_extras["kept_budget"])
+    contrib_auto = mesh.contrib_frac < 0.0
+    contrib_budget = _contrib_budget0(mesh, pair_budget)
+    if "contrib_budget" in resume_extras:
+        if contrib_budget is not None:
+            contrib_budget = max(contrib_budget, int(resume_extras["contrib_budget"]))
+        elif contrib_auto:
+            contrib_budget = int(resume_extras["contrib_budget"])
+    sat_auto = mesh.sat_frac < 0.0
+    sat_budget = _sat_budget0(mesh, pair_budget)
+    if "sat_budget" in resume_extras:
+        if sat_budget is not None:
+            sat_budget = max(sat_budget, int(resume_extras["sat_budget"]))
+        elif sat_auto:  # auto mode had enabled the cull before the checkpoint
+            sat_budget = int(resume_extras["sat_budget"])
+
+    def build_step(budget, contrib, sat, kept):
+        return make_train_step(opt, mesh, g.spatial_lr_scale, w, h, pair_budget=budget,
+                               contrib_budget=contrib, sat_budget=sat, kept_budget=kept)
+
+    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+    low_usage_streak = 0
+    low_contrib_streak = 0
+    low_sat_streak = 0
+    low_kept_streak = 0
+
+    metrics = MetricsLogger(model.model_path)
+    if not other.quiet:
+        printer.print("no live viewer or network GUI in the port yet (ROADMAP Queue 1 "
+                      f"item 4): --ip {other.ip} --port {other.port} unused; training on")
+
+    rng = torch.Generator(device=device)
+    rng.manual_seed(0)
+    cam_order: List[int] = []
+    ema_loss = torch.zeros((), dtype=torch.float32, device=device)
+    # exact resume: restore every loop-level generator and cursor the step
+    # sequence depends on: the torch generator, Python's `random` state that
+    # drives the camera shuffles, the unconsumed camera order, EMA, streak
+    if resume_extras:
+        if "torch_rng" in resume_extras:
+            rng.set_state(torch.from_numpy(np.array(resume_extras["torch_rng"], np.uint8)))
+        elif "rng_key" in resume_extras:
+            printer.print(
+                "checkpoint of the JAX package: parameters, moments, step, budgets, camera "
+                "order, Python random state, EMA and streak restored; its JAX PRNG key has "
+                "no torch counterpart, so the draws restart from seed 0")
+        if "cam_order" in resume_extras:
+            cam_order = [int(i) for i in resume_extras["cam_order"]]
+        if "ema_loss" in resume_extras:
+            ema_loss = torch.tensor(float(resume_extras["ema_loss"]), dtype=torch.float32,
+                                    device=device)
+        if "low_usage_streak" in resume_extras:
+            low_usage_streak = int(resume_extras["low_usage_streak"])
+        if "py_random" in resume_extras:
+            random.setstate(pickle.loads(resume_extras["py_random"].tobytes()))
+
+    def loop_extras() -> dict:
+        return {
+            "torch_rng": rng.get_state().numpy(),
+            "ema_loss": np.asarray(float(ema_loss), np.float32),
+            "pair_budget": np.asarray(pair_budget, np.int64),
+            **({"contrib_budget": np.asarray(contrib_budget, np.int64)}
+               if contrib_budget is not None else {}),
+            **({"kept_budget": np.asarray(kept_budget, np.int64)}
+               if kept_budget is not None else {}),
+            **({"sat_budget": np.asarray(sat_budget, np.int64)}
+               if sat_budget is not None else {}),
+            "cam_order": np.asarray(cam_order, np.int64),
+            "low_usage_streak": np.asarray(low_usage_streak, np.int64),
+            "py_random": np.frombuffer(pickle.dumps(random.getstate()), np.uint8).copy(),
+        }
+
+    profiler = None
+    t0 = time.time()
+    iteration = first_iter
+
+    try:
+        for iteration in range(first_iter + 1, opt.iterations + 1):
+            # SH degree annealing every 1000 iters (reference gaussian_model.cpp:307-313)
+            if iteration % 1000 == 0:
+                g = g.oneup_sh_degree()
+
+            if not cam_order:
+                cam_order = list(range(len(train_cams)))
+                random.shuffle(cam_order)
+            cam = train_cams[cam_order.pop()]
+
+            step_bg = draw_background(rng) if opt.random_background else bg
+
+            # --profile_dir: a torch.profiler trace of steady-state steps
+            if mesh.profile_dir and iteration == 20:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                profiler = profile(activities=acts)
+                profiler.start()
+            if profiler is not None and iteration == 20 + mesh.profile_steps:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                profiler.stop()
+                Path(mesh.profile_dir).mkdir(parents=True, exist_ok=True)
+                trace = Path(mesh.profile_dir) / f"trace_iter20-{iteration}.json"
+                profiler.export_chrome_trace(str(trace))
+                profiler = None
+                printer.print(f"profiler trace written to {trace}")
+
+            (g, opt_state, loss, ema_loss, n_pairs, n_dropped, n_culled,
+             n_contrib, n_sat) = train_step(g, opt_state, cam, step_bg, iteration, ema_loss)
+
+            # --- adaptive pair budget: every gather/sort in the render
+            # pipeline scales with the budget. Checked every 10 iters only:
+            # scalar readbacks are host syncs; a short lag of dropped-pair
+            # steps is harmless ---
+            if iteration % 10 != 0:
+                pass
+            elif sat_budget is not None and int(n_sat) > sat_budget:
+                # sat overflow zeroed this step's gradients (and truncated the
+                # image); regrow first: its excess also lands in n_dropped,
+                # so a premature pair-budget doubling must not fire on it
+                sat_budget = max(sat_budget * 2,
+                                 -(-int(n_sat) // mesh.chunk_size) * mesh.chunk_size)
+                printer.print(
+                    f"[iter {iteration}] sat budget -> {sat_budget} "
+                    f"({int(n_sat)} survivor slots; recompiling)"
+                )
+                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                low_sat_streak = 0
+            elif (kept_budget is not None and int(n_dropped) > 0
+                  and int(n_pairs) < pair_budget):
+                # n_pairs < pair_budget means the expansion fit: the drop is
+                # a KEPT-budget overflow (grad_ok zeroed this step); regrow to
+                # the observed demand (kept + dropped) with 20% headroom
+                kept_budget = min(pair_budget, max(
+                    kept_budget * 2,
+                    -(-int((kept_budget + int(n_dropped)) * 1.2)
+                      // mesh.chunk_size) * mesh.chunk_size,
+                ))
+                printer.print(
+                    f"[iter {iteration}] kept budget -> {kept_budget} "
+                    f"({int(n_dropped)} kept pairs dropped; recompiling)"
+                )
+                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                low_kept_streak = 0
+            elif int(n_dropped) > 0:
+                pair_budget *= 2
+                if contrib_budget is not None:
+                    contrib_budget *= 2
+                printer.print(
+                    f"[iter {iteration}] pair budget {pair_budget // 2} -> {pair_budget} "
+                    f"({int(n_dropped)} pairs dropped; recompiling)"
+                )
+                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                low_usage_streak = 0
+            elif contrib_budget is not None and int(n_contrib) > contrib_budget:
+                # contrib overflow zeroed this step's gradients (the image is
+                # still exact); regrow the compaction budget
+                contrib_budget = max(contrib_budget * 2, -(-int(n_contrib) // 512) * 512)
+                printer.print(
+                    f"[iter {iteration}] contrib budget -> {contrib_budget} "
+                    f"({int(n_contrib)} compacted rows; recompiling)"
+                )
+                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                low_contrib_streak = 0
+            elif int(n_pairs) * 4 < pair_budget and pair_budget > mesh.pair_budget:
+                low_usage_streak += 1
+                if low_usage_streak >= 20:  # 20 checks x 10 iters = 200 iterations
+                    pair_budget //= 2
+                    printer.print(f"[iter {iteration}] pair budget shrink -> {pair_budget}")
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                            kept_budget)
+                    low_usage_streak = 0
+            else:
+                low_usage_streak = 0
+                if (contrib_budget is not None
+                        and int(n_contrib) * 4 < contrib_budget
+                        and contrib_budget > (_contrib_budget0(mesh, pair_budget) or 512)):
+                    low_contrib_streak += 1
+                    if low_contrib_streak >= 20:
+                        contrib_budget //= 2
+                        printer.print(
+                            f"[iter {iteration}] contrib budget shrink -> {contrib_budget}")
+                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                kept_budget)
+                        low_contrib_streak = 0
+                elif (contrib_auto and contrib_budget is None
+                        and int(n_contrib) * 2 < (kept_budget or pair_budget)):
+                    # AUTO contrib (contrib_frac=-1): bootstrap the backward
+                    # compaction once the composited-pair count is provably
+                    # far below the worst-case d-table
+                    low_contrib_streak += 1
+                    if low_contrib_streak >= 20:
+                        contrib_budget = max(-(-int(int(n_contrib) * 1.5) // 512) * 512, 512)
+                        printer.print(
+                            f"[iter {iteration}] contrib budget fit -> "
+                            f"{contrib_budget} ({int(n_contrib)} composited "
+                            f"rows; recompiling)"
+                        )
+                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                kept_budget)
+                        low_contrib_streak = 0
+                else:
+                    low_contrib_streak = 0
+                if (sat_budget is not None
+                        and int(n_sat) * 4 < sat_budget
+                        and sat_budget > (_sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
+                    low_sat_streak += 1
+                    if low_sat_streak >= 20:
+                        sat_budget //= 2
+                        printer.print(f"[iter {iteration}] sat budget shrink -> {sat_budget}")
+                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                kept_budget)
+                        low_sat_streak = 0
+                else:
+                    low_sat_streak = 0
+                # AUTO kept budget (kept_frac=-1): bootstrap/refit the
+                # post-sort split from the kept-pair telemetry
+                fitted_kept = max(int(n_pairs) - int(n_culled), 0)
+                kept_target = -(-int(fitted_kept * 1.5 + mesh.chunk_size)
+                                // mesh.chunk_size) * mesh.chunk_size
+                if kept_auto and kept_target * 2 < (kept_budget or pair_budget):
+                    low_kept_streak += 1
+                    if low_kept_streak >= 20:
+                        kept_budget = max(kept_target, mesh.chunk_size)
+                        printer.print(
+                            f"[iter {iteration}] kept budget fit -> "
+                            f"{kept_budget} (kept {fitted_kept} of "
+                            f"{int(n_pairs)} pairs; recompiling)"
+                        )
+                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                kept_budget)
+                        low_kept_streak = 0
+                else:
+                    low_kept_streak = 0
+
+            # --- AUTO saturation cull (default, sat_frac=-1): probe n_sat
+            # every sat_probe_interval iters while off; enable once the cull
+            # would provably cut the post-sort pair stages >= 2x. The cull is
+            # bit-identical by construction, so enabling it mid-run changes
+            # nothing but step time. Guards: the sat key packing needs gid <
+            # 2^24 and an exact int32 quanta cumsum (kept < 2^25). ---
+            if (sat_auto and sat_budget is None
+                    and iteration % mesh.sat_probe_interval == 0
+                    and pair_budget < (1 << 25) and g.capacity < (1 << 24)):
+                ns_p, np_p, nc_p, nd_p = _sat_probe(
+                    g, cam, bg, tile_size=mesh.tile_size, chunk=mesh.chunk_size,
+                    pair_budget=pair_budget)
+                kept_live = int(np_p) - int(nc_p)
+                if int(nd_p) == 0 and 2 * int(ns_p) < kept_live:
+                    sat_budget = (-(-int(ns_p) // mesh.chunk_size) * mesh.chunk_size
+                                  + mesh.chunk_size)
+                    printer.print(
+                        f"[iter {iteration}] saturation cull AUTO-ENABLED: "
+                        f"{int(ns_p)} survivor slots of {kept_live} kept pairs "
+                        f"(sat budget {sat_budget}; recompiling)"
+                    )
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                            kept_budget)
+                    low_sat_streak = 0
+
+            # --- logging / eval / save before densify/reset (upstream order:
+            # an eval or save on an opacity-reset iteration sees the
+            # pre-reset model) ---
+            if iteration % progress_every == 0:
+                rate = progress_every / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                printer.print(
+                    f"iter {iteration}/{opt.iterations} loss {float(loss):.5f} "
+                    f"ema {float(ema_loss):.5f} gaussians {int(g.n_live)} "
+                    f"({rate:.1f} it/s)"
+                )
+                metrics.log(
+                    iteration, loss=float(loss), ema_loss=float(ema_loss),
+                    n_gaussians=int(g.n_live), capacity=g.capacity,
+                    it_per_s=round(rate, 2), n_dropped_pairs=int(n_dropped),
+                    n_culled_pairs=int(n_culled),
+                    n_contrib_pairs=int(n_contrib),
+                    n_sat_pairs=int(n_sat),
+                )
+
+            if iteration in other.test_iterations:
+                evaluate(scene, g, bg, opt, mesh, printer, iteration, metrics,
+                         pair_budget=pair_budget)
+
+            if iteration in other.save_iterations:
+                printer.print(f"[iter {iteration}] saving point cloud")
+                save_ply(Path(out_dir) / "point_cloud" / f"iteration_{iteration}"
+                         / "point_cloud.ply", g)
+
+            # --- densification (upstream schedule; reference params.h:50-91) ---
+            if iteration < opt.densify_until_iter:
+                if (iteration > opt.densify_from_iter
+                        and iteration % opt.densification_interval == 0):
+                    max_screen = 20.0 if iteration > opt.opacity_reset_interval else 0.0
+                    g, opt_state, dropped = densify_and_prune(
+                        g, opt_state, split_noise(rng, g.capacity),
+                        max_grad=opt.densify_grad_threshold, min_opacity=0.005,
+                        extent=scene.cameras_extent, max_screen_size=max_screen,
+                        percent_dense=opt.percent_dense,
+                    )
+                    dropped = int(dropped)
+                    n_live = int(g.n_live)
+                    if dropped > 0 or n_live > 0.9 * g.capacity:
+                        new_cap = g.capacity * 2
+                        printer.print(
+                            f"[iter {iteration}] growing capacity {g.capacity} -> {new_cap} "
+                            f"(live {n_live}, dropped {dropped})"
+                        )
+                        g = grow_capacity(g, new_cap)
+                        opt_state = _grow_opt_state(opt_state, new_cap)
+
+                if iteration % opt.opacity_reset_interval == 0 or (
+                    model.white_background and iteration == opt.densify_from_iter
+                ):
+                    g, opt_state = reset_opacity(g, opt_state)
+
+            # checkpoint LAST within the iteration (after densify and the
+            # optimizer step) so a resume at iteration + 1 is exact
+            if iteration in other.checkpoint_iterations:
+                printer.print(f"[iter {iteration}] saving checkpoint")
+                save_checkpoint(Path(out_dir) / f"chkpnt{iteration}.npz", g, opt_state,
+                                iteration, extra=loop_extras())
+
+    except KeyboardInterrupt:
+        # interrupt recovery: persist an emergency checkpoint so
+        # --start_checkpoint can resume exactly here
+        path = Path(out_dir) / f"chkpnt_interrupt_{iteration}.npz"
+        printer.print(f"interrupted at iter {iteration}; saving {path}")
+        save_checkpoint(path, g, opt_state, iteration, extra=loop_extras())
+        raise
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        metrics.close()
+    return g, scene
+
+
+def evaluate(scene: Scene, g: Gaussians, bg: torch.Tensor, opt: OptimizationParams,
+             mesh: MeshParams, printer: Printer, iteration: int,
+             metrics: Optional[MetricsLogger] = None,
+             pair_budget: Optional[int] = None) -> None:
+    """Test/train-sample PSNR report (upstream training_report) at the loop's
+    current pair budget; dropped pairs are flagged, since they mean the
+    reported PSNR understates the model."""
+    budget = pair_budget if pair_budget is not None else mesh.pair_budget
+    configs = [
+        ("test", scene.get_test_cameras()),
+        ("train", scene.get_train_cameras()[:5]),
+    ]
+    for name, cams in configs:
+        if not cams:
+            continue
+        losses, psnrs, dropped = [], [], 0
+        for cam in cams:
+            l, p, nd = eval_step(g, cam, bg, lambda_dssim=opt.lambda_dssim,
+                                 tile_size=mesh.tile_size, chunk=mesh.chunk_size,
+                                 pair_budget=budget)
+            losses.append(float(l))
+            psnrs.append(float(p))
+            dropped += int(nd)
+        printer.print(
+            f"[iter {iteration}] eval {name}: loss {np.mean(losses):.5f} "
+            f"PSNR {np.mean(psnrs):.2f}"
+            + (f" [WARNING: {dropped} pairs dropped — PSNR understated; "
+               f"raise --pair_budget]" if dropped else "")
+        )
+        if metrics is not None:
+            metrics.log(iteration, **{f"{name}_loss": float(np.mean(losses)),
+                                      f"{name}_psnr": float(np.mean(psnrs))})
+
+
+def _grow_opt_state(s: AdamState, new_cap: int) -> AdamState:
+    """The Adam moments zero-padded to new_cap rows on their own device."""
+    def zpad(a):
+        return torch.cat([a, a.new_zeros((new_cap - a.shape[0],) + tuple(a.shape[1:]))])
+
+    return AdamState(mu={k: zpad(v) for k, v in s.mu.items()},
+                     nu={k: zpad(v) for k, v in s.nu.items()}, count=s.count)

@@ -802,3 +802,123 @@ def test_launch_errors_raise():
     _build.check(FakeLib, 0, "composite_fwd launch")
     with pytest.raises(RuntimeError, match="CUDA error 9 .invalid configuration"):
         _build.check(FakeLib, 9, "composite_fwd launch")
+
+
+def densify_state(device, n=3000, cap=4096, seed=5):
+    """A state with clones, splits and prunes, every accumulator, scale and
+    opacity well off its threshold (1e-2 relative)."""
+    from gsplat_tpu_torch.interop import adam_state_from_numpy, gaussians_from_numpy
+
+    rng = np.random.default_rng(seed)
+    live = np.arange(cap) < n
+    scale = np.where(live[:, None], rng.choice([0.005, 0.5], (cap, 1))
+                     * rng.uniform(0.5, 1.5, (cap, 3)), np.exp(-30.0))
+    opacity = np.where(live, rng.choice([-8.0, 1.0], cap), -30.0)[:, None]
+    denom = np.where(live, rng.integers(1, 5, cap), 0).astype(np.float32)
+    accum = np.where(live, rng.choice([0.1, 2.0], cap) * rng.uniform(1, 3, cap), 0) * denom
+    rot = np.where(live[:, None], rng.normal(size=(cap, 4)), [1.0, 0, 0, 0])
+    arrays = dict(xyz=rng.normal(size=(cap, 3)), f_dc=rng.random((cap, 3)),
+                  f_rest=rng.normal(size=(cap, 15, 3)) * 0.1, opacity=opacity,
+                  scaling=np.log(scale), rotation=rot, max_radii2D=rng.uniform(0, 30, cap),
+                  xyz_gradient_accum=accum, denom=denom)
+    g = gaussians_from_numpy(arrays, n, 3, 3, device=device)
+    moments = {k: rng.normal(size=np.asarray(arrays[k]).shape) for k in
+               ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")}
+    opt = adam_state_from_numpy(moments, {k: np.abs(v) for k, v in moments.items()}, 9,
+                                device=device)
+    return g, opt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_screen", [0.0, 20.0])
+def test_densify_on_gpu_matches_cpu(cuda_device, max_screen):
+    """densify_and_prune on the card against the CPU on the same tensors and
+    noise: the row choice, n_live and n_dropped bit-equal, parameters and
+    moments within 1e-6 of each leaf's max."""
+    from gsplat_tpu_torch.train import densify as td
+
+    kw = dict(max_grad=0.5, min_opacity=0.005, extent=5.0, max_screen_size=max_screen,
+              percent_dense=0.01)
+    noise = torch.from_numpy(np.random.default_rng(1).normal(size=(4096, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        g, opt = densify_state(dev)
+        sel = [t.cpu() for t in td.densify_selection(g, **kw)]
+        out[str(dev)] = sel, td.densify_and_prune(g, opt, noise.to(dev), **kw)
+    (sel_c, (g_c, o_c, d_c)), (sel_g, (g_g, o_g, d_g)) = out["cpu"], out[str(cuda_device)]
+    for a, b in zip(sel_c, sel_g):
+        assert torch.equal(a, b)
+    assert int(d_c) == int(d_g) and int(g_c.n_live) == int(g_g.n_live)
+    kinds = sel_c[1][sel_c[2]]
+    assert all(int((kinds == k).sum()) > 0 for k in range(4))
+    pairs = [(getattr(g_c, k), getattr(g_g, k)) for k in
+             ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")]
+    pairs += [(o_c.mu[k], o_g.mu[k]) for k in o_c.mu] + [(o_c.nu[k], o_g.nu[k]) for k in o_c.nu]
+    for want, got in pairs:
+        scale = max(float(want.abs().max()), 1e-30)
+        assert float((got.cpu() - want).abs().max()) <= 1e-6 * scale
+
+
+def train_on_gpu(root, out, iters, **other):
+    import random as pyrandom
+
+    from gsplat_tpu_torch import config
+    from gsplat_tpu_torch.train import loop
+
+    model = config.ModelParams(source_path=str(root), model_path=str(out))
+    opt = config.OptimizationParams(iterations=iters, random_background=True,
+                                    densify_from_iter=2, densification_interval=5,
+                                    densify_until_iter=iters, opacity_reset_interval=10)
+    mesh = config.MeshParams(tile_size=16, chunk_size=32, pair_budget=1 << 10, capacity=64)
+    pyrandom.seed(0)
+    return loop.train(model, opt, config.PipelineParams(),
+                      config.OtherParams(test_iterations=[], save_iterations=[], quiet=True,
+                                         **other), mesh)[0]
+
+
+@pytest.mark.cuda
+def test_train_on_gpu_resumes_exactly_and_grows(cuda_device, tmp_path):
+    """train() on the card: a run resumed from its iteration-7 checkpoint
+    ends bit-equal to the straight run (the generator state, the camera
+    order, the budgets and the EMA ride the checkpoint; the step is the same
+    bits every time), through densify, capacity growth and an opacity
+    reset."""
+    from gsplat_tpu_torch.interop import gaussians_to_numpy
+    from gsplat_tpu_torch.io.synthetic import make_colmap_scene
+
+    root = make_colmap_scene(tmp_path / "scene", n_cams=5, width=64, height=48, n_points=60)
+    before = texp.expand_pairs.launches
+    full = train_on_gpu(root, tmp_path / "full", 16, checkpoint_iterations=[7, 16])
+    assert texp.expand_pairs.launches >= before + 16
+    resumed = train_on_gpu(root, tmp_path / "resumed", 16, checkpoint_iterations=[16],
+                           start_checkpoint=str(tmp_path / "full" / "chkpnt7.npz"))
+    assert full.xyz.device.type == "cuda" and full.capacity > 64
+    a, b = gaussians_to_numpy(full), gaussians_to_numpy(resumed)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    za, zb = (np.load(tmp_path / d / "chkpnt16.npz") for d in ("full", "resumed"))
+    for k in za.files:
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_train_cli_on_gpu(cuda_device, tmp_path):
+    """python -m gsplat_tpu_torch.cli trains on the card by default."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from gsplat_tpu_torch.io.synthetic import make_colmap_scene
+
+    root = make_colmap_scene(tmp_path / "scene", n_cams=5, width=64, height=48, n_points=60)
+    out = tmp_path / "out"
+    p = subprocess.run(
+        [sys.executable, "-m", "gsplat_tpu_torch.cli", "-s", str(root), "-m", str(out),
+         "--iterations", "12", "--capacity", "64", "--pair_budget", "1024",
+         "--tile_size", "16", "--chunk_size", "32", "--densify_from_iter", "2",
+         "--densification_interval", "5", "--eval", "--test_iterations", "12"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert p.stdout.rstrip().endswith("Training complete.") and "eval test" in p.stdout
+    assert "data_device: cuda" in p.stdout
+    assert (out / "point_cloud" / "iteration_12" / "point_cloud.ply").exists()

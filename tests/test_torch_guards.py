@@ -39,6 +39,8 @@ def test_package_imports_with_jax_blocked():
         "import gsplat_tpu_torch.io.png, gsplat_tpu_torch.io.colmap\n"
         "import gsplat_tpu_torch.io.dataset, gsplat_tpu_torch.io.synthetic\n"
         "import gsplat_tpu_torch.io.native_loader, gsplat_tpu_torch.render_cli\n"
+        "import gsplat_tpu_torch.ckpt, gsplat_tpu_torch.cli\n"
+        "import gsplat_tpu_torch.train.metrics, gsplat_tpu_torch.train.tb\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -362,3 +362,15 @@ def test_native_decode_and_readers(jax_scene):
     for a, b in zip(native_loader.read_points3d_bin(sparse / "points3D.bin"),
                     colmap.read_points3D_binary(sparse / "points3D.bin")):
         np.testing.assert_array_equal(a, b)
+
+
+def test_native_fallback_said_once(monkeypatch, capsys):
+    """A caller that takes the port's own decoders because the native library
+    is missing prints why, once a process."""
+    monkeypatch.setattr(native_loader, "build_error", "libgsplat_io.so does not load")
+    monkeypatch.setattr(native_loader, "_fallback_said", False)
+    native_loader.say_fallback("images decode through io/png.py")
+    native_loader.say_fallback("images decode through io/png.py")
+    out = capsys.readouterr().out
+    assert out == ("native IO library unavailable (libgsplat_io.so does not load); "
+                   "images decode through io/png.py\n")
