@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32 and at tile 64, the render CLI over a dataset on disk, and the
-training CLI: from a checkpoint of the 1M scene, and 1000 iterations of the
-repo's quality-proxy scene held to the JAX package's record.
+at tile 32 and at tile 64, the render CLI over a dataset on disk, the
+training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
+repo's quality-proxy scene held to the JAX package's record), the live
+viewer (the SIBR network GUI serving the 1M model, and inside the training
+loop), full_eval (train, render, metrics with LPIPS) and the training
+self-check.
 
     python3 chip_smoke.py
 
@@ -14,7 +17,8 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            count of composite_fwd and composite_bwd): no spills
   oracle   a tiny scene rendered on the GPU against the port's per-pixel
            oracle and its CPU render (plain kernel versions), 2e-5 abs
-  then, for each of two cells, bench.py's scene re-made in numpy (1M
+  then, for each of two cells, bench.py's scene re-made in numpy
+  (gsplat_tpu_torch/tools/bench_scene.py; 1M
   Gaussians, numpy default_rng(0), geometry at tile 32, and its random
   target image) written as a 3DGS point_cloud.ply and loaded back onto the
   GPU (capacity 2^20), with the pair and kept budgets of its bench view
@@ -150,28 +154,72 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            choice, n_live and n_dropped bit-equal, floats within 1e-6.
            Printed: step ms (median, min, max), densify ms and n_live,
            regrowths, checkpoint seconds and bytes, eval ms, probes
-  train quality (1k, tile 16)  after the dense cell: scripts/
-           quality_proxy.py --iters 1000 at its defaults with the port (the
-           120-camera textured scene of scripts/selfcheck_train.py rendered
-           by the port at tile 16, 960x540, 60,000 Gaussians), cli.main;
+  viewer serve (sparse, full width)  after the train cli phase: a
+           NetworkGUIServer on a free local port over the 1M sparse model at
+           one pair budget (the largest fitted one of the requests, 1.2x); a
+           client thread sends SIBR requests (the bench camera and yaw +2,
+           -3 at 1920x1080; the bench camera at scaling_modifier 0.5; yaw +5
+           at 1237x691, no multiple of the tile; one with resolution_x 0),
+           three rounds; the main thread polls and serves each through the
+           loop's _serve_gui_request. Every reply bit-equal to image_to_bytes
+           of the render of camera_from_request apart, the verify string,
+           n_dropped 0, GUI render errors 0, an HTTP GET on the same port
+           returns the page; K1 and K2 against their plain versions at
+           1920x1080 and 1237x691. Printed: the round trip ms a request at
+           each size (median, min, max), split into render device ms, the
+           device-to-host copy, the bytes and the socket; K1 and K2 launches
+           a request
+  train cli with the viewer (sparse, full width)  the train cli phase's run
+           from start.npz without --quiet (the viewer on a free port,
+           progress_every 10): a SIBR client renders a view before the
+           first step and one after the tenth, pauses training (train=False,
+           keep_alive) for two more round trips and resumes. No step while paused; every image reply bit-equal to the
+           render apart of the model it was served from; 4 previews, each
+           fetched over HTTP and decoding to the image handed to publish;
+           the final PLY byte-equal to the train cli phase's (--quiet) run;
+           a preview's publish (median) under 2% of the time of the steps
+           between two previews at train()'s default progress_every 100
+           (printed at 10 too). Printed:
+           each preview's publish and encode ms and bytes (and the first at
+           zlib levels 1 and 6), the round trips, the wall by part
+  full_eval (sparse, full width)  full_eval.main over render_cli's source:
+           trains 20 iterations from start.npz (--resolution 1, sat probes
+           every 10), renders the 4 views, scores them with random LPIPS
+           weights (.npz under build/lpips_random/); full_eval.json holds
+           test/ours_20 and train/ours_20 with PSNR, SSIM, L1 and LPIPS
+           finite; evaluate_model on the CPU over the same PNGs within 1e-5
+           (PSNR, SSIM, L1); LPIPS on the card vs the CPU within 1e-4 on a
+           512x512 crop of each pair (a 1080p pair takes tens of seconds on
+           the CPU); K1-K6 and segment_sum on the final state. Printed:
+           LPIPS ms a 1080p pair against its fp32 bound, SSIM, PNG decode,
+           render_cli's parts and the wall by part
+  train quality (1k, tile 16)  after the dense cell: tools/quality_proxy.py
+           --iters 1000 at its defaults (the 120-camera textured scene of
+           tools/selfcheck_train.py, built by quality_proxy.make_scene at
+           tile 16, 960x540, 60,000 Gaussians), cli.main;
            held to artifacts/qproxy_sat30/out/: cameras.json within 1e-6,
            the loss at 100 and 200 within 2%, n_gaussians at 700 within
            1%, the test PSNR at 1000 within 0.3 dB of 38.648; K2 and K3
            against their plain versions at tile 16 on one of its views.
            Printed: it/s, densify and eval events, the contrib budget fit,
            the scene build and training wall times
+  selfcheck  tools/selfcheck_train.py at its defaults (600 iterations at
+           256x256 from a perturbed start): it prints PASS (final PSNR at
+           least 22); K1-K6 and segment_sum against their plain versions on
+           its final state at tile 16, 256x256, pair budget 2^18
 The launch counts of the seven kernels are zeroed just before each serve,
-each train, the tile-64 serve-and-train phase, each render_cli run and each
-train CLI run (the main paths) and must cover every render and step run
-there (K5 and K6 in the sat phases and the loop's probes; K1 and K2 in
+each train, the tile-64 serve-and-train phase, each render_cli run, each
+train CLI run, the viewer's requests, full_eval and the self-check (the
+main paths) and must cover every render and step run there (K5 and K6 in the sat phases and the loop's probes; K1 and K2 in
 render_cli); the
 kernels line sums them and must show every kernel. The kernels JSON rows
 hold the sparse bench view's times and bound for K1-K4 and segment_sum, the
 dense view's for K5 and K6 (the cell whose users run the cull), the other
 view's beside them (`other_view`), the largest error of the two cells and
-the train phases' checks, the launches of each cell's main path, of
-render_cli and of the two train phases beside their total
-(`launches_by_view`),
+the checks of the train, quality, viewer, full_eval and self-check phases,
+the launches of each cell's main path, of
+render_cli, of the train, quality, viewer, train-with-viewer, full_eval and
+self-check phases beside their total (`launches_by_view`),
 and for K2 and K3 their times and bounds at tile 64 (`tile_64`).
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
@@ -244,33 +292,6 @@ K3_OPS_PER_EVAL = 65
 TILE_WIDE = 64    # the widest tile the compositing kernels run, in four pixel passes
 FRAME_REPS = 10   # synced frames timed per view
 TRAIN_STEPS = {"sparse": 10, "dense": 3}
-
-
-def build_scene(n, width, height, seed=0, target_pairs_per_gaussian=4.0,
-                tile_size=16):
-    """bench.py::build_scene (aniso 0) in numpy, with the same draws in the
-    same order -> (raw PLY arrays of the n live Gaussians, camera args, the
-    (height, width, 3) target image)."""
-    rng = np.random.default_rng(seed)
-    pts = rng.normal(size=(n, 3)).astype(np.float32)
-    pts[:, 2] = pts[:, 2] * 0.5
-    fovx, fovy = 1.2, 0.8
-    focal = 0.5 * width / math.tan(fovx / 2)
-    z_mean = 4.0
-    radius_px = tile_size * (math.sqrt(target_pairs_per_gaussian) - 1.0) / 2.0
-    sigma = radius_px * z_mean / (3.0 * focal)
-    rng.uniform(1.0, 1.0, n)          # bench draws the anisotropy even at 0
-    f_dc = rng.random((n, 3)).astype(np.float32)
-    img = rng.random((height, width, 3)).astype(np.float32)
-    raw = {
-        "xyz": pts,
-        "features_dc": f_dc,
-        "features_rest": np.zeros((n, 15, 3), np.float32),
-        "opacity": np.zeros((n, 1), np.float32),
-        "scaling": np.full((n, 3), np.log(sigma), np.float32),
-        "rotation": np.tile(np.array([[1, 0, 0, 0]], np.float32), (n, 1)),
-    }
-    return raw, (np.eye(3), np.array([0.0, 0.0, z_mean]), fovx, fovy), img
 
 
 def yaw_camera(cam_args, degrees):
@@ -1930,7 +1951,7 @@ TRAIN_FLAGS = ["--resolution", "1", "--eval", "--iterations", str(TRAIN_ITERS),
                "--sat_probe_interval", "10", "--test_iterations", "20"]
 # scripts/quality_proxy.py --iters 1000 at its defaults, and the JAX
 # package's record of that run (artifacts/qproxy_sat30/out/metrics.jsonl)
-QP_W, QP_H, QP_CAMS, QP_GT, QP_ITERS = 960, 540, 120, 60_000, 1000
+QP_W, QP_H, QP_CAMS, QP_GT, QP_ITERS = 960, 540, 120, 60_000, 1000   # quality_proxy's
 QP_BUDGET, QP_CAPACITY, QP_TILE = 1 << 21, 1 << 17, 16
 QP_RECORD = Path(__file__).resolve().parent / "artifacts" / "qproxy_sat30" / "out"
 QP_LOSS_RTOL, QP_COUNT_RTOL, QP_PSNR_TOL = 0.02, 0.01, 0.3
@@ -1945,17 +1966,29 @@ class LoopSpy:
     checkpoint (s, bytes), PLY and opacity reset; the seconds of the Scene's
     set-up and of the start checkpoint's load; the Printer's lines; on the
     first densify, a host copy of its inputs (`stash`); the state after the
-    last densify (`last`)."""
+    last densify (`last`); train()'s wall seconds (`train_s`). `train_kw`
+    goes to train() (progress_every). With `viewer`: the network GUI server
+    the loop starts (`server`; its constructor holds train() until
+    `hold` is set, so that a client's requests land inside the run), each
+    preview it publishes (host ms, the encode's ms and bytes, and whether
+    preview.png fetched over HTTP decodes to the image handed to publish),
+    and each GUI request the loop serves (host ms, the model, background
+    and budget it was served from, for a render apart after the run)."""
 
-    def __init__(self, stash=False):
+    def __init__(self, stash=False, train_kw=None, viewer=False):
+        import threading
+
         from gsplat_tpu_torch import cli
         from gsplat_tpu_torch.train import loop
 
         self.loop, self.cli, self.want_stash = loop, cli, stash
+        self.train_kw, self.want_viewer = dict(train_kw or {}), viewer
         self.steps, self.densify, self.grow, self.probes = [], [], [], []
         self.evals, self.ckpts, self.plys, self.lines = [], [], [], []
         self.resets, self.stash, self.last, self.result = 0, None, None, None
         self.setup = {"Scene": 0.0, "load_checkpoint": 0.0, "save_ply": 0.0}
+        self.train_s, self.server, self.hold = 0.0, None, threading.Event()
+        self.previews, self.encodes, self.gui = [], [], []
 
     def __enter__(self):
         from gsplat_tpu_torch.train.densify import densify_selection
@@ -2061,8 +2094,13 @@ class LoopSpy:
                 super().print(msg)
 
         def train(*a, **kw):
-            spy.result = self.real_train(*a, **kw)
+            t0 = time.perf_counter()
+            spy.result = self.real_train(*a, **{**kw, **spy.train_kw})
+            spy.train_s = time.perf_counter() - t0
             return spy.result
+
+        if self.want_viewer:
+            self._viewer_hooks()
 
         for k, f in (("make_train_step", make_train_step),
                      ("densify_and_prune", densify_and_prune),
@@ -2075,19 +2113,79 @@ class LoopSpy:
         self.cli.train = train
         return self
 
+    def _viewer_hooks(self):
+        import urllib.request
+
+        from gsplat_tpu_torch.io import png
+
+        loop, spy = self.loop, self
+        self.png = png
+        self.real_viewer = (loop.NetworkGUIServer, loop._serve_gui_request, png.encode_png)
+        real_server, real_serve, real_encode = self.real_viewer
+
+        def encode_png(*a, **kw):
+            t0 = time.perf_counter()
+            data = real_encode(*a, **kw)
+            level = kw.get("level", a[2] if len(a) > 2 else 6)
+            spy.encodes.append(dict(ms=(time.perf_counter() - t0) * 1e3, bytes=len(data),
+                                    level=level))
+            return data
+
+        class Server(real_server):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                spy.server = self
+                spy.hold.wait(120)
+
+            def publish(self, image):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().publish(image)
+                ms = (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+                want = (torch.clamp(image, 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+                with urllib.request.urlopen(f"{self.url}preview.png", timeout=30) as r:
+                    data = r.read()
+                got = png.decode_png(data)
+                spy.previews.append(dict(it=spy.steps[-1]["it"], ms=ms, bytes=len(data),
+                                         encode=spy.encodes[-1], equal=bool(
+                                             got.shape == want.shape and (got == want).all()),
+                                         check_s=time.perf_counter() - t1, image=want))
+
+        def serve(viewer, req, g, bg, mesh, pair_budget):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_serve(viewer, req, g, bg, mesh, pair_budget)
+            ms = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            snap = None
+            if req.world_view is not None:     # for the render apart, after the run
+                snap = g.replace(**{k: v.clone() for k, v in vars(g).items()
+                                    if isinstance(v, torch.Tensor)})
+            spy.gui.append(dict(req=req, it=len(spy.steps) + 1, ms=ms, g=snap, bg=bg.clone(),
+                                budget=pair_budget, tile=mesh.tile_size, chunk=mesh.chunk_size,
+                                check_s=time.perf_counter() - t1))
+
+        loop.NetworkGUIServer, loop._serve_gui_request, png.encode_png = (Server, serve,
+                                                                           encode_png)
+
     def __exit__(self, *exc):
         for k, f in self.real.items():
             setattr(self.loop, k, f)
         self.cli.train = self.real_train
+        if self.want_viewer:
+            (self.loop.NetworkGUIServer, self.loop._serve_gui_request,
+             self.png.encode_png) = self.real_viewer
 
     def step_ms(self):
         ms = [st["ms"] for st in self.steps]
         return statistics.median(ms), min(ms), max(ms)
 
-    def wall_split(self, wall):
+    def wall_split(self, wall, extra=None):
         """The run's wall seconds by part, largest first, the rest (parsing,
         logging, the camera picks, the budget reads, cfg_args, cameras.json,
-        metrics and TB records) by difference -> printable text."""
+        metrics and TB records) by difference -> printable text. `extra`:
+        more parts measured outside the spy."""
         parts = {"steps": sum(st["ms"] for st in self.steps) / 1e3,
                  "densify": sum(d["ms"] for d in self.densify) / 1e3,
                  "sat probes": sum(p["ms"] for p in self.probes) / 1e3,
@@ -2096,20 +2194,30 @@ class LoopSpy:
                  "PLY saves": self.setup["save_ply"],
                  "Scene set-up": self.setup["Scene"],
                  "start checkpoint load": self.setup["load_checkpoint"]}
+        if self.want_viewer:
+            parts.update({
+                "preview publishes": sum(v["ms"] for v in self.previews) / 1e3,
+                "preview fetches (the check)": sum(v["check_s"] for v in self.previews),
+                "GUI requests served": sum(v["ms"] for v in self.gui) / 1e3,
+                "GUI snapshots (the check)": sum(v["check_s"] for v in self.gui)})
+        parts.update(extra or {})
         parts["the rest"] = wall - sum(parts.values())
         return ", ".join(f"{k} {v:.3f} s ({v / wall:.1%})"
                          for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
-def run_train_cli(s, label, argv, counts, stash=False):
+def run_train_cli(s, label, argv, counts, stash=False, during=None, **spy_kw):
     """cli.main(argv) in process, the launch counts from zero -> (LoopSpy,
-    launches, wall seconds)."""
+    launches, wall seconds). `during(spy)`, if given, starts beside the run
+    (a client thread)."""
     from gsplat_tpu_torch import cli
 
     for f in counts.values():
         f.launches = 0
     t0 = time.perf_counter()
-    with LoopSpy(stash) as spy:
+    with LoopSpy(stash, **spy_kw) as spy:
+        if during is not None:
+            during(spy)
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2241,7 +2349,9 @@ def phase_train_cli(s, g, cam_args, target, tmp, counts):
     torch.cuda.empty_cache()
 
     straight, resumed = tmp / "train_straight", tmp / "train_resumed"
-    argv = ["-s", str(src), *TRAIN_FLAGS,
+    # --quiet: no live viewer (the "train cli with the viewer" phase runs
+    # the same training with it and must end on the same bits)
+    argv = ["-s", str(src), *TRAIN_FLAGS, "--quiet",
             "--densify_grad_threshold", str(TRAIN_GRAD_THRESHOLD)]
     spy, launches, wall = run_train_cli(
         s, "train cli", argv + ["-m", str(straight), "--start_checkpoint", str(start),
@@ -2374,106 +2484,608 @@ def phase_train_cli(s, g, cam_args, target, tmp, counts):
     return {k: launches[k] + launches2[k] for k in launches}, errs
 
 
-def textured_scene(n, seed=0):
-    """scripts/selfcheck_train.py::textured_scene in numpy: many small solid
-    Gaussians on a ground plane, a sphere shell and a torus, with
-    high-frequency procedural colours -> (points, colours)."""
-    rng = np.random.default_rng(seed)
-    n_pl, n_sh = n // 3, n // 3
-    n_to = n - n_pl - n_sh
-    pl = np.stack([
-        rng.uniform(-1.2, 1.2, n_pl),
-        np.full(n_pl, -1.05) + rng.normal(0, 0.003, n_pl),
-        rng.uniform(-1.2, 1.2, n_pl),
-    ], 1)
-    sh = rng.normal(size=(n_sh, 3))
-    sh /= np.linalg.norm(sh, axis=1, keepdims=True)
-    sh *= 0.75
-    phi = rng.uniform(0, 2 * np.pi, n_to)
-    theta = rng.uniform(0, 2 * np.pi, n_to)
-    to = np.stack([
-        (1.0 + 0.28 * np.cos(theta)) * np.cos(phi),
-        0.28 * np.sin(theta) - 0.3,
-        (1.0 + 0.28 * np.cos(theta)) * np.sin(phi),
-    ], 1)
-    pts = np.concatenate([pl, sh, to])
-    f = 9.0
-    base = 0.5 + 0.5 * np.stack([
-        np.sin(f * pts[:, 0]) * np.sin(f * 1.3 * pts[:, 2]),
-        np.sin(f * 0.8 * pts[:, 1] + 2.1) * np.cos(f * pts[:, 0]),
-        np.cos(f * 1.7 * pts[:, 2] + 0.7),
-    ], 1)
-    checker = ((np.floor(pts[:, 0] * 4) + np.floor(pts[:, 2] * 4)) % 2)[:, None]
-    colors = np.clip(0.75 * base + 0.25 * checker, 0, 1)
-    return pts, colors
+# ---- the live viewer and the eval tools (network_gui.py, viewer.py,
+# full_eval.py, metrics_cli.py, lpips.py, tools/) ----
+
+# the viewer serve phase's requests: (label, yaw degrees, width, height,
+# scaling_modifier); a window that is no multiple of the tile, and the
+# handshake that asks for no image
+VIEWER_VIEWS = (("1920x1080", 0.0, W, H, 1.0), ("1920x1080", 2.0, W, H, 1.0),
+                ("1920x1080", -3.0, W, H, 1.0), ("1920x1080 scaling 0.5", 0.0, W, H, 0.5),
+                ("1237x691", 5.0, 1237, 691, 1.0), ("no image", 0.0, 0, 0, 1.0))
+VIEWER_ROUNDS = 3
+VIEWER_VERIFY = "chip-smoke-viewer"
+PREVIEW_SHARE_MAX = 0.02     # a preview's publish, of the steps and the publish between two
+VIEWER_PROGRESS_EVERY = 10   # this phase's progress_every: previews at 10, 20, 30, 40
+DEFAULT_PROGRESS_EVERY = 100  # train()'s default, where the share is held
+FE_ITERS = 20                # full_eval's training iterations from start.npz
+FE_CROP = 512                # the CPU's LPIPS runs on a 512x512 crop of each pair
+METRIC_RTOL, LPIPS_RTOL = 1e-5, 1e-4
 
 
-def rig(n_cams, radius=3.5):
-    """scripts/selfcheck_train.py::rig: cameras on a wavy circle looking at
-    the origin -> [(R cam-to-world, T world-to-cam)]."""
-    out = []
-    for i in range(n_cams):
-        ang = 2 * math.pi * i / n_cams
-        el = 0.35 * math.sin(3 * ang)
-        pos = np.array([
-            radius * math.cos(el) * math.sin(ang),
-            radius * math.sin(el),
-            radius * math.cos(el) * math.cos(ang),
-        ])
-        fwd = -pos / np.linalg.norm(pos)
-        up = np.array([0.0, 1.0, 0.0])
-        right = np.cross(up, fwd)
-        right /= np.linalg.norm(right)
-        R_w2c = np.stack([right, np.cross(fwd, right), fwd])
-        out.append((R_w2c.T, -R_w2c @ pos))
-    return out
-
-
-def write_quality_scene(root):
-    """scripts/make_synthetic_scene.py --textured at quality_proxy.py's
-    defaults, with the port: the ground truth rendered at tile 16, chunk
-    128, pair budget 2^21 -> seconds of its parts."""
+def viewer_message(cam_args, deg, width, height, scaling_modifier, train=True,
+                   keep_alive=True):
+    """A SIBR request for the bench camera turned by `deg`, at the window
+    size given (the camera's fovs), as the viewer sends it."""
     from gsplat_tpu_torch.core.camera import make_camera
-    from gsplat_tpu_torch.core.gaussians import create_from_pcd
-    from gsplat_tpu_torch.io import colmap, png
+
+    R, T, fovx, fovy = yaw_camera(cam_args, deg)
+    cam = make_camera(R, T, fovx, fovy, max(width, 1), max(height, 1), device="cpu")
+    return {"resolution_x": width, "resolution_y": height, "train": train,
+            "keep_alive": keep_alive, "fov_x": fovx, "fov_y": fovy, "z_near": 0.01,
+            "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+            "scaling_modifier": scaling_modifier,
+            "view_matrix": cam.world_view.reshape(-1).tolist(),
+            "view_projection_matrix": cam.full_proj.reshape(-1).tolist()}
+
+
+class SibrClient:
+    """The SIBR remote viewer's side of the wire: [u32-LE length][JSON] out,
+    [H*W*3 bytes][u32-LE length][verify] back."""
+
+    def __init__(self, port, deadline_s=300.0):
+        import socket
+
+        t_end = time.perf_counter() + deadline_s
+        while True:
+            try:
+                self.conn = socket.create_connection(("127.0.0.1", port), timeout=5)
+                break
+            except OSError:
+                if time.perf_counter() > t_end:
+                    raise
+                time.sleep(0.01)
+        self.conn.settimeout(300)
+
+    def _recv(self, n):
+        buf = bytearray()
+        while len(buf) < n:
+            part = self.conn.recv(min(n - len(buf), 1 << 20))
+            if not part:
+                raise ConnectionError("the trainer closed the connection")
+            buf += part
+        return bytes(buf)
+
+    def send(self, msg):
+        import struct
+
+        payload = json.dumps(msg).encode("utf-8")
+        self.conn.sendall(struct.pack("<I", len(payload)) + payload)
+
+    def reply(self, msg):
+        import struct
+
+        img = self._recv(msg["resolution_x"] * msg["resolution_y"] * 3) \
+            if msg["resolution_x"] > 0 else b""
+        (n,) = struct.unpack("<I", self._recv(4))
+        return img, self._recv(n).decode("ascii")
+
+    def round_trip(self, msg):
+        """-> (image bytes, verify, round-trip ms)."""
+        t0 = time.perf_counter()
+        self.send(msg)
+        img, verify = self.reply(msg)
+        return img, verify, (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self.conn.close()
+
+
+def http_page(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.headers.get("Content-Type"), r.read()
+
+
+def ms_stats(xs):
+    return (f"{statistics.median(xs):.3f} (min {min(xs):.3f}, max {max(xs):.3f}, "
+            f"n {len(xs)})")
+
+
+def phase_viewer_serve(s, g, cam_args, tmp, counts):
+    """A NetworkGUIServer on a free local port over the 1M sparse model; a
+    client thread sends VIEWER_VIEWS VIEWER_ROUNDS times, the main thread
+    polls and serves each through the loop's _serve_gui_request; every
+    reply against image_to_bytes of a render of the same camera apart, K1
+    and K2 against their plain versions at the viewer's window sizes ->
+    (launches, kernel errors)."""
+    import threading
+
+    from gsplat_tpu_torch import network_gui
+    from gsplat_tpu_torch.config import MeshParams
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train import loop
+
+    s.phase("viewer serve (sparse, full width)")
+    msgs = [viewer_message(cam_args, deg, w, h, sm) for _, deg, w, h, sm in VIEWER_VIEWS]
+    cams = [network_gui.camera_from_request(network_gui.parse_message(m), "cuda")
+            if m["resolution_x"] else None for m in msgs]
+    # one pair budget for every request, as the loop has: the largest of
+    # their fitted budgets with the JAX loop's 1.2x headroom
+    n_pairs = [fit_budgets(g, c, SPARSE_BUDGET)[2] for c in cams if c is not None]
+    budget = -(-int(max(n_pairs) * SAT_HEADROOM) // CHUNK) * CHUNK
+    mesh = MeshParams(tile_size=TILE, chunk_size=CHUNK, pair_budget=budget)
+    bg = torch.zeros(3, device="cuda")
+    root = Path(tmp) / "viewer_serve"
+    root.mkdir()
+    server = network_gui.NetworkGUIServer(root, "127.0.0.1", 0, verify=VIEWER_VERIFY)
+    s.check(server.url is not None, f"viewer: NetworkGUIServer listening at {server.url}")
+    got, errors = {}, []
+
+    def client():
+        try:
+            c = SibrClient(server.port)
+            for r in range(VIEWER_ROUNDS):
+                for i, m in enumerate(msgs):
+                    got[(r, i)] = c.round_trip(m)
+            c.close()
+        except Exception as e:   # reported by the checks below
+            errors.append(repr(e))
+
+    for f in counts.values():
+        f.launches = 0
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    served, t_end = [], time.perf_counter() + 300
+    while len(served) < VIEWER_ROUNDS * len(msgs) and time.perf_counter() < t_end \
+            and not errors:
+        req = server.poll()
+        if req is None:
+            time.sleep(0.0005)
+            continue
+        k1, k2 = counts["expand_pairs"].launches, counts["composite_fwd"].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop._serve_gui_request(server, req, g, bg, mesh, budget)
+        served.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                           k1=counts["expand_pairs"].launches - k1,
+                           k2=counts["composite_fwd"].launches - k2))
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counts.items()}
+    t.join(timeout=60)
+    ctype, page = http_page(server.url)
+    n_errors = server.render_errors
+    server.close()
+    s.check(not errors and not t.is_alive() and len(got) == len(served)
+            == VIEWER_ROUNDS * len(msgs) and n_errors == 0,
+            f"viewer: {len(served)} requests served and {len(got)} replies received "
+            f"({VIEWER_ROUNDS} rounds of {len(msgs)}); client errors {errors or 'none'}; GUI "
+            f"render errors {n_errors} (want 0); pair budget {budget} (fitted pairs {n_pairs})")
+    s.check(ctype == "text/html" and b"gsplat-tpu" in page,
+            f"viewer: an HTTP GET on the SIBR port returns the page ({ctype}, {len(page)} B)")
+
+    # each reply against the render of its camera apart
+    by_size = {}
+    for i, ((label, _, w, h, sm), m, cam) in enumerate(zip(VIEWER_VIEWS, msgs, cams)):
+        rows = by_size.setdefault(label, dict(rtt=[], server=[], socket=[], render=[],
+                                              copy=[], bytes=[], k1=[], k2=[], equal=[],
+                                              verify=[], dropped=[]))
+        ref, dropped = b"", 0
+        if cam is not None:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = render(cam, g, bg, tile_size=TILE, chunk=CHUNK, pair_budget=budget,
+                         scaling_modifier=sm)
+            e1.record()
+            torch.cuda.synchronize()
+            ref = network_gui.image_to_bytes(out.image)
+            q = (torch.clamp(out.image, 0.0, 1.0) * 255).to(torch.uint8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = q.cpu()
+            t1 = time.perf_counter()
+            memoryview(host.numpy().reshape(-1))     # what image_to_bytes returns
+            t2 = time.perf_counter()
+            dropped = int(out.n_dropped)
+            rows["render"].append(e0.elapsed_time(e1))
+            rows["copy"].append((t1 - t0) * 1e3)
+            rows["bytes"].append((t2 - t1) * 1e3)
+            del out, q, host
+        for r in range(VIEWER_ROUNDS):
+            img, verify, rtt = got.get((r, i), (None, None, float("nan")))
+            sv = served[r * len(msgs) + i] if r * len(msgs) + i < len(served) else {}
+            rows["rtt"].append(rtt)
+            rows["server"].append(sv.get("ms", float("nan")))
+            rows["socket"].append(rtt - sv.get("ms", float("nan")))
+            rows["k1"].append(sv.get("k1"))
+            rows["k2"].append(sv.get("k2"))
+            rows["equal"].append(img == ref)
+            rows["verify"].append(verify == VIEWER_VERIFY)
+            rows["dropped"].append(dropped)
+    for label, rows in by_size.items():
+        s.check(all(rows["equal"]) and all(rows["verify"]) and not any(rows["dropped"]),
+                f"viewer {label}: {len(rows['equal'])} replies bit-equal to image_to_bytes of "
+                f"the render apart {sum(rows['equal'])}, verify string {sum(rows['verify'])}, "
+                f"n_dropped {rows['dropped']}")
+        split = (f"render device ms {ms_stats(rows['render'])}, device-to-host copy ms "
+                 f"{ms_stats(rows['copy'])}, bytes ms {ms_stats(rows['bytes'])}, "
+                 if rows["render"] else "")
+        print(f"  viewer {label}: round trip ms {ms_stats(rows['rtt'])}; the loop's serve ms "
+              f"{ms_stats(rows['server'])}; {split}socket and queue ms "
+              f"{ms_stats(rows['socket'])}; K1, K2 launches a request {rows['k1']}, "
+              f"{rows['k2']}", flush=True)
+    # K1 and K2 at the viewer's window sizes, the odd one included
+    errs = {"expand_pairs": 0.0, "composite_fwd": 0.0}
+    for cam in (cams[0], cams[4]):
+        size = (cam.width, cam.height)
+        label = f"viewer {cam.width}x{cam.height}"
+        err = float(expand_check(s, label, g, cam, budget, budget, size)[-1])
+        errs["expand_pairs"] = max(errs["expand_pairs"], err)
+        err = float(composite_check(s, label, g, cam, budget, budget, TILE, size)[-1])
+        errs["composite_fwd"] = max(errs["composite_fwd"], err)
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def phase_train_viewer(s, cam_args, tmp, counts):
+    """The train cli phase's run from start.npz without --quiet: the live
+    viewer on a free port, previews every VIEWER_PROGRESS_EVERY iterations,
+    a SIBR client rendering, pausing and resuming training -> launches."""
+    import threading
+
+    from gsplat_tpu_torch import network_gui
+    from gsplat_tpu_torch.io import png
     from gsplat_tpu_torch.render.render import render
 
-    t_all = time.perf_counter()
-    pts, colors = textured_scene(QP_GT)
-    cap = 1 << int(np.ceil(np.log2(QP_GT + 1)))
-    g = create_from_pcd(pts, colors, capacity=cap, device="cuda")
-    live = g.live_mask[:, None]
-    g = g.replace(opacity=torch.where(live, torch.full_like(g.opacity, 2.5), g.opacity),
-                  scaling=torch.where(live, torch.full_like(g.scaling, math.log(0.012)),
-                                      g.scaling))
-    sparse, images = Path(root) / "sparse" / "0", Path(root) / "images"
-    sparse.mkdir(parents=True)
-    images.mkdir()
-    fovx = 0.9
-    focal = 0.5 * QP_W / math.tan(fovx / 2)
-    fovy = 2 * math.atan(0.5 * QP_H / focal)
-    colmap.write_intrinsics_binary({1: colmap.Camera(
-        id=1, model="PINHOLE", width=QP_W, height=QP_H,
-        params=np.array([focal, focal, QP_W / 2, QP_H / 2]))}, sparse / "cameras.bin")
-    bg = torch.zeros(3, device="cuda")
-    imgs, t_render, t_encode = {}, 0.0, 0.0
-    for i, (R, T) in enumerate(rig(QP_CAMS), start=1):
-        cam = make_camera(R, T, fovx, fovy, QP_W, QP_H, device="cuda")
-        t0 = time.perf_counter()
-        img = render(cam, g, bg, tile_size=QP_TILE, chunk=CHUNK, pair_budget=QP_BUDGET).image
-        arr = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
-        t_render += time.perf_counter() - t0
-        name = f"img_{i:03d}.png"
-        t0 = time.perf_counter()
-        png.write_png(images / name, arr)
-        t_encode += time.perf_counter() - t0
-        imgs[i] = colmap.Image(id=i, qvec=colmap.rotmat2qvec(R.T), tvec=T, camera_id=1,
-                               name=name)
-    colmap.write_extrinsics_binary(imgs, sparse / "images.bin")
-    noisy = pts + np.random.default_rng(7).normal(size=pts.shape) * 0.03
-    rgb8 = (np.clip(colors, 0, 1) * 255).astype(np.uint8)
-    colmap.write_points3D_binary(noisy, rgb8, np.zeros(len(pts)), sparse / "points3D.bin")
-    return dict(render=t_render, encode=t_encode, total=time.perf_counter() - t_all)
+    s.phase("train cli with the viewer (sparse, full width)")
+    tmp = Path(tmp)
+    src, out = tmp / "cli_source", tmp / "train_viewer"
+    # --port 0: the server takes a free port, and the client reads it there
+    argv = ["-s", str(src), *TRAIN_FLAGS, "--densify_grad_threshold", str(TRAIN_GRAD_THRESHOLD),
+            "-m", str(out), "--start_checkpoint", str(tmp / "start.npz"),
+            "--ip", "127.0.0.1", "--port", "0"]
+    bench = viewer_message(cam_args, 0.0, W, H, 1.0)
+    script = [("render", bench), ("render", viewer_message(cam_args, 2.0, 1237, 691, 0.5)),
+              ("pause", dict(bench, train=False)),
+              ("paused", viewer_message(cam_args, -3.0, W, H, 1.0, train=False)),
+              ("paused", dict(viewer_message(cam_args, 0.0, 0, 0, 1.0), train=False)),
+              ("resume", dict(bench, keep_alive=False))]
+    log, errors = [], []
+
+    def client(spy):
+        try:
+            t_end = time.perf_counter() + 300
+            while spy.server is None and time.perf_counter() < t_end:
+                time.sleep(0.01)
+            c = SibrClient(spy.server.port)
+            for i, (kind, m) in enumerate(script):
+                if kind == "paused":
+                    time.sleep(0.2)
+                if i == 1:      # the rest at a model trained some steps
+                    t_end = time.perf_counter() + 300
+                    while len(spy.steps) < 10 and time.perf_counter() < t_end:
+                        time.sleep(0.005)
+                t0 = time.perf_counter()
+                c.send(m)
+                if i == 0:          # the loop starts once the first request is out
+                    spy.hold.set()
+                img, verify = c.reply(m)
+                rtt = (time.perf_counter() - t0) * 1e3
+                log.append(dict(kind=kind, img=img, verify=verify, rtt=rtt, at=time.perf_counter(),
+                                steps=len(spy.steps)))
+            c.close()
+        except Exception as e:   # reported by the checks below
+            errors.append(repr(e))
+        finally:
+            spy.hold.set()
+
+    threads = []
+
+    def during(spy):
+        threads.append(threading.Thread(target=client, args=(spy,), daemon=True))
+        threads[0].start()
+
+    spy, launches, wall = run_train_cli(
+        s, "train cli with the viewer", argv, counts, during=during,
+        train_kw=dict(progress_every=VIEWER_PROGRESS_EVERY), viewer=True)
+    threads[0].join(timeout=60)
+    paused_s = (log[-1]["at"] - log[2]["at"]) if len(log) == len(script) else 0.0
+    s.check(not errors and len(log) == len(script) and spy.server is not None
+            and spy.server.render_errors == 0
+            and all(e["verify"] == str(src) for e in log),
+            f"train cli with the viewer: {len(log)} of {len(script)} round trips; client errors "
+            f"{errors or 'none'}; GUI render errors "
+            f"{None if spy.server is None else spy.server.render_errors} (want 0); verify "
+            f"strings {sorted({e['verify'] for e in log})}")
+    paused = [e["steps"] for e in log if e["kind"] in ("pause", "paused")]
+    s.check(len(set(paused)) == 1 and paused[0] < TRAIN_ITERS and len(spy.steps) == TRAIN_ITERS,
+            f"train cli with the viewer: steps at the paused replies {paused} (want one value "
+            f"below {TRAIN_ITERS}: no step while paused, {paused_s:.2f} s), {len(spy.steps)} "
+            f"steps in all")
+    # each image reply against the render, apart, of the model it was served from
+    # (at the loop's pair budget of that iteration, as the reference renders
+    # them: before the loop's first regrowth the bench view truncates)
+    bad, dropped = [], []
+    for v, e in zip([v for v in spy.gui if v["g"] is not None],
+                    [e for e in log if e["img"]]):
+        req = v["req"]
+        o = render(network_gui.camera_from_request(req, "cuda"), v["g"], v["bg"],
+                   tile_size=v["tile"], chunk=v["chunk"], pair_budget=v["budget"],
+                   scaling_modifier=req.scaling_modifier)
+        dropped.append((v["it"], v["budget"], int(o.n_dropped)))
+        if not e["img"] == req._image == network_gui.image_to_bytes(o.image):
+            bad.append((v["it"], req.width, req.height))
+    n_img = sum(1 for v in spy.gui if v["g"] is not None)
+    s.check(n_img == sum(1 for e in log if e["img"]) == 5 and not bad,
+            f"train cli with the viewer: {n_img} image replies (at iterations "
+            f"{[v['it'] for v in spy.gui]}) bit-equal to the render apart of the model served; "
+            f"differing {bad or 'none'}; (iteration, pair budget, n_dropped) {dropped}")
+    for v in spy.gui:
+        v.pop("g")
+    pv = spy.previews
+    s.check(len(pv) >= 2 and all(v["equal"] for v in pv),
+            f"train cli with the viewer: {len(pv)} previews at iterations {[v['it'] for v in pv]} "
+            f"fetched over HTTP, each decoding to the image handed to publish: "
+            f"{[v['equal'] for v in pv]}")
+    ply = f"point_cloud/iteration_{TRAIN_ITERS}/point_cloud.ply"
+    same = (out / ply).read_bytes() == (tmp / "train_straight" / ply).read_bytes()
+    s.check(same, f"train cli with the viewer: final PLY byte-equal to the train cli phase's "
+            f"run without the viewer: {same}")
+    # the preview's cost against the steps it comes between: one publish
+    # (the host copy, the encode and the file) a progress_every steps
+    pub_ms = statistics.median([v["ms"] for v in pv]) if pv else float("inf")
+    enc_ms = statistics.median([v["encode"]["ms"] for v in pv]) if pv else float("inf")
+    step_ms = spy.step_ms()[0]
+    share = {every: pub_ms / (pub_ms + every * step_ms)
+             for every in (VIEWER_PROGRESS_EVERY, DEFAULT_PROGRESS_EVERY)}
+    s.check(share[DEFAULT_PROGRESS_EVERY] < PREVIEW_SHARE_MAX,
+            f"train cli with the viewer: a preview's publish {pub_ms:.2f} ms median (its PNG "
+            f"encode {enc_ms:.2f} ms) against {step_ms:.2f} ms a step (median, synced): "
+            f"{share[DEFAULT_PROGRESS_EVERY]:.2%} of the step time at train()'s default "
+            f"progress_every {DEFAULT_PROGRESS_EVERY} (want < {PREVIEW_SHARE_MAX:.0%}), "
+            f"{share[VIEWER_PROGRESS_EVERY]:.2%} at this run's {VIEWER_PROGRESS_EVERY}")
+    for v in pv:
+        print(f"  preview at {v['it']}: publish {v['ms']:.1f} ms (of it the PNG encode "
+              f"{v['encode']['ms']:.1f} ms at zlib level {v['encode']['level']}, "
+              f"{v['bytes'] / 1e6:.2f} MB)")
+    if pv:
+        for level in (1, 6):
+            t0 = time.perf_counter()
+            n = len(png.encode_png(pv[0]["image"], level=level))
+            print(f"  the first preview at zlib level {level}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {n / 1e6:.2f} MB")
+    for e in log:
+        print(f"  viewer client {e['kind']}: {e['rtt']:.1f} ms round trip, steps {e['steps']}")
+    print("  the loop's GUI serves (ms): " + ", ".join(
+        f"{v['req'].width}x{v['req'].height} at {v['it']} {v['ms']:.1f}" for v in spy.gui))
+    print(f"  train cli with the viewer wall: "
+          f"{spy.wall_split(wall, {'paused by the viewer': paused_s})}", flush=True)
+    del spy
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_lpips_weights(root, seed=7):
+    """Random VGG16-shaped LPIPS weights (tests/test_lpips.py's shapes and
+    scales) as the two .npz files metrics_cli reads -> (vgg path, lin path)."""
+    from gsplat_tpu_torch.lpips import TAP_CHANNELS
+
+    rng = np.random.default_rng(seed)
+    out_ch = {0: 64, 2: 64, 5: 128, 7: 128, 10: 256, 12: 256, 14: 256, 17: 512, 19: 512,
+              21: 512, 24: 512, 26: 512, 28: 512}
+    vgg, in_ch = {}, 3
+    for i in sorted(out_ch):
+        vgg[f"features.{i}.weight"] = rng.normal(0, 0.08, (out_ch[i], in_ch, 3, 3)).astype(
+            np.float32)
+        vgg[f"features.{i}.bias"] = rng.normal(0, 0.02, (out_ch[i],)).astype(np.float32)
+        in_ch = out_ch[i]
+    lin = {f"lin{k}.model.1.weight": rng.uniform(0, 0.1, (1, ch, 1, 1)).astype(np.float32)
+           for k, ch in enumerate(TAP_CHANNELS)}
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    np.savez(root / "vgg16.npz", **vgg)
+    np.savez(root / "lin.npz", **lin)
+    return root / "vgg16.npz", root / "lin.npz"
+
+
+def lpips_flops(width, height):
+    """The multiply-adds of LPIPS's 13 convolutions on two images, times 2
+    (VGG16's channels; each 2x2 pool in floor mode)."""
+    from gsplat_tpu_torch.lpips import TAP_CHANNELS, VGG16_SLICES
+
+    macs, c_in, w, h = 0, 3, width, height
+    for si, (sl, c) in enumerate(zip(VGG16_SLICES, TAP_CHANNELS)):
+        if si > 0:
+            w, h = w // 2, h // 2
+        for _ in sl:
+            macs += c_in * c * 9 * w * h
+            c_in = c
+    return 2 * 2 * macs
+
+
+class StageClock:
+    """Wraps a module's functions for a context: per name, a list of host
+    seconds of each call (synced)."""
+
+    def __init__(self, module, names):
+        self.mod, self.names, self.s = module, names, {n: [] for n in names}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.mod, n) for n in self.names}
+        for n in self.names:
+            def timed(*a, _n=n, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = self.real[_n](*a, **kw)
+                torch.cuda.synchronize()
+                self.s[_n].append(time.perf_counter() - t0)
+                return out
+            setattr(self.mod, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.mod, n, f)
+
+    def total(self, name):
+        return sum(self.s[name])
+
+
+def phase_full_eval(s, tmp, counts):
+    """python -m gsplat_tpu_torch.full_eval over render_cli's COLMAP source:
+    train FE_ITERS iterations from start.npz at --resolution 1 with the sat
+    probe, render the sets, score them with random LPIPS weights; the
+    metrics against the CPU's; the kernels on the final state ->
+    (launches, kernel errors)."""
+    from gsplat_tpu_torch import cli, full_eval, metrics_cli, render_cli
+    from gsplat_tpu_torch.io import png
+    from gsplat_tpu_torch.lpips import load_lpips_weights, lpips, lpips_to_device
+
+    s.phase("full_eval (sparse, full width)")
+    tmp = Path(tmp)
+    src, out = tmp / "cli_source", tmp / "full_eval"
+    vgg, lin = write_lpips_weights(Path(__file__).resolve().parent / "build" / "lpips_random")
+    argv = ["--scenes", str(src), "-o", str(out), "--lpips_vgg", str(vgg), "--lpips_lin",
+            str(lin), "--start_checkpoint", str(tmp / "start.npz"), "--resolution", "1",
+            "--iterations", str(FE_ITERS), "--sat_probe_interval", "10"]
+    for f in counts.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with LoopSpy() as spy, CliTimer(render_cli) as timer, \
+            StageClock(metrics_cli, ("main", "_load_dir", "ssim", "lpips")) as mclock, \
+            StageClock(cli, ("main",)) as tclock, \
+            StageClock(render_cli, ("main",)) as rclock:
+        rc = full_eval.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counts.items()}
+    need = TRAIN_KERNELS + (SAT_KERNELS if spy.probes else ())
+    s.check(rc == 0 and all(launches[k] > 0 for k in need) and spy.probes,
+            f"full_eval: exit {rc}; kernel launches {launches} ({len(spy.steps)} steps, "
+            f"{len(spy.probes)} sat probes, {len(timer.renders)} renders)")
+    key_t, key_tr = f"test/ours_{FE_ITERS}", f"train/ours_{FE_ITERS}"
+    res = json.loads((out / "full_eval.json").read_text()).get(src.name, {}) \
+        if (out / "full_eval.json").exists() else {}
+    finite = all(isinstance(res.get(k, {}).get(m), float) and math.isfinite(res[k][m])
+                 for k in (key_t, key_tr) for m in ("PSNR", "SSIM", "L1", "LPIPS"))
+    s.check(sorted(res) == [key_t, key_tr] and finite
+            and [res[k]["n_images"] for k in (key_t, key_tr)] == [1, 3],
+            f"full_eval.json {src.name}: {json.dumps(res)}")
+    model = out / src.name
+    t0 = time.perf_counter()
+    cpu = metrics_cli.evaluate_model(model, None, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    rel = {f"{k} {m}": abs(res[k][m] - cpu[k][m]) / max(abs(cpu[k][m]), 1e-30)
+           for k in cpu if k in res for m in ("PSNR", "SSIM", "L1")}
+    s.check(len(rel) == 6 and max(rel.values()) <= METRIC_RTOL,
+            f"full_eval metrics on the card vs evaluate_model on the CPU over the same PNGs "
+            f"({t_cpu:.1f} s): largest relative difference "
+            f"{max(rel, key=rel.get) if rel else '-'} "
+            f"{max(rel.values()) if rel else float('nan'):.3g} (tol {METRIC_RTOL})")
+    # LPIPS, card vs CPU: one 1080p pair takes tens of seconds on the CPU,
+    # so both score a 512x512 crop of each pair
+    params = load_lpips_weights(vgg, lin)
+    on_card = lpips_to_device(params, "cuda")
+    lp_rel, t0 = [], time.perf_counter()
+    pairs = sorted(model.glob("*/ours_*/renders/*.png"))
+    y0, x0 = (H - FE_CROP) // 2, (W - FE_CROP) // 2
+    for p in pairs:
+        r = png.read_png(p).astype(np.float32) / 255.0
+        gt = png.read_png(p.parent.parent / "gt" / p.name).astype(np.float32) / 255.0
+        rc_, gc_ = (np.ascontiguousarray(a[y0:y0 + FE_CROP, x0:x0 + FE_CROP]) for a in (r, gt))
+        a = float(lpips(on_card, torch.from_numpy(rc_).cuda(), torch.from_numpy(gc_).cuda()))
+        b = float(lpips(params, rc_, gc_, device="cpu"))
+        lp_rel.append(abs(a - b) / max(abs(b), 1e-30))
+        print(f"  LPIPS {p.parent.parent.parent.name}/{p.name} crop: card {a!r}, CPU {b!r}")
+    t_lp = time.perf_counter() - t0
+    s.check(len(lp_rel) == 4 and max(lp_rel) <= LPIPS_RTOL,
+            f"full_eval LPIPS on the card vs the CPU on a {FE_CROP}x{FE_CROP} crop of each of "
+            f"the {len(lp_rel)} pairs ({t_lp:.1f} s): relative differences "
+            f"{[f'{x:.2e}' for x in lp_rel]} (tol {LPIPS_RTOL})")
+    # LPIPS at 1080p on the card against its bound
+    r = torch.from_numpy(png.read_png(pairs[0]).astype(np.float32) / 255.0).cuda()
+    gt = torch.from_numpy(png.read_png(pairs[0].parent.parent / "gt" / pairs[0].name)
+                          .astype(np.float32) / 255.0).cuda()
+    lp_ms = device_ms(lambda: lpips(on_card, r, gt), 5)
+    flops = lpips_flops(W, H)
+    bound = flops / PEAK_FP32 * 1e3
+    print(f"  LPIPS a {W}x{H} pair on the card: {lp_ms:.2f} ms (CUDA events, 5 calls); "
+          f"bound {bound:.2f} ms ({flops / 1e12:.3f} TFLOP of fp32 convolutions at 67 "
+          f"TFLOP/s, {bound / lp_ms:.1%} of it)", flush=True)
+    del r, gt, on_card
+    decode = mclock.s["_load_dir"]
+    n_png = sum(res.get(k, {}).get("n_images", 0) for k in (key_t, key_tr)) * 2
+    print(f"  full_eval metrics: PNG decode {sum(decode):.3f} s for {n_png} {W}x{H} PNGs "
+          f"({sum(decode) / max(n_png, 1) * 1e3:.1f} ms each), SSIM "
+          f"{ms_stats([x * 1e3 for x in mclock.s['ssim']])} ms, LPIPS "
+          f"{ms_stats([x * 1e3 for x in mclock.s['lpips']])} ms a pair (host clock, synced)")
+    frames = cli_frames(timer)
+    print(f"  full_eval render_cli: {len(timer.renders)} renders, device ms "
+          f"{ms_stats([x['device_ms'] for x in timer.renders])}; copy ms "
+          f"{ms_stats([x['gap_ms'] for x in timer.saves])}; PNG encode ms "
+          f"{ms_stats([x['ms'] for x in timer.saves])}; {len(frames)} frames")
+    t_train, t_render = tclock.total("main"), rclock.total("main")
+    t_metrics = mclock.total("main")
+    parts = {"train (cli.main)": t_train, "render_cli": t_render, "metrics_cli": t_metrics}
+    parts["the rest"] = wall - sum(parts.values())
+    print("  full_eval wall {:.1f} s: ".format(wall) + ", ".join(
+        f"{k} {v:.3f} s ({v / wall:.1%})" for k, v in parts.items()))
+    print(f"  full_eval train wall: {spy.wall_split(spy.train_s)}")
+    print(f"  full_eval render_cli wall {t_render:.3f} s: renders "
+          f"{sum(x['wall_ms'] for x in timer.renders) / 1e3:.3f} s, copies and PNG encodes "
+          f"{sum(x['ms'] + x['gap_ms'] for x in timer.saves) / 1e3:.3f} s, the rest (Scene "
+          "set-up and the PLY load)")
+    print(f"  full_eval metrics_cli wall {t_metrics:.3f} s: PNG decode "
+          f"{mclock.total('_load_dir'):.3f} s, SSIM {mclock.total('ssim'):.3f} s, LPIPS "
+          f"{mclock.total('lpips'):.3f} s, the rest (the weights, PSNR, L1, JSON)", flush=True)
+    # at a train view: the loop's final budget is fitted to those (the bench
+    # view, the test camera, has more pairs than the 2^21 it may end at)
+    g_end, scene_end = spy.result
+    cam = scene_end.get_train_cameras()[0]
+    budgets = list(dict.fromkeys([spy.steps[0]["budget"], spy.steps[-1]["budget"]]))
+    errs, totals, _ = loop_kernel_checks(s, "full_eval final state", g_end, cam, cam.image,
+                                         budgets)
+    print(f"  full_eval kernels held on the final state ({int(g_end.n_live)} live, "
+          f"capacity {g_end.capacity}) at train view {cam.image_name}, budgets {budgets} "
+          f"(K1's live slots {totals})", flush=True)
+    del spy, g_end, scene_end
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def phase_selfcheck(s, counts):
+    """python -m gsplat_tpu_torch.tools.selfcheck_train at its defaults
+    (600 iterations, 256x256, 2000 ground-truth Gaussians): PASS, then
+    K1-K6 and segment_sum against their plain versions on its final state at
+    its tile, frame size and pair budget -> (launches, kernel errors)."""
+    import contextlib
+    import io
+
+    from gsplat_tpu_torch.tools import selfcheck_train
+
+    s.phase("selfcheck")
+    for f in counts.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, state = selfcheck_train.run([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counts.items()}
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        if "PSNR" in ln or ln.startswith("iter 600") or ln in ("PASS",) or "FAIL" in ln:
+            print(f"  selfcheck: {ln}")
+    s.check(rc == 0 and lines and lines[-1] == "PASS"
+            and all(launches[k] >= 600 for k in TRAIN_KERNELS),
+            f"selfcheck_train at its defaults: exit {rc}, last line {lines[-1:]} (want PASS), "
+            f"{wall:.1f} s wall; kernel launches {launches}")
+    # the final state on the run's first view, at the run's tile, chunk,
+    # frame size and pair budget
+    g, cam, mesh = state["g"], state["cams"][0], state["mesh"]
+    s.check(mesh.chunk_size == CHUNK,
+            f"selfcheck chunk {mesh.chunk_size}: the kernel checks run at chunk {CHUNK}")
+    errs, totals, _ = loop_kernel_checks(s, f"selfcheck tile {mesh.tile_size}", g, cam,
+                                         cam.image, [mesh.pair_budget], mesh.tile_size,
+                                         (cam.width, cam.height))
+    print(f"  selfcheck kernels held at tile {mesh.tile_size}, {cam.width}x{cam.height}, "
+          f"capacity {g.capacity} ({int(g.n_live)} live), pair budget {mesh.pair_budget} "
+          f"(K1's live slots {totals})", flush=True)
+    del g, cam, state
+    torch.cuda.empty_cache()
+    return launches, errs
 
 
 def record_at(records, step, key):
@@ -2484,9 +3096,11 @@ def phase_train_quality(s, tmp, counts):
     """scripts/quality_proxy.py --iters 1000 with the port: the repo's
     120-camera textured synthetic scene at 960x540, tile 16, held to the
     JAX package's record of the same run -> (launches, kernel errors)."""
+    from gsplat_tpu_torch.tools import quality_proxy
+
     s.phase("train quality (1k, tile 16)")
     root = Path(tmp) / "qproxy"
-    part = write_quality_scene(root / "scene")
+    part = quality_proxy.make_scene(root / "scene", device="cuda")
     print(f"  quality scene: {QP_GT} Gaussians rendered to {QP_CAMS} PNGs of {QP_W}x{QP_H} "
           f"in {part['total']:.1f} s (renders {part['render']:.1f} s, PNG encodes "
           f"{part['encode']:.1f} s)", flush=True)
@@ -2579,6 +3193,8 @@ def main() -> int:
         print(f"chip_smoke: the gsplat_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    from gsplat_tpu_torch.tools.bench_scene import build_scene
+
     s = Smoke()
     torch.set_grad_enabled(False)
 
@@ -2636,6 +3252,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         l_cli = phase_render_cli(s, g, cam_args, target, tmp)
         l_train, e_train = phase_train_cli(s, g, cam_args, target, tmp, kernel_counts())
+        l_viewer, e_viewer = phase_viewer_serve(s, g, cam_args, tmp, kernel_counts())
+        l_train_viewer = phase_train_viewer(s, cam_args, tmp, kernel_counts())
+        l_full_eval, e_full_eval = phase_full_eval(s, tmp, kernel_counts())
         del g, target
         torch.cuda.empty_cache()
 
@@ -2654,15 +3273,22 @@ def main() -> int:
         del g, target, dense
         torch.cuda.empty_cache()
         l_quality, e_quality = phase_train_quality(s, tmp, kernel_counts())
+        l_selfcheck, e_selfcheck = phase_selfcheck(s, kernel_counts())
     by_view = {"sparse": l_sparse, "dense": l_dense, "render_cli": l_cli,
-               "train_cli": l_train, "train_quality": l_quality}
+               "train_cli": l_train, "train_quality": l_quality, "viewer": l_viewer,
+               "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
+               "selfcheck": l_selfcheck}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
           f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at tile {TILE_WIDE}; "
           f"render_cli's renders {l_cli['composite_fwd']}; the train CLI's steps and probes "
           f"(K1 {l_train['expand_pairs']}, K5 {l_train['prefix_sum_small']}) and the quality "
-          f"run's (K1 {l_quality['expand_pairs']}, K5 {l_quality['prefix_sum_small']})")
+          f"run's (K1 {l_quality['expand_pairs']}, K5 {l_quality['prefix_sum_small']}); the "
+          f"viewer's requests (K1 {l_viewer['expand_pairs']}, K2 {l_viewer['composite_fwd']}), "
+          f"the train CLI with the viewer (K1 {l_train_viewer['expand_pairs']}), full_eval "
+          f"(K1 {l_full_eval['expand_pairs']}, K5 {l_full_eval['prefix_sum_small']}) and the "
+          f"self-check (K1 {l_selfcheck['expand_pairs']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
@@ -2689,7 +3315,10 @@ def main() -> int:
                          launches_by_view={v: c[name] for v, c in by_view.items()},
                          max_abs_err=max(k_sparse[name]["max_abs_err"],
                                          k_dense[name]["max_abs_err"],
-                                         e_train.get(name, 0.0), e_quality.get(name, 0.0)),
+                                         e_train.get(name, 0.0), e_quality.get(name, 0.0),
+                                         e_viewer.get(name, 0.0),
+                                         e_full_eval.get(name, 0.0),
+                                         e_selfcheck.get(name, 0.0)),
                          other_view=dict(view=other, **{k: o[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))
         wide = f"{name} tile {TILE_WIDE}"

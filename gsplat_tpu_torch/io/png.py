@@ -162,11 +162,14 @@ def read_png(path: Union[str, Path]) -> np.ndarray:
     return decode_png(Path(path).read_bytes(), str(path))
 
 
-def encode_png(img: np.ndarray, filters: Optional[Union[int, Sequence[int]]] = None
-               ) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (zlib level 6). `filters`: one
-    filter type for every row, or one a row (None: Up, which a smooth render
-    compresses well under and which decodes in one cumsum)."""
+def encode_png(img: np.ndarray, filters: Optional[Union[int, Sequence[int]]] = None,
+               level: int = 6) -> bytes:
+    """(H, W, 3) uint8 RGB -> PNG bytes at zlib `level` (0-9; 6, zlib's
+    default, unless named). `filters`: one filter type for every row, or one
+    a row (None: Up, which a smooth render compresses well under and which
+    decodes in one cumsum). Only the predictors the chosen types need are
+    computed; Sub and Up subtract in uint8, which wraps mod 256 as the
+    format asks."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"encode_png takes (H, W, 3) uint8 RGB, not {img.dtype} {img.shape}")
@@ -175,36 +178,46 @@ def encode_png(img: np.ndarray, filters: Optional[Union[int, Sequence[int]]] = N
                             (height,))
     if (types > PAETH).any():
         raise ValueError(f"filter types are 0-4, not {int(types.max())}")
-    x = img.reshape(height, width * bpp).astype(np.int16)
-    left = np.zeros_like(x)
-    left[:, bpp:] = x[:, :-bpp]
-    up = np.zeros_like(x)
-    up[1:] = x[:-1]
-    ul = np.zeros_like(x)
-    ul[1:, bpp:] = x[:-1, :-bpp]
-    filt = x.copy()
-    for ft, pred in ((SUB, lambda: left), (UP, lambda: up),
-                     (AVERAGE, lambda: (left + up) >> 1),
-                     (PAETH, lambda: _paeth(left, up, ul))):
+    x = img.reshape(height, width * bpp)
+    used = set(np.unique(types).tolist()) - {NONE}
+    left = up = None
+    if used & {SUB, AVERAGE, PAETH}:
+        left = np.zeros_like(x)
+        left[:, bpp:] = x[:, :-bpp]
+    if used & {UP, AVERAGE, PAETH}:
+        up = np.zeros_like(x)
+        up[1:] = x[:-1]
+
+    def paeth() -> np.ndarray:
+        ul = np.zeros_like(x)
+        ul[1:, bpp:] = x[:-1, :-bpp]
+        return _paeth(left.astype(np.int16), up.astype(np.int16),
+                      ul.astype(np.int16)).astype(np.uint8)
+
+    preds = {SUB: lambda: left, UP: lambda: up,
+             AVERAGE: lambda: ((left.astype(np.int16) + up) >> 1).astype(np.uint8),
+             PAETH: paeth}
+    body = np.empty((height, 1 + width * bpp), np.uint8)    # each row: type, bytes
+    body[:, 0] = types
+    body[:, 1:] = x
+    for ft in sorted(used):
         rows = types == ft
-        if rows.any():
-            filt[rows] = x[rows] - pred()[rows]
-    body = np.concatenate([types[:, None], (filt & 255).astype(np.uint8)], axis=1)
+        body[rows, 1:] = x[rows] - preds[ft]()[rows]
 
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + kind + data + struct.pack(
-            ">I", zlib.crc32(kind + data))
+    def chunk(kind: bytes, data: bytes) -> Sequence[bytes]:
+        return (struct.pack(">I", len(data)), kind, data,
+                struct.pack(">I", zlib.crc32(data, zlib.crc32(kind))))
 
-    return (SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(body.tobytes(), 6))
-            + chunk(b"IEND", b""))
+    return b"".join((SIGNATURE,
+                     *chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)),
+                     *chunk(b"IDAT", zlib.compress(body.data, level)),
+                     *chunk(b"IEND", b"")))
 
 
 def write_png(path: Union[str, Path], img: np.ndarray,
               filters: Optional[Union[int, Sequence[int]]] = None) -> None:
-    """Encode (H, W, 3) uint8 RGB (see encode_png) into the file `path`,
-    making its directory."""
+    """Encode (H, W, 3) uint8 RGB (see encode_png, zlib level 6) into the
+    file `path`, making its directory."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(encode_png(img, filters))

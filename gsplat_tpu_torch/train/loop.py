@@ -5,7 +5,8 @@ L1 + D-SSIM loss -> gradients (autograd through the projection and
 render._Rasterize: composite_bwd, segment_ends and segment_sum on CUDA) ->
 per-group Adam -> densification statistics. `train` is the reference's
 single-device driver, its events in the reference's order each iteration:
-SH annealing every 1000 iterations; the camera pick from Python's global
+the network GUI's pending requests (and its pause); SH annealing every 1000
+iterations; the camera pick from Python's global
 `random`; the random background; the step; the adaptive pair, sat, kept and
 contrib budgets, read back every 10 iterations only; the saturation cull's
 AUTO probe and enable; logging and metrics; evaluation; PLY saves;
@@ -26,8 +27,12 @@ Where the port differs from the reference:
 - one device only: a mesh of more than one device, or more than one
   process, raises (multi-GPU training is ROADMAP Queue 1 item 5);
   --shard_gaussians on one device is ignored, as in the reference.
-- no live viewer or network GUI yet (ROADMAP Queue 1 item 4): without
-  --quiet the loop prints one line saying so, and trains on.
+- the live viewer (without --quiet: the browser preview and upstream's
+  SIBR network GUI on --ip/--port, network_gui.py) writes its preview as a
+  PNG, preview.png, where the reference writes a JPEG (viewer.py). A GUI
+  render that raises is printed (one line) and counted on the server
+  (`render_errors`) where the reference passes over it silently; either way
+  the viewer gets no image and training goes on.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ from gsplat_tpu_torch.config import (MeshParams, ModelParams, OptimizationParams
                                      PipelineParams, cfg_args_string, print_params)
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians, grow_capacity
+from gsplat_tpu_torch.network_gui import (GuiRequest, NetworkGUIServer, camera_from_request,
+                                          image_to_bytes)
 from gsplat_tpu_torch.render.render import render
 from gsplat_tpu_torch.scene import Scene
 from gsplat_tpu_torch.train.densify import (add_densification_stats, densify_and_prune,
@@ -199,6 +206,37 @@ def _sat_probe(g: Gaussians, cam: Camera, bg: torch.Tensor, *, tile_size: int, c
 
 
 @torch.no_grad()
+def _gui_render(g: Gaussians, cam: Camera, bg: torch.Tensor, scaling_modifier: float, *,
+                tile_size: int, chunk: int, pair_budget: int) -> torch.Tensor:
+    """A network-GUI view: the request's scaling_modifier at the loop's
+    tile, chunk and pair budget (no kept, contrib or sat budget, as in the
+    reference)."""
+    return render(cam, g, bg, tile_size=tile_size, chunk=chunk, pair_budget=pair_budget,
+                  scaling_modifier=scaling_modifier).image
+
+
+def _serve_gui_request(viewer: NetworkGUIServer, req: GuiRequest, g: Gaussians,
+                       bg: torch.Tensor, mesh: MeshParams, pair_budget: int) -> None:
+    """Render one network-GUI view on the training thread and unblock its
+    connection. Best-effort, as in the reference: a render that raises gets
+    no image, and training goes on; the exception is printed (one line) and
+    counted in viewer.render_errors. It draws from no generator and changes
+    no budget, so a served request leaves training as it was."""
+    img_bytes = None
+    try:
+        if req.world_view is not None:
+            cam = camera_from_request(req, g.device)
+            img = _gui_render(g, cam, bg, req.scaling_modifier, tile_size=mesh.tile_size,
+                              chunk=mesh.chunk_size, pair_budget=pair_budget)
+            img_bytes = image_to_bytes(img)
+    except Exception as e:  # a bad request must not end training
+        viewer.render_errors += 1
+        print(f"network GUI: render failed ({type(e).__name__}: {e}); no image sent",
+              flush=True)
+    req.reply(img_bytes)
+
+
+@torch.no_grad()
 def eval_render(g: Gaussians, cam: Camera, bg: torch.Tensor, *, tile_size: int, chunk: int,
                 pair_budget: int) -> torch.Tensor:
     return render(cam, g, bg, tile_size=tile_size, chunk=chunk,
@@ -318,9 +356,15 @@ def train(
     low_kept_streak = 0
 
     metrics = MetricsLogger(model.model_path)
+    # the live viewer and the SIBR network GUI on --ip/--port: best-effort,
+    # silent on a port conflict; one port, HTTP requests get the browser
+    # preview, anything else speaks upstream's network_gui wire format
+    viewer = None
     if not other.quiet:
-        printer.print("no live viewer or network GUI in the port yet (ROADMAP Queue 1 "
-                      f"item 4): --ip {other.ip} --port {other.port} unused; training on")
+        viewer = NetworkGUIServer(Path(out_dir), other.ip, other.port,
+                                  verify=model.source_path)
+        if viewer.url:
+            printer.print(f"viewer: {viewer.url}")
 
     rng = torch.Generator(device=device)
     rng.manual_seed(0)
@@ -369,6 +413,22 @@ def train(
 
     try:
         for iteration in range(first_iter + 1, opt.iterations + 1):
+            # network-GUI round trips at the loop's top (upstream train.py's
+            # order): render every pending viewer camera; while the viewer
+            # has paused training (train=False, keep_alive), keep serving
+            # until it resumes or disconnects
+            if viewer is not None and viewer.url:
+                while True:
+                    req = viewer.poll()
+                    if req is None:
+                        if viewer.training_paused and viewer.sibr_connected:
+                            time.sleep(0.02)
+                            continue
+                        viewer.training_paused = False
+                        break
+                    _serve_gui_request(viewer, req, g, bg, mesh, pair_budget)
+                    viewer.training_paused = not req.do_training and req.keep_alive
+
             # SH degree annealing every 1000 iters (reference gaussian_model.cpp:307-313)
             if iteration % 1000 == 0:
                 g = g.oneup_sh_degree()
@@ -557,6 +617,10 @@ def train(
             if iteration % progress_every == 0:
                 rate = progress_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
+                if viewer is not None and viewer.url:
+                    viewer.publish(eval_render(
+                        g, train_cams[0], bg, tile_size=mesh.tile_size,
+                        chunk=mesh.chunk_size, pair_budget=pair_budget))
                 printer.print(
                     f"iter {iteration}/{opt.iterations} loss {float(loss):.5f} "
                     f"ema {float(ema_loss):.5f} gaussians {int(g.n_live)} "
@@ -625,6 +689,8 @@ def train(
         if profiler is not None:
             profiler.stop()
         metrics.close()
+        if viewer is not None:
+            viewer.close()
     return g, scene
 
 

@@ -922,3 +922,120 @@ def test_train_cli_on_gpu(cuda_device, tmp_path):
     assert p.stdout.rstrip().endswith("Training complete.") and "eval test" in p.stdout
     assert "data_device: cuda" in p.stdout
     assert (out / "point_cloud" / "iteration_12" / "point_cloud.ply").exists()
+
+
+def _lpips_weights(rng):
+    """Random VGG16-shaped LPIPS weights (tests/test_lpips.py's shapes and
+    scales), numpy float32 in the loader's layout."""
+    from gsplat_tpu_torch.lpips import TAP_CHANNELS, VGG16_SLICES
+
+    out_ch = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    convs, in_ch, k = [], 3, 0
+    for sl in VGG16_SLICES:
+        layers = []
+        for _ in sl:
+            layers.append((rng.normal(0, 0.08, (out_ch[k], in_ch, 3, 3)).astype(np.float32),
+                           rng.normal(0, 0.02, (out_ch[k],)).astype(np.float32)))
+            in_ch = out_ch[k]
+            k += 1
+        convs.append(layers)
+    lins = [rng.uniform(0, 0.1, (1, ch, 1, 1)).astype(np.float32) for ch in TAP_CHANNELS]
+    return {"convs": convs, "lins": lins}
+
+
+@pytest.mark.cuda
+def test_lpips_on_gpu_is_fp32_whatever_the_tf32_flag(cuda_device):
+    """LPIPS runs its convolutions with cuDNN's TF32 off: the same value with
+    the global flag on and off (where the flag does change a bare
+    256-channel convolution on this card), the flag restored, and
+    the CPU's within 1e-4 relative."""
+    import torch.nn.functional as tf
+
+    from gsplat_tpu_torch.lpips import lpips, lpips_to_device
+
+    rng = np.random.default_rng(7)
+    params = _lpips_weights(rng)
+    a = rng.uniform(0, 1, (67, 93, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    on_gpu = lpips_to_device(params, cuda_device)
+    ta, tb_ = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    # conv3_2 (256 -> 256 channels, where cuDNN takes its tensor-core paths)
+    # on random features
+    w, bias = on_gpu["convs"][2][1]
+    x = torch.from_numpy(rng.normal(size=(1, 256, 34, 47)).astype(np.float32)).to(cuda_device)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        vals, bare = {}, {}
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            vals[flag] = float(lpips(on_gpu, ta, tb_))
+            assert torch.backends.cudnn.allow_tf32 is flag
+            bare[flag] = tf.conv2d(x, w, bias, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert not torch.equal(bare[True], bare[False])   # the flag matters here
+    assert vals[True] == vals[False]
+    cpu = float(lpips(params, a, b, device="cpu"))
+    assert vals[False] == pytest.approx(cpu, rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_evaluate_model_on_gpu_matches_cpu(cuda_device, tmp_path):
+    from gsplat_tpu_torch.io import png
+    from gsplat_tpu_torch.metrics_cli import evaluate_model
+
+    rng = np.random.default_rng(11)
+    for split in ("test", "train"):
+        for i in range(2):
+            gt = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+            r = np.clip(gt.astype(int) + rng.integers(-40, 41, gt.shape), 0, 255)
+            png.write_png(tmp_path / split / "ours_3" / "renders" / f"{i:05d}.png",
+                          r.astype(np.uint8))
+            png.write_png(tmp_path / split / "ours_3" / "gt" / f"{i:05d}.png", gt)
+    params = _lpips_weights(rng)
+    got = evaluate_model(tmp_path, params)          # the card by default
+    want = evaluate_model(tmp_path, params, device="cpu")
+    assert list(got) == list(want) == ["test/ours_3", "train/ours_3"]
+    for key in want:
+        assert got[key]["n_images"] == want[key]["n_images"] == 2
+        for m in ("SSIM", "PSNR", "L1"):
+            assert got[key][m] == pytest.approx(want[key][m], rel=1e-5), (key, m)
+        assert got[key]["LPIPS"] == pytest.approx(want[key]["LPIPS"], rel=1e-4), key
+
+
+@pytest.mark.cuda
+def test_network_gui_request_on_gpu(cuda_device, tmp_path):
+    """One SIBR request served on the card by the loop's _serve_gui_request:
+    the reply's bytes equal image_to_bytes of a render of the same camera
+    apart, and K1 and K2 launched for it."""
+    from gsplat_tpu_torch import network_gui
+    from gsplat_tpu_torch.config import MeshParams
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.interop import gaussians_from_numpy
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.loop import _serve_gui_request
+
+    s = F.make_scene(seed=0)
+    g = gaussians_from_numpy(s.params, s.n_live, s.sh_degree, s.sh_degree, device=cuda_device)
+    cam = make_camera(s.R, s.T, s.fovx, s.fovy, 75, 53, device="cpu")
+    req = network_gui.parse_message({
+        "resolution_x": 75, "resolution_y": 53, "train": True, "keep_alive": True,
+        "fov_x": s.fovx, "fov_y": s.fovy, "scaling_modifier": 0.7,
+        "view_matrix": cam.world_view.reshape(-1).tolist(),
+        "view_projection_matrix": cam.full_proj.reshape(-1).tolist()})
+    server = network_gui.NetworkGUIServer(tmp_path, ip="127.0.0.1", port=0)
+    bg = torch.zeros(3, device=cuda_device)
+    mesh = MeshParams(tile_size=16, chunk_size=32, pair_budget=1 << 12)
+    try:
+        before = (texp.expand_pairs.launches, traster.composite_fwd.launches)
+        _serve_gui_request(server, req, g, bg, mesh, 1 << 12)
+        after = (texp.expand_pairs.launches, traster.composite_fwd.launches)
+    finally:
+        server.close()
+    assert server.render_errors == 0 and req._done.is_set()
+    assert after[0] > before[0] and after[1] > before[1]
+    out = render(network_gui.camera_from_request(req, cuda_device), g, bg, tile_size=16,
+                 chunk=32, pair_budget=1 << 12, scaling_modifier=0.7)
+    assert int(out.n_dropped) == 0
+    assert req._image == network_gui.image_to_bytes(out.image)
+    assert len(req._image) == 75 * 53 * 3

@@ -41,6 +41,14 @@ def test_package_imports_with_jax_blocked():
         "import gsplat_tpu_torch.io.native_loader, gsplat_tpu_torch.render_cli\n"
         "import gsplat_tpu_torch.ckpt, gsplat_tpu_torch.cli\n"
         "import gsplat_tpu_torch.train.metrics, gsplat_tpu_torch.train.tb\n"
+        "import gsplat_tpu_torch.lpips, gsplat_tpu_torch.metrics_cli\n"
+        "import gsplat_tpu_torch.full_eval, gsplat_tpu_torch.viewer\n"
+        "import gsplat_tpu_torch.network_gui\n"
+        "import gsplat_tpu_torch.tools.bench_scene, gsplat_tpu_torch.tools.ab_step\n"
+        "import gsplat_tpu_torch.tools.make_synthetic_scene\n"
+        "import gsplat_tpu_torch.tools.selfcheck_train\n"
+        "import gsplat_tpu_torch.tools.quality_proxy, gsplat_tpu_torch.tools.gpu_parity\n"
+        "import gsplat_tpu_torch.tools.profile_step\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

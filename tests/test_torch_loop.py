@@ -501,17 +501,25 @@ def test_multi_device_mesh_raises(small_scene, tmp_path, mesh):
 
 
 def test_cli_subprocess(small_scene, tmp_path):
+    import socket
+
     out = tmp_path / "out"
+    with socket.socket() as sock:      # a free port for the live viewer
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     p = subprocess.run(
         [sys.executable, "-m", "gsplat_tpu_torch.cli", "-s", str(small_scene), "-m", str(out),
          "--data_device", "cpu", "--iterations", "6", "--capacity", "64",
          "--pair_budget", "4096", "--tile_size", "16", "--chunk_size", "32",
          "--densify_from_iter", "2", "--densification_interval", "3",
-         "--test_iterations", "6", "--shard_gaussians", "--eval"],
+         "--test_iterations", "6", "--shard_gaussians", "--eval",
+         "--ip", "127.0.0.1", "--port", str(port)],
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-3000:]
     assert p.stdout.rstrip().endswith("Training complete.")
     assert "> Mesh parameters:" in p.stdout and "eval test" in p.stdout
-    assert "--shard_gaussians ignored" in p.stdout and "no live viewer" in p.stdout
+    # without --quiet the live viewer serves on --ip/--port
+    assert "--shard_gaussians ignored" in p.stdout
+    assert f"viewer: http://127.0.0.1:{port}/" in p.stdout
     ply = out / "point_cloud" / "iteration_6" / "point_cloud.ply"
     assert ply.exists() and (out / "cfg_args").exists()
