@@ -5,8 +5,9 @@ at tile 32 and at tile 64, the render CLI over a dataset on disk, the
 training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
 repo's quality-proxy scene held to the JAX package's record), the live
 viewer (the SIBR network GUI serving the 1M model, and inside the training
-loop), full_eval (train, render, metrics with LPIPS) and the training
-self-check.
+loop), full_eval (train, render, metrics with LPIPS), the training
+self-check, and multi-GPU training on meshes of ranks (one NCCL rank; four
+gloo ranks sharing the card as a 2x2 mesh, its steps and its train CLI).
 
     python3 chip_smoke.py
 
@@ -207,28 +208,64 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            256x256 from a perturbed start): it prints PASS (final PSNR at
            least 22); K1-K6 and segment_sum against their plain versions on
            its final state at tile 16, 256x256, pair budget 2^18
+  mesh set-up  the train cli phase's start.npz and COLMAP source, the
+           sparse target; the batch's budgets: the train phase's fit at the
+           bench view and yaw +2 (MESH_VIEWS), the largest of each
+  mesh nccl 1x1  one rank (a subprocess: `chip_smoke.py --mesh-rank`,
+           torchrun's environment, world 1, NCCL): from start.npz, the
+           replicated and the sharded mesh step (3 steps each) and
+           make_train_step at the bench view: step 1's loss, parameters,
+           Adam moments and densification accumulators bit-equal;
+           make_spmd_eval_step against eval_step and the render: bit-equal
+  mesh 2x2 (gloo, 4 ranks share the card)  the camera batch of the bench
+           view and yaw +2, bands of 544 rows (the last ends 8 rows past
+           1080), 3 replicated and 3 sharded steps from start.npz, step 1
+           again and step 1 with the saturation cull (sat budget = the pair
+           budget), the eval step; checks: step 1 (replicated and sharded)
+           against the parent's single-device batch reference on the card
+           (render + photometric loss of both cameras, mean, autograd): loss
+           within 1e-5 relative, each gradient group (and each view's
+           screen-space gradient) within 2e-4 of its max; sharded step 1
+           bit-equal to replicated; step 1 twice and with the cull
+           bit-equal; every step n_dropped 0, the state finite, every rank's
+           replicated state the same bits (a checksum); the eval step's
+           image within 2e-5 of the full render; K1-K6 and segment_sum
+           against their plain versions on rank 0's band (the top) and rank
+           3's (the last), binned with the lead slots the step laid before
+           that band's pairs. Printed per rank: synced step ms, step 2's stages
+           (synced), each collective's calls and bytes, state bytes
+           replicated and sharded, peak memory
+  train cli mesh 2x2  cli.main on 4 gloo ranks (the JAX flags) from
+           start.npz over render_cli's COLMAP source: 20 iterations at the
+           mesh budget, densify at 15, sat probes at 10 and 20, an eval at
+           20; replicated, then --shard_gaussians, each under LoopSpy: every
+           rank exits 0, 20 steps with n_dropped 0, rank 0 alone writes; the
+           two final PLYs bit-equal; the wall by part
 The launch counts of the seven kernels are zeroed just before each serve,
 each train, the tile-64 serve-and-train phase, each render_cli run, each
-train CLI run, the viewer's requests, full_eval and the self-check (the
-main paths) and must cover every render and step run there (K5 and K6 in the sat phases and the loop's probes; K1 and K2 in
-render_cli); the
-kernels line sums them and must show every kernel. The kernels JSON rows
-hold the sparse bench view's times and bound for K1-K4 and segment_sum, the
-dense view's for K5 and K6 (the cell whose users run the cull), the other
-view's beside them (`other_view`), the largest error of the two cells and
-the checks of the train, quality, viewer, full_eval and self-check phases,
-the launches of each cell's main path, of
-render_cli, of the train, quality, viewer, train-with-viewer, full_eval and
-self-check phases beside their total (`launches_by_view`),
-and for K2 and K3 their times and bounds at tile 64 (`tile_64`).
+train CLI run, the viewer's requests, full_eval, the self-check and, in
+each rank of the mesh phases, before its steps (the main paths), and must
+cover every render and step run there (K5 and K6 in the sat phases and
+the loop's probes; K1 and K2 in render_cli); the kernels line sums them
+(the mesh phases' over their ranks) and must show every kernel. The
+kernels JSON rows hold the sparse bench view's times and bound for K1-K4
+and segment_sum, the dense view's for K5 and K6 (the cell whose users run
+the cull), the other view's beside them (`other_view`), the largest error
+of the two cells and the checks of the train, quality, viewer, full_eval,
+self-check and 2x2 mesh phases, the launches of each cell's main path, of
+render_cli, of the train, quality, viewer, train-with-viewer, full_eval,
+self-check and mesh phases beside their total (`launches_by_view`), and
+for K2 and K3 their times and bounds at tile 64 (`tile_64`).
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -1957,6 +1994,11 @@ QP_RECORD = Path(__file__).resolve().parent / "artifacts" / "qproxy_sat30" / "ou
 QP_LOSS_RTOL, QP_COUNT_RTOL, QP_PSNR_TOL = 0.02, 0.01, 0.3
 
 
+def _sync_cuda():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 class LoopSpy:
     """Wraps the training loop's module-level functions for one CLI run and
     records what the loop did: each step's host ms (synced), loss, pair
@@ -1986,7 +2028,7 @@ class LoopSpy:
         self.steps, self.densify, self.grow, self.probes = [], [], [], []
         self.evals, self.ckpts, self.plys, self.lines = [], [], [], []
         self.resets, self.stash, self.last, self.result = 0, None, None, None
-        self.setup = {"Scene": 0.0, "load_checkpoint": 0.0, "save_ply": 0.0}
+        self.setup = {"Scene": 0.0, "load_checkpoint": 0.0, "save_ply": 0.0, "reshard": 0.0}
         self.train_s, self.server, self.hold = 0.0, None, threading.Event()
         self.previews, self.encodes, self.gui = [], [], []
 
@@ -1994,15 +2036,16 @@ class LoopSpy:
         from gsplat_tpu_torch.train.densify import densify_selection
 
         loop, spy = self.loop, self
-        names = ("make_train_step", "densify_and_prune", "grow_capacity", "_sat_probe",
-                 "evaluate", "save_checkpoint", "save_ply", "reset_opacity", "Printer",
-                 "Scene", "load_checkpoint")
+        names = ("make_train_step", "make_spmd_train_step", "make_sharded_spmd_train_step",
+                 "densify_and_prune", "grow_capacity", "_sat_probe", "evaluate",
+                 "save_checkpoint", "save_ply", "reset_opacity", "Printer", "Scene",
+                 "load_checkpoint", "gather_gaussians", "shard_gaussians")
         self.real = {k: getattr(loop, k) for k in names}
         self.real_train = self.cli.train
         real = self.real
 
-        def make_train_step(*a, **kw):
-            step = real["make_train_step"](*a, **kw)
+        def make_train_step(*a, _builder="make_train_step", **kw):
+            step = real[_builder](*a, **kw)
 
             def timed(g, opt_state, cam, bg, it, ema, **k):
                 torch.cuda.synchronize()
@@ -2102,7 +2145,23 @@ class LoopSpy:
         if self.want_viewer:
             self._viewer_hooks()
 
+        def reshard(name):      # the sharded loop's gather and shard
+            def f(*a, **kw):
+                _sync_cuda()
+                t0 = time.perf_counter()
+                out = real[name](*a, **kw)
+                _sync_cuda()
+                spy.setup["reshard"] += time.perf_counter() - t0
+                return out
+            return f
+
         for k, f in (("make_train_step", make_train_step),
+                     ("make_spmd_train_step", functools.partial(
+                         make_train_step, _builder="make_spmd_train_step")),
+                     ("make_sharded_spmd_train_step", functools.partial(
+                         make_train_step, _builder="make_sharded_spmd_train_step")),
+                     ("gather_gaussians", reshard("gather_gaussians")),
+                     ("shard_gaussians", reshard("shard_gaussians")),
                      ("densify_and_prune", densify_and_prune),
                      ("grow_capacity", grow_capacity), ("_sat_probe", _sat_probe),
                      ("evaluate", evaluate), ("save_checkpoint", save_checkpoint),
@@ -2194,6 +2253,8 @@ class LoopSpy:
                  "PLY saves": self.setup["save_ply"],
                  "Scene set-up": self.setup["Scene"],
                  "start checkpoint load": self.setup["load_checkpoint"]}
+        if self.setup["reshard"]:
+            parts["gather and reshard (mesh)"] = self.setup["reshard"]
         if self.want_viewer:
             parts.update({
                 "preview publishes": sum(v["ms"] for v in self.previews) / 1e3,
@@ -3180,6 +3241,628 @@ def phase_train_quality(s, tmp, counts):
     return launches, errs
 
 
+
+# ---------------------------------------------------------------- the mesh phases
+#
+# Each rank is a subprocess of this script (`chip_smoke.py --mesh-rank <job>
+# <rank> <world> <port>`, started by gsplat_tpu_torch.dist.launch.run_ranks,
+# which kills every rank when one fails or the time runs out). The parent
+# writes the job (a JSON file), each rank prints its check lines and, last,
+# one "MESHRESULT {...}" line; a rank with a failed check exits 1.
+
+MESH_VIEWS = (0.0, 2.0)      # the 2x2 mesh's camera batch: the bench view, yaw +2
+MESH_STEPS = 3               # steps of each mesh step kind from the same state
+MESH_TIMEOUT = 300           # seconds the ranks of one mesh phase may run
+MESH_LOSS_RTOL = 1e-5        # mesh step 1 vs the single-device batch reference
+MESH_GRAD_RTOL = 2e-4        # each gradient group, of that group's max
+MESH_CLI_ITERS = 20
+MESH_CLI_FLAGS = ["--resolution", "1", "--eval", "--iterations", str(MESH_CLI_ITERS),
+                  "--densify_from_iter", "14", "--densification_interval", "15",
+                  "--densify_until_iter", "19", "--sat_probe_interval", "10",
+                  "--test_iterations", str(MESH_CLI_ITERS), "--quiet",
+                  "--densify_grad_threshold", str(TRAIN_GRAD_THRESHOLD)]
+MESH_KEYS = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation", "max_radii2D",
+             "xyz_gradient_accum", "denom")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def state_bytes(g, opt_state):
+    leaves = [getattr(g, k) for k in MESH_KEYS] + list(opt_state.mu.values()) + list(
+        opt_state.nu.values())
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def finite_state(g, opt_state):
+    return all(bool(torch.isfinite(getattr(g, k)).all()) for k in MESH_KEYS) and all(
+        bool(torch.isfinite(v).all()) for v in list(opt_state.mu.values())
+        + list(opt_state.nu.values()))
+
+
+def same_state(a, b):
+    """(g, opt_state, loss, ...) outputs of two steps -> names that differ
+    in bits (loss, each leaf, each moment)."""
+    bad = [] if torch.equal(a[2], b[2]) else ["loss"]
+    bad += [k for k in MESH_KEYS if not torch.equal(getattr(a[0], k), getattr(b[0], k))]
+    bad += [f"mu_{k}" for k in a[1].mu if not torch.equal(a[1].mu[k], b[1].mu[k])]
+    bad += [f"nu_{k}" for k in a[1].nu if not torch.equal(a[1].nu[k], b[1].nu[k])]
+    return bad
+
+
+def mesh_cameras(job, dev):
+    from gsplat_tpu_torch.core.camera import make_camera
+
+    target = np.load(job["target"])
+    cams = []
+    for deg in job["views"]:
+        R, T, fovx, fovy = yaw_camera([np.asarray(x) if isinstance(x, list) else x
+                                       for x in job["cam_args"]], deg)
+        cams.append(make_camera(R, T, fovx, fovy, job["W"], job["H"], image=target,
+                                device=dev))
+    return cams
+
+
+class SyncedStages:
+    """on_stage hook of the mesh steps: the host clock after a device sync
+    at each stage (the gloo collectives run on the host)."""
+
+    def __init__(self, dev):
+        self.dev, self.t = dev, [("start", time.perf_counter())]
+
+    def __call__(self, name):
+        _sync(self.dev)
+        self.t.append((name, time.perf_counter()))
+
+    def ms(self):
+        out = {}
+        for (_, a), (name, b) in zip(self.t, self.t[1:]):
+            out[name] = out.get(name, 0.0) + (b - a) * 1e3
+        return out
+
+
+def band_kernel_checks(s, label, g, cam, target, job, y0, band_h, lead):
+    """K1-K6 and segment_sum against their plain versions at a band's shapes:
+    the means shifted by (0, y0) and the full frame's depth bits in the sort
+    key, as render(region=...) bins a band, a frame of band_h rows, the
+    band's rows of the target (zero past the image), and the sorted pairs
+    led by `lead` (the kept pairs of the bands above, as the mesh step
+    gathered them) modulo the chunk inert slots, as band_lead lays them."""
+    from gsplat_tpu_torch.render import binning, project
+
+    real, real_ds = project.project_gaussians, binning.depth_shift
+    real_bin = binning.bin_gaussians
+
+    def led(*a, **kw):
+        kw.setdefault("lead", lambda kept: torch.tensor(lead, device=g.device))
+        return real_bin(*a, **kw)
+
+    shift = torch.tensor([0.0, float(y0)], device=g.device)
+    tw, th = binning.tile_grid(job["W"], job["H"], TILE)
+
+    def shifted(*a, **kw):
+        p = real(*a, **kw)
+        return p._replace(mean2d=p.mean2d - shift)
+
+    band = torch.zeros((band_h, job["W"], 3), device=g.device)
+    rows = target[y0:y0 + band_h]
+    band[:rows.shape[0]] = rows
+    project.project_gaussians, binning.bin_gaussians = shifted, led
+    binning.depth_shift = lambda n: real_ds(max(n, tw * th))
+    try:
+        errs, totals, _ = loop_kernel_checks(s, label, g, cam, band, [job["pair"]], TILE,
+                                             (job["W"], band_h))
+    finally:
+        project.project_gaussians, binning.depth_shift = real, real_ds
+        binning.bin_gaussians = real_bin
+    print(f"  {label}: kernels held at rows {y0}..{y0 + band_h} of camera "
+          f"{job['W']}x{job['H']}, budget {job['pair']}, led by {lead} % {CHUNK} = "
+          f"{lead % CHUNK} inert slots (K1's live slots {totals})", flush=True)
+    return errs
+
+
+def mesh_steps_rank(s, job, rank, dev):
+    """One rank of the mesh step phases: the replicated and the sharded step
+    (and, on a 1x1 mesh, make_train_step) from the start checkpoint, on the
+    camera batch of job["views"] -> the rank's results."""
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch import ckpt
+    from gsplat_tpu_torch.config import MeshParams, OptimizationParams
+    from gsplat_tpu_torch.dist import collectives, spmd
+    from gsplat_tpu_torch.dist.data import (global_camera_batch, replicate_gaussians,
+                                            shard_gaussians)
+    from gsplat_tpu_torch.dist.mesh import backend_banner, make_mesh
+    from gsplat_tpu_torch.dist.spmd import (_band_height, make_sharded_spmd_train_step,
+                                            make_spmd_eval_step, make_spmd_train_step)
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.loop import eval_step, make_train_step
+
+    data, tile = job["data"], job["tile"]
+    mesh = make_mesh(data, tile)
+    W_, H_ = job["W"], job["H"]
+    res = dict(rank=rank, d=mesh.d, t=mesh.t, backend=dist.get_backend(),
+               banner=backend_banner())
+    t0 = time.perf_counter()
+    g0, opt0, _ = ckpt.load_checkpoint(job["start"], 1 << 17, device=dev)
+    cams = mesh_cameras(job, dev)[:data]
+    _sync(dev)
+    res["load_s"] = time.perf_counter() - t0
+    mp = MeshParams(tile_size=TILE, chunk_size=CHUNK, pair_budget=job["pair"])
+    opt = OptimizationParams()
+    bg = torch.zeros(3, device=dev)
+    budgets = dict(pair_budget=job["pair"], kept_budget=job["kept"],
+                   contrib_budget=job["contrib"])
+    batch = global_camera_batch(mesh, cams)
+    zero = torch.zeros((), device=dev)
+    counts = kernel_counts()
+    band_h = _band_height(H_, tile, TILE)
+    res["band"] = [mesh.t * band_h, band_h]
+
+    def timed(fn, *a, **kw):
+        _sync(dev)
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        _sync(dev)
+        return out, (time.perf_counter() - t) * 1e3
+
+    step_rep = make_spmd_train_step(mesh, opt, mp, 1.0, W_, H_, **budgets)
+    step_sha = make_sharded_spmd_train_step(mesh, opt, mp, 1.0, W_, H_, **budgets)
+    evaluate = make_spmd_eval_step(mesh, mp, opt.lambda_dssim, W_, H_,
+                                   pair_budget=job["pair"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    # the lead each band render of the step took (the band checks bin with
+    # replicated step 1's)
+    leads, real_lead = [], spmd._band_lead
+
+    def recording_lead(m):
+        fn = real_lead(m)
+
+        def lead(kept):
+            out = fn(kept)
+            leads.append(out)          # read after the step: no sync inside it
+            return out
+
+        return lead
+
+    spmd._band_lead = recording_lead
+
+    # ---- the main path: counts from zero, read after the last step ----
+    for f in counts.values():
+        f.launches = 0
+    runs = {"rep": [], "sha": []}
+    grads = {"rep": {}, "sha": {}}
+    stages, comm = {}, {}
+    state = {"rep": (g0, opt0), "sha": shard_gaussians(mesh, g0, opt0)}
+    res["state_bytes"] = {k: state_bytes(*v) for k, v in state.items()}
+    for kind, step in (("rep", step_rep), ("sha", step_sha)):
+        g, st = state[kind]
+        ema = zero
+        for i in range(1, MESH_STEPS + 1):
+            kw = {"grads_out": grads[kind]} if i == 1 else {}
+            if i == 2:
+                kw["on_stage"] = SyncedStages(dev)
+                collectives.reset_comm()
+            out, ms = timed(step, g, st, batch, bg, i, ema, **kw)
+            if i == 2:
+                stages[kind] = kw["on_stage"].ms()
+                comm[kind] = {k: dict(v) for k, v in collectives.comm.items()}
+            runs[kind].append(dict(ms=ms, loss=float(out[2]), n_pairs=int(out[4]),
+                                   n_dropped=int(out[5]), n_contrib=int(out[7]),
+                                   n_sat=int(out[8])))
+            if i == 1:
+                state[kind + "1"] = out
+                if kind == "rep":
+                    res["lead"] = int(leads[0])
+            g, st, ema = out[0], out[1], out[3]
+        state[kind + "_end"] = (g, st)
+    spmd._band_lead = real_lead
+    if mesh.size == 1:
+        ref, ms = timed(make_train_step(opt, mp, 1.0, W_, H_, **budgets), g0, opt0, cams[0],
+                        bg, 1, zero)
+        runs["make_train_step"] = [dict(ms=ms, loss=float(ref[2]))]
+    else:
+        # step 1 again, and step 1 with the saturation cull on (K5, K6)
+        again_grads, sat_grads = {}, {}
+        again, ms_again = timed(step_rep, g0, opt0, batch, bg, 1, zero,
+                                grads_out=again_grads)
+        step_sat = make_spmd_train_step(mesh, opt, mp, 1.0, W_, H_, sat_budget=job["pair"],
+                                        **budgets)
+        sat, ms_sat = timed(step_sat, g0, opt0, batch, bg, 1, zero, grads_out=sat_grads)
+        runs["rep_again"] = [dict(ms=ms_again, loss=float(again[2]))]
+        runs["sat"] = [dict(ms=ms_sat, loss=float(sat[2]), n_sat=int(sat[8]),
+                            n_dropped=int(sat[5]))]
+    ev, ms_eval = timed(evaluate, g0, cams[0], bg)
+    _sync(dev)
+    res["launches"] = {k: f.launches for k, f in counts.items()}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    res.update(runs=runs, stages=stages, comm=comm, eval_ms=ms_eval)
+    # ---- the checks ----
+    tag = f"rank {rank} (d {mesh.d}, t {mesh.t})"
+    steps_ok = all(r["n_dropped"] == 0 for v in runs.values() for r in v if "n_dropped" in r)
+    fin = all(finite_state(*state[k]) for k in ("rep_end", "sha_end"))
+    s.check(steps_ok and fin and all(math.isfinite(r["loss"]) for v in runs.values()
+                                     for r in v),
+            f"{tag}: every step n_dropped 0 ({[r['n_dropped'] for r in runs['rep']]} "
+            f"replicated, {[r['n_dropped'] for r in runs['sha']]} sharded), losses finite, "
+            f"parameters and moments finite after step {MESH_STEPS} of each")
+    try:
+        replicate_gaussians(mesh, *state["rep_end"])
+        same_ranks = True
+    except RuntimeError:
+        same_ranks = False
+    s.check(same_ranks, f"{tag}: after {MESH_STEPS} replicated steps every rank holds the "
+            "same model and Adam state, bit for bit (a checksum of every leaf)")
+    full_sha = state["sha1"]
+    from gsplat_tpu_torch.dist.data import gather_gaussians
+
+    g_s, st_s = gather_gaussians(mesh, full_sha[0], full_sha[1])
+    diff = same_state(state["rep1"], (g_s, st_s, full_sha[2]))
+    s.check(not diff, f"{tag}: sharded step 1 (gathered) vs replicated step 1: bits differ "
+            f"in {diff} (want none: both add the same gradients in one order)")
+    del g_s, st_s, full_sha
+    if mesh.size == 1:
+        diff = same_state(ref, state["rep1"])
+        s.check(not diff, f"{tag}: the 1x1 mesh's replicated step 1 vs make_train_step from "
+                f"the same state over {res['backend']}: loss, parameters, Adam moments and "
+                f"densification accumulators bit-equal (differ: {diff})")
+        loss_e, psnr_e, nd_e = eval_step(g0, cams[0], bg, lambda_dssim=opt.lambda_dssim,
+                                         tile_size=TILE, chunk=CHUNK, pair_budget=job["pair"])
+        img = render(cams[0], g0, bg, tile_size=TILE, chunk=CHUNK,
+                     pair_budget=job["pair"]).image
+        s.check(torch.equal(ev[0], loss_e) and torch.equal(ev[1], psnr_e)
+                and torch.equal(ev[2], img) and int(ev[3]) == int(nd_e) == 0,
+                f"{tag}: make_spmd_eval_step vs eval_step: loss {float(ev[0])!r} vs "
+                f"{float(loss_e)!r}, PSNR {float(ev[1])!r} vs {float(psnr_e)!r}, image "
+                f"bit-equal {torch.equal(ev[2], img)}, n_dropped {int(ev[3])}")
+    else:
+        same_again = not same_state(state["rep1"], again) and all(
+            torch.equal(grads["rep"][k], again_grads[k]) for k in again_grads)
+        s.check(same_again, f"{tag}: replicated step 1 run twice: the same bits (loss, "
+                "gradients, parameters, moments)")
+        same_sat = torch.equal(sat[2], state["rep1"][2]) and all(
+            torch.equal(grads["rep"][k], sat_grads[k]) for k in sat_grads)
+        s.check(same_sat and runs["sat"][0]["n_sat"] > 0,
+                f"{tag}: step 1 with the saturation cull (sat budget {job['pair']}, n_sat "
+                f"{runs['sat'][0]['n_sat']}): loss and every gradient group bit-equal to "
+                f"the step without it {same_sat}")
+        del again, sat, again_grads, sat_grads
+        if rank == 0:
+            img = render(cams[0], g0, bg, tile_size=TILE, chunk=CHUNK,
+                         pair_budget=job["pair"]).image
+            err = float((ev[2] - img).abs().max())
+            s.check(err <= ATOL and int(ev[3]) == 0 and ev[2].shape == img.shape,
+                    f"{tag}: the eval step's gathered bands vs the full render: max |diff| "
+                    f"{err:.3g} (tol {ATOL}), n_dropped {int(ev[3])}")
+    # what the parent holds to its reference
+    out_dir = Path(job["out"])
+    if mesh.t == 0:
+        torch.save({k: v.cpu() for k, v in grads["sha"].items()},
+                   out_dir / f"sha_grads_d{mesh.d}.pt")
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in grads["rep"].items()}, out_dir / "rep_grads.pt")
+    del grads, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the kernels at this rank's band: the top band (rank 0) and the last
+    # band of the last camera (past the image's last row)
+    if rank in job["kernel_ranks"]:
+        res["kernel_errs"] = band_kernel_checks(
+            s, f"mesh {data}x{tile} rank {rank}", g0, cams[mesh.d], cams[mesh.d].image, job,
+            mesh.t * band_h, band_h, res["lead"])
+    return res
+
+
+def mesh_cli_rank(s, job, rank, dev):
+    """One rank of the train CLI on the mesh: cli.main under LoopSpy."""
+    from gsplat_tpu_torch import cli
+
+    counts = kernel_counts()
+    for f in counts.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with LoopSpy() as spy:
+        rc = cli.main(job["argv"] + ["-m", str(Path(job["out"]) / f"out{rank}"),
+                                     "--process_id", str(rank)])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    res = dict(rank=rank, rc=rc, wall=wall, launches={k: f.launches for k, f in
+                                                      counts.items()},
+               steps=[dict(it=st["it"], ms=st["ms"], loss=st["loss"], budget=st["budget"],
+                           n_dropped=st["n_dropped"]) for st in spy.steps],
+               densify=[{k: d[k] for k in ("it", "ms", "before", "after", "kinds")}
+                        for d in spy.densify],
+               probes=len(spy.probes), evals=len(spy.evals), lines=spy.lines,
+               reshard_s=spy.setup.get("reshard", 0.0))
+    if spy.steps:
+        res["step_ms"] = spy.step_ms()
+    res["wall_split"] = spy.wall_split(wall)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    return res
+
+
+def mesh_rank(argv) -> int:
+    """`chip_smoke.py --mesh-rank <job.json> <rank> <world> <port>`: one rank
+    of a mesh phase."""
+    job_path, rank, world, port = argv[0], int(argv[1]), int(argv[2]), int(argv[3])
+    job = json.loads(Path(job_path).read_text())
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import os
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.dist.mesh import initialize_distributed
+
+    if job["device"] == "cpu":     # a rehearsal of the phase on the CPU
+        for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+            setattr(torch.cuda, name, lambda *a, **k: None)
+    s = Smoke()
+    if job["task"] == "cli":       # cli.main joins the group itself (the three flags)
+        dev = torch.device("cuda", 0) if job["device"] == "cuda" else torch.device("cpu")
+        res = mesh_cli_rank(s, job, rank, dev)
+    else:
+        if world == 1:             # torchrun's environment: a world of one rank
+            os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                              MASTER_PORT=str(port), LOCAL_RANK="0")
+            dev = initialize_distributed(device=job["device"])
+        else:
+            dev = initialize_distributed(f"localhost:{port}", world, rank,
+                                         device=job["device"])
+        try:
+            res = mesh_steps_rank(s, job, rank, dev)
+        finally:
+            dist.destroy_process_group()
+    res["failures"] = s.failures
+    print("MESHRESULT " + json.dumps(res), flush=True)
+    return 1 if s.failures else 0
+
+
+def launch_mesh(s, label, job, world, tmp):
+    """Write the job, run its ranks -> [rank results]; every rank's lines
+    printed with its rank, any nonzero exit a failed check."""
+    from gsplat_tpu_torch.dist.launch import free_port, run_ranks
+
+    path = Path(tmp) / f"{label.replace(' ', '_')}.json"
+    path.write_text(json.dumps(job))
+    port = free_port()
+    if job["task"] == "cli":
+        job["argv"] += ["--coordinator_address", f"localhost:{port}"]
+        path.write_text(json.dumps(job))
+    t0 = time.perf_counter()
+    got = run_ranks(lambda r: [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(path), str(r), str(world), str(port)], world,
+                    MESH_TIMEOUT, cwd=str(Path(__file__).resolve().parent))
+    wall = time.perf_counter() - t0
+    results = []
+    for r, (rc, out) in enumerate(got):
+        lines = out.strip().splitlines()
+        for ln in lines:
+            # check lines, the kernel checks' prints and errors; not the
+            # parameter groups print_params writes
+            if (ln.startswith("  ") and not re.match(r"^  \w+: ", ln)) or "Error" in ln:
+                print(f"  [rank {r}] {ln.strip()[:400]}")
+        res = next((json.loads(ln[len("MESHRESULT "):]) for ln in reversed(lines)
+                    if ln.startswith("MESHRESULT ")), None)
+        if res is None or rc != 0:
+            print("\n".join(f"  [rank {r}] " + ln[:400] for ln in lines[-30:]))
+        results.append(res)
+    s.check(all(rc == 0 for rc, _ in got) and all(r is not None for r in results),
+            f"{label}: {world} rank(s) exit {[rc for rc, _ in got]} (want 0 each) in "
+            f"{wall:.1f} s wall")
+    return results, wall
+
+
+def sum_launches(results):
+    names = list(kernel_counts())
+    return {k: sum(r["launches"][k] for r in results if r) for k in names}
+
+
+def phase_mesh_nccl(s, tmp, base):
+    """mesh nccl 1x1: one rank, NCCL at world 1, on the sparse scene."""
+    s.phase("mesh nccl 1x1 (sparse, full width)")
+    results, wall = launch_mesh(s, "mesh nccl 1x1", dict(base, task="steps", data=1, tile=1,
+                                                         kernel_ranks=[]), 1, tmp)
+    (r,) = results
+    if r is None:
+        return {k: 0 for k in kernel_counts()}
+    s.check(r["backend"] == "nccl", f"mesh 1x1 backend {r['backend']} (want nccl: one rank, "
+            f"a card of its own); banner: {r['banner']}")
+    print(f"  1x1: make_train_step {r['runs']['make_train_step'][0]['ms']:.1f} ms; mesh "
+          f"steps (ms) replicated {[round(x['ms'], 1) for x in r['runs']['rep']]}, sharded "
+          f"{[round(x['ms'], 1) for x in r['runs']['sha']]}; eval {r['eval_ms']:.1f} ms; "
+          f"start load {r['load_s']:.2f} s; phase wall {wall:.1f} s", flush=True)
+    for kind in ("rep", "sha"):
+        st = r["stages"].get(kind, {})
+        print(f"  1x1 {kind} step 2 stages (synced, ms): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
+    return r["launches"]
+
+
+def mesh_reference(job, dev):
+    """The single-device batch reference on the card: render + photometric
+    loss of each camera of the batch (the full frame, the job's budgets),
+    their mean, autograd -> (loss, {group: gradient} on the host, each
+    view's screen-space gradient of the mean loss)."""
+    from gsplat_tpu_torch import ckpt
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.train.loss import photometric_loss
+
+    g, _, _ = ckpt.load_checkpoint(job["start"], 1 << 17, device=dev)
+    cams = mesh_cameras(job, dev)[:job["data"]]
+    params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
+    offs = [torch.zeros((g.capacity, 2), device=dev, requires_grad=True) for _ in cams]
+    bg = torch.zeros(3, device=dev)
+    with torch.enable_grad():
+        losses = [photometric_loss(render(c, g.replace(**params), bg, tile_size=TILE,
+                                          chunk=CHUNK, pair_budget=job["pair"],
+                                          kept_budget=job["kept"],
+                                          contrib_budget=job["contrib"],
+                                          mean2d_offset=o).image, c.image)
+                  for c, o in zip(cams, offs)]
+        loss = torch.stack(losses).mean()
+        grads = torch.autograd.grad(loss, list(params.values()) + offs)
+    out = {k: v.cpu() for k, v in zip(params, grads)}
+    out["mean2d"] = torch.stack([x.cpu() for x in grads[len(params):]])
+    return float(loss), out
+
+
+def grad_errors(got, ref):
+    """{group: max |got - ref| / max |ref|}."""
+    return {k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+            for k in ref}
+
+
+def phase_mesh_2x2(s, tmp, base):
+    """mesh 2x2 (gloo, 4 ranks share the card) at full width."""
+    s.phase("mesh 2x2 (gloo, 4 ranks share the card; sparse, full width)")
+    job = dict(base, task="steps", data=2, tile=2, kernel_ranks=[0, 3])
+    dev = torch.device("cuda") if base["device"] == "cuda" else torch.device("cpu")
+    t0 = time.perf_counter()
+    ref_loss, ref = mesh_reference(job, dev)
+    ref_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    results, wall = launch_mesh(s, "mesh 2x2", job, 4, tmp)
+    if any(r is None for r in results):
+        return {k: 0 for k in kernel_counts()}, {}
+    r0 = results[0]
+    print(f"  2x2: {r0['banner']}; reference {ref_s:.1f} s; phase wall {wall:.1f} s",
+          flush=True)
+    out = Path(job["out"])
+    rep = torch.load(out / "rep_grads.pt")
+    sha_parts = [torch.load(out / f"sha_grads_d{d}.pt") for d in range(2)]
+    sha = {k: torch.cat([p[k] for p in sha_parts], dim=1 if k == "mean2d" else 0)
+           for k in sha_parts[0]}
+    for name, got, loss in (("replicated", rep, r0["runs"]["rep"][0]["loss"]),
+                            ("sharded", sha, r0["runs"]["sha"][0]["loss"])):
+        errs = grad_errors(got, ref)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        s.check(rel <= MESH_LOSS_RTOL and max(errs.values()) <= MESH_GRAD_RTOL,
+                f"2x2 {name} step 1 vs the single-device batch reference: loss {loss!r} vs "
+                f"{ref_loss!r} (rel {rel:.2g}, tol {MESH_LOSS_RTOL}); gradients, of each "
+                f"group's max: " + " ".join(f"{k} {v:.2g}" for k, v in errs.items())
+                + f" (tol {MESH_GRAD_RTOL})")
+    diff = grad_errors(sha, rep)
+    s.check(max(diff.values()) <= MESH_GRAD_RTOL
+            and r0["runs"]["sha"][0]["loss"] == r0["runs"]["rep"][0]["loss"],
+            f"2x2 sharded step 1 vs replicated step 1: loss {r0['runs']['sha'][0]['loss']!r} "
+            f"vs {r0['runs']['rep'][0]['loss']!r}; gradients of each group's max "
+            + " ".join(f"{k} {v:.2g}" for k, v in diff.items())
+            + f" (tol {MESH_GRAD_RTOL}; bit-equal: {all(v == 0 for v in diff.values())})")
+    for r in results:
+        sb = r["state_bytes"]
+        print(f"  rank {r['rank']} (d {r['d']}, t {r['t']}, rows {r['band'][0]}.."
+              f"{r['band'][0] + r['band'][1]}): steps (ms) replicated "
+              f"{[round(x['ms'], 1) for x in r['runs']['rep']]}, sharded "
+              f"{[round(x['ms'], 1) for x in r['runs']['sha']]}, again "
+              f"{r['runs']['rep_again'][0]['ms']:.1f}, sat {r['runs']['sat'][0]['ms']:.1f}; "
+              f"eval {r['eval_ms']:.1f} ms; state {sb['rep'] / 1e6:.1f} MB replicated, "
+              f"{sb['sha'] / 1e6:.1f} MB sharded ({sb['sha'] / sb['rep']:.3f}); peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB; start load {r['load_s']:.2f} s", flush=True)
+        for kind in ("rep", "sha"):
+            st, cm = r["stages"][kind], r["comm"][kind]
+            print(f"    {kind} step 2 stages (synced, ms): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in st.items())
+                  + "; collectives (calls, MB): "
+                  + ", ".join(f"{k} {v['calls']}, {v['bytes'] / 1e6:.2f}"
+                              for k, v in cm.items()))
+    s.check(all(abs(r["state_bytes"]["sha"] * 2 - r["state_bytes"]["rep"]) <= 16
+                for r in results),
+            "2x2: each rank's sharded state is half its replicated state: "
+            + ", ".join(f"{r['state_bytes']['sha']} of {r['state_bytes']['rep']}"
+                        for r in results))
+    errs = {}
+    for r in results:
+        for k, v in r.get("kernel_errs", {}).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    return sum_launches(results), errs
+
+
+def phase_train_cli_mesh(s, tmp, base):
+    """train cli mesh (2x2): cli.main on 4 ranks from start.npz over
+    render_cli's COLMAP source, replicated and with --shard_gaussians."""
+    from gsplat_tpu_torch.io.ply import load_gaussian_ply
+
+    s.phase("train cli mesh 2x2 (gloo, 4 ranks share the card; sparse, full width)")
+    launches = {k: 0 for k in kernel_counts()}
+    plys = {}
+    for kind, extra in (("replicated", []), ("sharded", ["--shard_gaussians"])):
+        out = Path(tmp) / f"cli_mesh_{kind}"
+        argv = ["-s", base["source"], *MESH_CLI_FLAGS, "--start_checkpoint", base["start"],
+                "--pair_budget", str(base["pair"]), "--data_device", base["device"],
+                "--data_axis", "2", "--tile_axis", "2", "--num_processes", "4", *extra]
+        results, wall = launch_mesh(s, f"train cli mesh {kind}", dict(
+            base, task="cli", argv=argv, out=str(out)), 4, tmp)
+        if any(r is None for r in results):
+            continue
+        r0 = results[0]
+        launches = {k: launches[k] + v for k, v in sum_launches(results).items()}
+        ply = out / "out0" / "point_cloud" / f"iteration_{MESH_CLI_ITERS}" / "point_cloud.ply"
+        others = [r for r in range(1, 4) if (out / f"out{r}").exists()]
+        after = [st for st in r0["steps"] if st["budget"] == r0["steps"][-1]["budget"]]
+        s.check(all(r["rc"] == 0 for r in results) and len(r0["steps"]) == MESH_CLI_ITERS
+                and all(math.isfinite(st["loss"]) for st in r0["steps"])
+                and all(st["n_dropped"] == 0 for st in after) and r0["densify"]
+                and r0["evals"] == 1 and ply.exists() and not others,
+                f"train cli mesh {kind}: {len(r0['steps'])} steps, losses finite (first "
+                f"{r0['steps'][0]['loss']:.5f}, last {r0['steps'][-1]['loss']:.5f}), "
+                f"n_dropped 0 at the final budget {r0['steps'][-1]['budget']}; densify "
+                f"{r0['densify']}; {r0['probes']} sat probes, {r0['evals']} eval(s) on rank "
+                f"0; the final PLY written by rank 0 alone (others wrote: {others})")
+        print(f"  {kind}: step ms (median, min, max) {r0.get('step_ms')}; wall {wall:.1f} s "
+              f"(rank 0's run {r0['wall']:.1f} s: {r0['wall_split']}); peak "
+              f"{[round(r['peak_bytes'] / 1e9, 2) for r in results]} GB", flush=True)
+        for ln in r0["lines"]:
+            if "SPMD" in ln or "budget" in ln or "capacity" in ln or "eval" in ln:
+                print(f"    rank 0: {ln}")
+        if ply.exists():
+            plys[kind] = load_gaussian_ply(ply)
+    if len(plys) == 2:
+        a, b = plys["replicated"], plys["sharded"]
+        differ = [k for k in a if not np.array_equal(a[k], b[k])]
+        gap = {k: float(np.abs(np.asarray(a[k], np.float64) - b[k]).max()) for k in a
+               if a[k].shape == b[k].shape}
+        s.check(not differ and a["xyz"].shape == b["xyz"].shape,
+                f"train cli mesh: the replicated and the sharded runs' final PLYs "
+                f"({a['xyz'].shape[0]} rows each) bit-equal: fields that differ {differ}; "
+                f"largest |diff| {gap}")
+    return launches
+
+
+def mesh_base(s, tmp, cam_args):
+    """What every mesh phase reads: the start checkpoint and COLMAP source of
+    the train cli phase, the sparse scene's target and bench camera, and the
+    batch's budgets: the train phase's fit (train_budgets) at each view of
+    MESH_VIEWS on the full frame, the largest of each."""
+    from gsplat_tpu_torch import ckpt
+    from gsplat_tpu_torch.core.camera import make_camera
+
+    tmp = Path(tmp)
+    g, _, _ = ckpt.load_checkpoint(tmp / "start.npz", 1 << 17, device="cuda")
+    target = np.load(tmp / "mesh_target.npy")
+    bg = torch.zeros(3, device=g.device)
+    fits = []
+    for deg in MESH_VIEWS:
+        R, T, fovx, fovy = yaw_camera(cam_args, deg)
+        cam = make_camera(R, T, fovx, fovy, W, H, image=target, device="cuda")
+        fits.append(train_budgets(g, cam, bg, SPARSE_BUDGET))
+    del g
+    torch.cuda.empty_cache()
+    pair, kept, contrib = (max(f[i] for f in fits) for i in range(3))
+    print(f"  mesh budgets (the train phase's fit at the views {MESH_VIEWS}, the largest): "
+          f"pair {pair}, kept {kept}, contrib {contrib}", flush=True)
+    (tmp / "mesh").mkdir(exist_ok=True)
+    R, T, fovx, fovy = cam_args
+    return dict(device="cuda", W=W, H=H, start=str(tmp / "start.npz"),
+                target=str(tmp / "mesh_target.npy"),
+                cam_args=[np.asarray(R).tolist(), np.asarray(T).tolist(), float(fovx),
+                          float(fovy)], views=list(MESH_VIEWS), pair=pair, kept=kept,
+                contrib=contrib, out=str(tmp / "mesh"), source=str(tmp / "cli_source"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3231,6 +3914,8 @@ def main() -> int:
         t0 = time.perf_counter()
         raw, cam_args, target = build_scene(N, W, H, target_pairs_per_gaussian=2.25,
                                             tile_size=32)
+        np.save(Path(tmp) / "mesh_target.npy", target)
+        sparse_cam_args = cam_args
         g = load_scene(raw, tmp, "sparse")
         del raw
         print(f"  sparse scene: {N} Gaussians, capacity {g.capacity}, "
@@ -3274,10 +3959,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         l_quality, e_quality = phase_train_quality(s, tmp, kernel_counts())
         l_selfcheck, e_selfcheck = phase_selfcheck(s, kernel_counts())
+
+        s.phase("mesh set-up")
+        base = mesh_base(s, tmp, sparse_cam_args)
+        l_mesh_nccl = phase_mesh_nccl(s, tmp, base)
+        l_mesh, e_mesh = phase_mesh_2x2(s, tmp, base)
+        l_cli_mesh = phase_train_cli_mesh(s, tmp, base)
     by_view = {"sparse": l_sparse, "dense": l_dense, "render_cli": l_cli,
                "train_cli": l_train, "train_quality": l_quality, "viewer": l_viewer,
                "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
-               "selfcheck": l_selfcheck}
+               "selfcheck": l_selfcheck, "mesh_nccl_1x1": l_mesh_nccl, "mesh_2x2": l_mesh,
+               "train_cli_mesh_2x2": l_cli_mesh}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
@@ -3288,7 +3980,10 @@ def main() -> int:
           f"viewer's requests (K1 {l_viewer['expand_pairs']}, K2 {l_viewer['composite_fwd']}), "
           f"the train CLI with the viewer (K1 {l_train_viewer['expand_pairs']}), full_eval "
           f"(K1 {l_full_eval['expand_pairs']}, K5 {l_full_eval['prefix_sum_small']}) and the "
-          f"self-check (K1 {l_selfcheck['expand_pairs']})")
+          f"self-check (K1 {l_selfcheck['expand_pairs']}); the mesh phases' steps, summed over "
+          f"ranks (1x1 K1 {l_mesh_nccl['expand_pairs']}, 2x2 K1 {l_mesh['expand_pairs']}, "
+          f"K5 {l_mesh['prefix_sum_small']}; the 2x2 train CLI K1 "
+          f"{l_cli_mesh['expand_pairs']}, K5 {l_cli_mesh['prefix_sum_small']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
@@ -3318,7 +4013,8 @@ def main() -> int:
                                          e_train.get(name, 0.0), e_quality.get(name, 0.0),
                                          e_viewer.get(name, 0.0),
                                          e_full_eval.get(name, 0.0),
-                                         e_selfcheck.get(name, 0.0)),
+                                         e_selfcheck.get(name, 0.0),
+                                         e_mesh.get(name, 0.0)),
                          other_view=dict(view=other, **{k: o[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))
         wide = f"{name} tile {TILE_WIDE}"
@@ -3341,4 +4037,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(main())

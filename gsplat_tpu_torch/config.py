@@ -94,18 +94,25 @@ class MeshParams:
     """Execution parameters, the JAX package's fields and defaults: the
     Gaussian set lives in tensors of size ``capacity`` with a live count, and
     tile binning writes into a fixed ``pair_budget``-sized buffer (grown by
-    the training loop). The port trains on one device: the training loop
-    raises for a mesh of more than one device or more than one process
-    (data_axis, tile_axis, coordinator_address, num_processes, process_id;
-    multi-GPU training is ROADMAP Queue 1 item 5). shard_gaussians is
-    ignored on one device, as in the JAX package; precision is a no-op in
-    both packages. profile_dir captures a torch.profiler trace.
+    the training loop). A mesh of data_axis x tile_axis cells runs one
+    process a cell, one rank a device (gsplat_tpu_torch/dist/): each step
+    trains on data_axis cameras, each image split into tile_axis bands; the
+    world must be exactly data_axis x tile_axis ranks (data_axis -1 takes
+    world // tile_axis), else the training loop raises. The ranks join with
+    the JAX package's three flags (coordinator_address host:port,
+    num_processes, process_id) or torchrun's environment; the backend
+    follows dist/mesh.py's rule (nccl, a card a rank; gloo on the CPU or
+    where ranks share a card). shard_gaussians shards the model over the
+    data axis (capacity % data_axis == 0) and is ignored on a 1-cell mesh,
+    as in the JAX package; precision is a no-op in both packages.
+    profile_dir captures a torch.profiler trace (rank 0).
     """
 
-    data_axis: int = 1           # camera-batch shards
-    tile_axis: int = 1           # intra-image tile shards
-    # multi-process bootstrap: the JAX package's flags; the port's training
-    # loop raises for num_processes > 1 (multi-GPU is a later slice)
+    data_axis: int = 1           # camera-batch shards (-1: world // tile_axis)
+    tile_axis: int = 1           # intra-image tile shards (horizontal bands)
+    # multi-process bootstrap, the JAX package's flags: the tcp:// rendezvous
+    # host:port, the world size and this process's rank (cli.py; torchrun's
+    # environment works without them)
     coordinator_address: str = ""
     num_processes: int = 0
     process_id: int = -1
@@ -152,6 +159,33 @@ class MeshParams:
 PARAM_GROUPS = (ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams)
 
 Params = Tuple[ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams]
+
+
+# the post-sort budgets' starting sizes from MeshParams' fractions (the
+# training loop and the mesh steps)
+def kept_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
+    """kept_frac in (0, 1) sizes the post-sort stages as a fraction of the
+    pair budget; AUTO (< 0, the default) and 1 start unsplit (None)."""
+    if mesh.kept_frac >= 1.0 or mesh.kept_frac < 0:
+        return None
+    return max(int(budget * mesh.kept_frac), mesh.chunk_size)
+
+
+def sat_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
+    """sat_frac > 0 turns the saturation bound cull on, its packed survivors
+    sized as that fraction of the pair budget; AUTO (< 0, the default) and 0
+    start with it off (None)."""
+    if mesh.sat_frac <= 0.0:
+        return None
+    return max(int(budget * mesh.sat_frac), mesh.chunk_size)
+
+
+def contrib_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
+    """contrib_frac in (0, 1) sizes the backward d-table as a fraction of the
+    pair budget; AUTO and 1 start at the worst case (None)."""
+    if mesh.contrib_frac >= 1.0 or mesh.contrib_frac < 0:
+        return None
+    return max(int(budget * mesh.contrib_frac), 512)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

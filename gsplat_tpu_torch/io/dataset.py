@@ -10,6 +10,8 @@ library, raises an error that names the file.
 
 from __future__ import annotations
 
+import os
+
 import json
 from dataclasses import dataclass
 from pathlib import Path
@@ -192,7 +194,11 @@ def read_colmap_scene_info(
             xyz, rgb, _ = colmap.read_points3D_binary(sparse / "points3D.bin")
         except FileNotFoundError:
             xyz, rgb, _ = colmap.read_points3D_text(sparse / "points3D.txt")
-        store_ply(ply_path, xyz, rgb)
+        # the ranks of a mesh may convert at once: each writes its own file
+        # and renames it into place, so no reader sees a partial one
+        part = ply_path.with_name(f".{ply_path.name}.{os.getpid()}")
+        store_ply(part, xyz, rgb)
+        os.replace(part, ply_path)
     pcd = fetch_ply(ply_path)
 
     return SceneInfo(

@@ -206,6 +206,8 @@ def bin_gaussians(
     cull_opacity: Optional[torch.Tensor] = None,
     kept_budget: Optional[int] = None,
     sat_budget: Optional[int] = None,
+    key_tiles: Optional[int] = None,
+    lead: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ) -> Binning:
     """Build the sorted compact (Gaussian, tile) pair layout + per-tile tables.
@@ -223,6 +225,21 @@ def bin_gaussians(
     regions need, and an overflow adds needed - sat_budget to n_dropped and
     clears grad_ok.
 
+    key_tiles (default: this grid's tile count, at least it): the tile count
+    whose key layout sets the depth bits of the sort key. A band of a frame
+    passes the frame's tile count, so that its pairs sort in the frame's
+    order (the band's own, finer, depth bits can break near-equal depths
+    another way).
+
+    lead(kept_total), if given, returns how many kept pairs the full frame
+    sorts before this band's first tile (a () int tensor; the mesh step
+    gathers it from the bands above). The sorted layout is then led by that
+    many modulo `chunk` inert slots, so each tile's pairs lie on the full
+    frame's chunk grid: the compositors sweep chunks of that grid and test
+    the whole-tile exit at its boundaries, so a band composited on another
+    grid can differ from the full render by up to T_EPS in a pixel. The
+    lead slots count against kept_budget.
+
     on_stage(name), if given, is called after the expansion ("bin"), the
     sort ("sort") and the saturation cull ("sat") so a caller can time the
     stages."""
@@ -235,7 +252,7 @@ def bin_gaussians(
     dev = mean2d.device
     tw, th = tile_grid(width, height, tile_size)
     num_tiles = tw * th
-    db = depth_shift(num_tiles)
+    db = depth_shift(max(num_tiles, key_tiles or 0))
     do_sat = sat_budget is not None
     if do_sat:
         if cull_conic is None:
@@ -269,6 +286,20 @@ def bin_gaussians(
     if on_stage is not None:
         on_stage("sort")
 
+    gid_null = n << expand.SAT_Q_BITS if do_sat else n
+    if do_cull:
+        kept_total = (pair_gid != gid_null).sum(dtype=torch.int32)
+    else:
+        kept_total = torch.clamp(total, max=pair_budget).to(torch.int32)
+    pad = 0
+    if lead is not None:
+        pad = lead(kept_total).to(torch.int64) % chunk
+        src = torch.arange(key_s.shape[0], device=dev) - pad
+        before = src < 0
+        src = torch.clamp(src, min=0)
+        key_s = torch.where(before, -1, key_s[src])
+        gid_s = torch.where(before, gid_null, gid_s[src])
+
     tids = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev) << db
     bounds = torch.clamp(torch.searchsorted(key_s, tids, side="left"), max=kept_budget)
     starts = bounds[:-1].to(torch.int32)
@@ -276,15 +307,12 @@ def bin_gaussians(
 
     n_valid = torch.clamp(total, max=pair_budget)
     n_dropped = torch.clamp(total - pair_budget, min=0)
-    gid_null = n << expand.SAT_Q_BITS if do_sat else n
     if do_cull:
-        kept_total = (pair_gid != gid_null).sum(dtype=torch.int32)
         n_culled = n_valid - kept_total
     else:
-        kept_total = n_valid
         n_culled = torch.zeros((), dtype=torch.int32, device=dev)
-    n_dropped = n_dropped + torch.clamp(kept_total - kept_budget, min=0)
-    grad_ok = kept_total <= kept_budget
+    n_dropped = n_dropped + torch.clamp(kept_total + pad - kept_budget, min=0)
+    grad_ok = kept_total + pad <= kept_budget
     n_sat = torch.zeros((), dtype=torch.int32, device=dev)
     if do_sat:
         gid_s, starts, tile_count, n_sat = saturation_cull(

@@ -16,7 +16,7 @@ forward kernels alone and saves nothing.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -150,6 +150,8 @@ def render(
     scaling_modifier: float = 1.0,
     override_color: Optional[torch.Tensor] = None,
     mean2d_offset: Optional[torch.Tensor] = None,
+    region: Optional[Tuple[int, int]] = None,
+    band_lead: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tight_cull: bool = True,
     kept_budget: Optional[int] = None,
     contrib_budget: Optional[int] = None,
@@ -162,6 +164,10 @@ def render(
 
     mean2d_offset: optional zeros (N,2); differentiate w.r.t. it for the
     screen-space positional gradient densification reads.
+    region: optional (y0, band_h) horizontal band to render, y0 a Python
+    int: the projection uses the full camera, binning and compositing see
+    band_h rows starting at image row y0; band_lead lays the band's pairs
+    on the full frame's chunk grid (render_projected).
     on_stage(name), if given, is called after each forward stage ("project",
     "bin", "sort", "sat" with the saturation cull, "gather", "composite",
     "untile") so a caller can time them."""
@@ -172,7 +178,7 @@ def render(
         on_stage("project")
     return render_projected(
         proj, cam.width, cam.height, bg, tile_size=tile_size, chunk=chunk,
-        pair_budget=pair_budget, tight_cull=tight_cull,
+        pair_budget=pair_budget, region=region, band_lead=band_lead, tight_cull=tight_cull,
         kept_budget=kept_budget, contrib_budget=contrib_budget,
         sat_budget=sat_budget, attr_pack=attr_pack, on_stage=on_stage,
     )
@@ -187,6 +193,8 @@ def render_projected(
     tile_size: int = 32,
     chunk: int = 128,
     pair_budget: int = 1 << 18,
+    region: Optional[Tuple[int, int]] = None,
+    band_lead: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     tight_cull: bool = True,
     kept_budget: Optional[int] = None,
     contrib_budget: Optional[int] = None,
@@ -195,6 +203,25 @@ def render_projected(
     on_stage: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Bin + composite a pre-computed `Projection`.
+
+    region (y0, band_h), y0 a Python int: render the band of band_h rows
+    from image row y0 (the unit of the mesh's tile-band parallelism). The
+    means are shifted by (0, y0) inside the differentiable graph, as the
+    reference shifts them (so y0 > 0 rounds them: a band agrees with the
+    full render's rows within float error, not bit for bit); the image is
+    (band_h, width, 3). The band's sort keys keep the full frame's depth
+    bits (bin_gaussians' key_tiles), so its pairs composite in the full
+    render's order; the reference's take the band's finer depth bits, and
+    near-equal depths then composite in another order (2.4e-4 on an image
+    of a 2x2 mesh on the CPU). band_lead(kept), given the band's kept-pair
+    count, returns the count of kept pairs the full frame sorts before the
+    band (the mesh steps gather it over the tile row): the band's pairs
+    then lie on the full frame's chunk grid, as the compositors' chunk
+    sweep and whole-tile exit see them in the full render (bin_gaussians'
+    lead; without it a band's pixels can differ from the full render's by
+    up to T_EPS: 5.9e-5 at the 1080p bench view, on an H100). A region (0,
+    band_h), band_h the height rounded up to a tile, gives the full
+    render's bits in its first `height` rows.
 
     tight_cull drops bounding-rect pairs whose max alpha in the tile is
     provably < 1/255 (the image is unchanged; fewer chunks to composite).
@@ -218,6 +245,14 @@ def render_projected(
         raise NotImplementedError(
             "attr_pack: the bf16-packed pair table is a TPU bandwidth lever "
             "the port does not carry")
+    key_tiles = None
+    if region is not None:
+        key_tiles = tile_grid(width, height, tile_size)
+        key_tiles = key_tiles[0] * key_tiles[1]
+        y0, height = int(region[0]), int(region[1])
+        shift = torch.tensor([0.0, float(y0)], dtype=torch.float32,
+                             device=proj.mean2d.device)
+        proj = proj._replace(mean2d=proj.mean2d - shift[None, :])
     n = proj.mean2d.shape[0]
     if n + 1 > (1 << 24):
         # gids ride the pair table as f32 VALUES, exact only below 2^24
@@ -243,7 +278,8 @@ def render_projected(
         pair_budget=pair_budget,
         cull_conic=proj.conic.detach() if tight_cull else None,
         cull_opacity=proj.opacity.detach() if tight_cull else None,
-        kept_budget=kept_budget, sat_budget=sat_budget, on_stage=on_stage,
+        kept_budget=kept_budget, sat_budget=sat_budget, key_tiles=key_tiles,
+        lead=band_lead, on_stage=on_stage,
     )
 
     # every post-sort stage reads the kept prefix of the sorted pairs or,

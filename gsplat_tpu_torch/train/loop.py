@@ -24,10 +24,19 @@ Where the port differs from the reference:
   JAX package resumes with everything but its key.
 - --profile_dir captures a torch.profiler trace of steps 20 to
   20 + profile_steps (the reference: jax.profiler).
-- one device only: a mesh of more than one device, or more than one
-  process, raises (multi-GPU training is ROADMAP Queue 1 item 5);
-  --shard_gaussians on one device is ignored, as in the reference.
-- the live viewer (without --quiet: the browser preview and upstream's
+- a mesh (data_axis x tile_axis > 1) runs one process a mesh cell, one
+  rank a device (gsplat_tpu_torch/dist/): the world must be exactly
+  data_axis x tile_axis ranks, else it raises; data_axis -1 takes the
+  world // tile_axis. Each step picks data_axis cameras alike on every
+  rank and runs dist.spmd's replicated step or, with --shard_gaussians,
+  its ZeRO-sharded one (capacity % data_axis == 0, else it raises); the
+  sharded model is gathered for densify, the opacity reset, eval,
+  checkpoints and PLYs, and sharded again. Every decision that sizes a
+  buffer reads values reduced over the world, so the ranks decide alike;
+  rank 0 alone prints, logs, evaluates and writes. --shard_gaussians on a
+  1-cell mesh is ignored, as in the reference.
+- the live viewer (without --quiet, and off on a mesh of more than one
+  process, as in the reference: the browser preview and upstream's
   SIBR network GUI on --ip/--port, network_gui.py) writes its preview as a
   PNG, preview.png, where the reference writes a JPEG (viewer.py). A GUI
   render that raises is printed (one line) and counted on the server
@@ -37,6 +46,7 @@ Where the port differs from the reference:
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import random
 import time
@@ -50,9 +60,15 @@ from gsplat_tpu_torch._device import resolve_device
 from gsplat_tpu_torch.ckpt import (load_checkpoint, load_checkpoint_extras, save_checkpoint,
                                    save_ply)
 from gsplat_tpu_torch.config import (MeshParams, ModelParams, OptimizationParams, OtherParams,
-                                     PipelineParams, cfg_args_string, print_params)
+                                     PipelineParams, cfg_args_string, contrib_budget0,
+                                     kept_budget0, print_params, sat_budget0)
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians, grow_capacity
+from gsplat_tpu_torch.dist import collectives
+from gsplat_tpu_torch.dist.data import (gather_gaussians, global_camera_batch,
+                                        replicate_gaussians, shard_gaussians)
+from gsplat_tpu_torch.dist.mesh import backend_banner, make_mesh, world_info
+from gsplat_tpu_torch.dist.spmd import make_sharded_spmd_train_step, make_spmd_train_step
 from gsplat_tpu_torch.network_gui import (GuiRequest, NetworkGUIServer, camera_from_request,
                                           image_to_bytes)
 from gsplat_tpu_torch.render.render import render
@@ -100,31 +116,6 @@ def prepare_output_and_logger(model: ModelParams, all_params) -> Path:
     return out
 
 
-def _kept_budget(mesh: MeshParams, budget: int) -> Optional[int]:
-    """kept_frac in (0, 1) sizes the post-sort stages as a fraction of the
-    pair budget; AUTO (< 0, the default) and 1 start unsplit (None)."""
-    if mesh.kept_frac >= 1.0 or mesh.kept_frac < 0:
-        return None
-    return max(int(budget * mesh.kept_frac), mesh.chunk_size)
-
-
-def _sat_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """sat_frac > 0 turns the saturation bound cull on, its packed survivors
-    sized as that fraction of the pair budget; AUTO (< 0, the default) and 0
-    start with it off (None)."""
-    if mesh.sat_frac <= 0.0:
-        return None
-    return max(int(budget * mesh.sat_frac), mesh.chunk_size)
-
-
-def _contrib_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """contrib_frac in (0, 1) sizes the backward d-table as a fraction of the
-    pair budget; AUTO and 1 start at the worst case (None)."""
-    if mesh.contrib_frac >= 1.0 or mesh.contrib_frac < 0:
-        return None
-    return max(int(budget * mesh.contrib_frac), 512)
-
-
 def _stage(on_stage, name: str) -> None:
     if on_stage is not None:
         on_stage(name)
@@ -155,11 +146,11 @@ def make_train_step(
     "densify_stats") so a caller can time them."""
     lr_fns = make_lr_fns(opt, spatial_lr_scale)
     budget = pair_budget if pair_budget is not None else mesh.pair_budget
-    kept = kept_budget if kept_budget is not None else _kept_budget(mesh, budget)
+    kept = kept_budget if kept_budget is not None else kept_budget0(mesh, budget)
     if contrib_budget is None:
-        contrib_budget = _contrib_budget0(mesh, budget)
+        contrib_budget = contrib_budget0(mesh, budget)
     if sat_budget is None:
-        sat_budget = _sat_budget0(mesh, budget)
+        sat_budget = sat_budget0(mesh, budget)
 
     def train_step(g: Gaussians, opt_state: AdamState, cam: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None):
@@ -257,21 +248,36 @@ def draw_background(gen: torch.Generator) -> torch.Tensor:
     return torch.rand(3, generator=gen, dtype=torch.float32, device=gen.device)
 
 
-def _check_one_device(mesh: MeshParams, device: torch.device) -> None:
-    """The port trains on one device: raise for a larger mesh or more than
-    one process instead of running it on one GPU."""
-    data_axis = mesh.data_axis
-    if data_axis == -1:  # auto: every device of the training device's kind
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        data_axis = max(n_dev // mesh.tile_axis, 1)
-    dist = torch.distributed
-    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    if data_axis * mesh.tile_axis > 1 or mesh.num_processes > 1 or world > 1:
+def resolve_mesh(mesh: MeshParams) -> MeshParams:
+    """The mesh shape train() runs, one process a mesh cell: data_axis -1
+    takes world // tile_axis, and the world (the process group's size, 1
+    without one) must be exactly data_axis * tile_axis ranks."""
+    world, _ = world_info()
+    if mesh.num_processes > 1 and world != mesh.num_processes:
         raise ValueError(
-            f"mesh {data_axis}x{mesh.tile_axis} over {max(mesh.num_processes, world)} "
-            "process(es): the port trains on one device in one process "
-            "(data_axis * tile_axis = 1, num_processes <= 1); multi-GPU training "
-            "is ROADMAP Queue 1 item 5")
+            f"num_processes {mesh.num_processes} but a world of {world} rank(s): join the "
+            "process group first (dist.mesh.initialize_distributed; the CLI does)")
+    if mesh.data_axis == -1:
+        if world % mesh.tile_axis:
+            raise ValueError(f"world of {world} ranks is no multiple of tile_axis "
+                             f"{mesh.tile_axis}")
+        mesh = dataclasses.replace(mesh, data_axis=world // mesh.tile_axis)
+    if mesh.data_axis * mesh.tile_axis != world:
+        raise ValueError(
+            f"mesh {mesh.data_axis}x{mesh.tile_axis} over {world} rank(s): the port runs "
+            "one process a mesh cell, so the world size must equal data_axis * tile_axis")
+    return mesh
+
+
+def _agree(dev_mesh, device: torch.device, *values) -> List[int]:
+    """The MAX over the world of each integer (one all-gather of a vector on
+    the rank's device): a decision that sizes a buffer is taken alike on
+    every rank."""
+    if dev_mesh is None or not dev_mesh.distributed:
+        return [int(v) for v in values]
+    vec = torch.tensor([int(v) for v in values], dtype=torch.int64, device=device)
+    every = collectives.all_gather_rows(vec[None], dev_mesh.world_group, "counts")
+    return [int(x) for x in every.max(dim=0).values]
 
 
 def train(
@@ -284,10 +290,18 @@ def train(
     progress_every: int = 100,
 ) -> Tuple[Gaussians, Scene]:
     """The full training entry point (reference train_utils.cpp:97-146,
-    completed), on model.data_device (CUDA unless named)."""
-    _check_one_device(mesh, resolve_device(model.data_device))
-    printer = Printer(other.quiet)
-    out_dir = prepare_output_and_logger(model, (model, opt, pipe, other, mesh))
+    completed), on model.data_device (CUDA unless named). On a mesh every
+    rank runs it (the same seeds give the same camera picks and draws);
+    rank 0 alone prints and writes."""
+    resolve_device(model.data_device)
+    mesh = resolve_mesh(mesh)
+    world, rank = world_info()
+    is_main = rank == 0
+    printer = Printer(other.quiet or not is_main)
+    if is_main:
+        out_dir = prepare_output_and_logger(model, (model, opt, pipe, other, mesh))
+    else:
+        out_dir = Path(model.model_path or ".")
     printer.print(f"Output folder: {out_dir}")
 
     scene = Scene(model, capacity=mesh.capacity)
@@ -317,28 +331,63 @@ def train(
     pair_budget = mesh.pair_budget
     if "pair_budget" in resume_extras:  # resume with the grown budget, no re-ramp
         pair_budget = max(pair_budget, int(resume_extras["pair_budget"]))
-    if mesh.shard_gaussians:
+    spmd = mesh.data_axis * mesh.tile_axis > 1
+    sharded = spmd and mesh.shard_gaussians
+    if mesh.shard_gaussians and not spmd:
         printer.print("--shard_gaussians ignored on a 1-device mesh")
+    dev_mesh = None
+    if spmd:
+        dev_mesh = make_mesh(data=mesh.data_axis, tile=mesh.tile_axis)
+        printer.print(
+            f"SPMD: {mesh.data_axis}-camera batches x {mesh.tile_axis} tile bands"
+            + (" (ZeRO-sharded Gaussians)" if sharded else "")
+            + f" over {world} processes, one a mesh cell; {backend_banner()}")
+        if sharded and g.capacity % mesh.data_axis != 0:
+            raise ValueError(
+                f"--shard_gaussians needs capacity % data_axis == 0 "
+                f"(got {g.capacity} % {mesh.data_axis})")
+        if sharded:
+            g, opt_state = shard_gaussians(dev_mesh, g, opt_state)
+        else:
+            g, opt_state = replicate_gaussians(dev_mesh, g, opt_state)
+
+    # sharded: the step keeps every (CAP, ...) leaf sharded over `data`; the
+    # infrequent whole-model operations (densify, the opacity reset, eval,
+    # checkpoints, PLYs, the sat probe) gather it on every rank (a
+    # collective), run the replicated path's code and shard it again
+    def to_host_view(g_, opt_state_=None):
+        if not sharded:
+            return g_ if opt_state_ is None else (g_, opt_state_)
+        return gather_gaussians(dev_mesh, g_, opt_state_)
+
+    def to_step_view(g_, opt_state_):
+        if not sharded:
+            return g_, opt_state_
+        return shard_gaussians(dev_mesh, g_, opt_state_)
+
+    def capacity(g_) -> int:
+        """The model's capacity (a shard holds 1 / data_axis of it)."""
+        return g_.capacity * (mesh.data_axis if sharded else 1)
 
     # AUTO budgets (kept_frac / contrib_frac / sat_frac = -1, the defaults):
     # start unsplit / worst-case and fit from telemetry. Manual fractions and
     # explicit 0/1 keep their fixed semantics.
     kept_auto = mesh.kept_frac < 0.0
-    kept_budget = _kept_budget(mesh, pair_budget)  # None in auto/off modes
+    kept_budget = kept_budget0(mesh, pair_budget)  # None in auto/off modes
     if "kept_budget" in resume_extras:
         if kept_budget is not None:
             kept_budget = max(kept_budget, int(resume_extras["kept_budget"]))
         elif kept_auto:
             kept_budget = int(resume_extras["kept_budget"])
     contrib_auto = mesh.contrib_frac < 0.0
-    contrib_budget = _contrib_budget0(mesh, pair_budget)
+    contrib_budget = contrib_budget0(mesh, pair_budget)
     if "contrib_budget" in resume_extras:
         if contrib_budget is not None:
             contrib_budget = max(contrib_budget, int(resume_extras["contrib_budget"]))
         elif contrib_auto:
             contrib_budget = int(resume_extras["contrib_budget"])
     sat_auto = mesh.sat_frac < 0.0
-    sat_budget = _sat_budget0(mesh, pair_budget)
+    sat_budget = sat_budget0(mesh, pair_budget)
     if "sat_budget" in resume_extras:
         if sat_budget is not None:
             sat_budget = max(sat_budget, int(resume_extras["sat_budget"]))
@@ -346,8 +395,14 @@ def train(
             sat_budget = int(resume_extras["sat_budget"])
 
     def build_step(budget, contrib, sat, kept):
-        return make_train_step(opt, mesh, g.spatial_lr_scale, w, h, pair_budget=budget,
-                               contrib_budget=contrib, sat_budget=sat, kept_budget=kept)
+        kw = dict(pair_budget=budget, contrib_budget=contrib, sat_budget=sat,
+                  kept_budget=kept)
+        if sharded:
+            return make_sharded_spmd_train_step(dev_mesh, opt, mesh, g.spatial_lr_scale,
+                                                w, h, **kw)
+        if spmd:
+            return make_spmd_train_step(dev_mesh, opt, mesh, g.spatial_lr_scale, w, h, **kw)
+        return make_train_step(opt, mesh, g.spatial_lr_scale, w, h, **kw)
 
     train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
     low_usage_streak = 0
@@ -355,12 +410,13 @@ def train(
     low_sat_streak = 0
     low_kept_streak = 0
 
-    metrics = MetricsLogger(model.model_path)
+    metrics = MetricsLogger(model.model_path if is_main else None)
     # the live viewer and the SIBR network GUI on --ip/--port: best-effort,
     # silent on a port conflict; one port, HTTP requests get the browser
-    # preview, anything else speaks upstream's network_gui wire format
+    # preview, anything else speaks upstream's network_gui wire format. Off
+    # on a mesh of more than one process, as in the reference.
     viewer = None
-    if not other.quiet:
+    if not other.quiet and world == 1:
         viewer = NetworkGUIServer(Path(out_dir), other.ip, other.port,
                                   verify=model.source_path)
         if viewer.url:
@@ -433,15 +489,18 @@ def train(
             if iteration % 1000 == 0:
                 g = g.oneup_sh_degree()
 
-            if not cam_order:
-                cam_order = list(range(len(train_cams)))
-                random.shuffle(cam_order)
-            cam = train_cams[cam_order.pop()]
+            picks = []
+            for _ in range(mesh.data_axis if spmd else 1):
+                if not cam_order:
+                    cam_order = list(range(len(train_cams)))
+                    random.shuffle(cam_order)
+                picks.append(train_cams[cam_order.pop()])
+            cam = picks[0]
 
             step_bg = draw_background(rng) if opt.random_background else bg
 
             # --profile_dir: a torch.profiler trace of steady-state steps
-            if mesh.profile_dir and iteration == 20:
+            if mesh.profile_dir and is_main and iteration == 20:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + (
@@ -459,7 +518,9 @@ def train(
                 printer.print(f"profiler trace written to {trace}")
 
             (g, opt_state, loss, ema_loss, n_pairs, n_dropped, n_culled,
-             n_contrib, n_sat) = train_step(g, opt_state, cam, step_bg, iteration, ema_loss)
+             n_contrib, n_sat) = train_step(
+                g, opt_state, global_camera_batch(dev_mesh, picks) if spmd else cam,
+                step_bg, iteration, ema_loss)
 
             # --- adaptive pair budget: every gather/sort in the render
             # pipeline scales with the budget. Checked every 10 iters only:
@@ -527,7 +588,7 @@ def train(
                 low_usage_streak = 0
                 if (contrib_budget is not None
                         and int(n_contrib) * 4 < contrib_budget
-                        and contrib_budget > (_contrib_budget0(mesh, pair_budget) or 512)):
+                        and contrib_budget > (contrib_budget0(mesh, pair_budget) or 512)):
                     low_contrib_streak += 1
                     if low_contrib_streak >= 20:
                         contrib_budget //= 2
@@ -556,7 +617,7 @@ def train(
                     low_contrib_streak = 0
                 if (sat_budget is not None
                         and int(n_sat) * 4 < sat_budget
-                        and sat_budget > (_sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
+                        and sat_budget > (sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
                     low_sat_streak += 1
                     if low_sat_streak >= 20:
                         sat_budget //= 2
@@ -594,10 +655,10 @@ def train(
             # 2^24 and an exact int32 quanta cumsum (kept < 2^25). ---
             if (sat_auto and sat_budget is None
                     and iteration % mesh.sat_probe_interval == 0
-                    and pair_budget < (1 << 25) and g.capacity < (1 << 24)):
-                ns_p, np_p, nc_p, nd_p = _sat_probe(
-                    g, cam, bg, tile_size=mesh.tile_size, chunk=mesh.chunk_size,
-                    pair_budget=pair_budget)
+                    and pair_budget < (1 << 25) and capacity(g) < (1 << 24)):
+                ns_p, np_p, nc_p, nd_p = _agree(dev_mesh, device, *_sat_probe(
+                    to_host_view(g), cam, bg, tile_size=mesh.tile_size,
+                    chunk=mesh.chunk_size, pair_budget=pair_budget))
                 kept_live = int(np_p) - int(nc_p)
                 if int(nd_p) == 0 and 2 * int(ns_p) < kept_live:
                     sat_budget = (-(-int(ns_p) // mesh.chunk_size) * mesh.chunk_size
@@ -628,7 +689,7 @@ def train(
                 )
                 metrics.log(
                     iteration, loss=float(loss), ema_loss=float(ema_loss),
-                    n_gaussians=int(g.n_live), capacity=g.capacity,
+                    n_gaussians=int(g.n_live), capacity=capacity(g),
                     it_per_s=round(rate, 2), n_dropped_pairs=int(n_dropped),
                     n_culled_pairs=int(n_culled),
                     n_contrib_pairs=int(n_contrib),
@@ -636,27 +697,33 @@ def train(
                 )
 
             if iteration in other.test_iterations:
-                evaluate(scene, g, bg, opt, mesh, printer, iteration, metrics,
-                         pair_budget=pair_budget)
+                g_eval = to_host_view(g)       # a collective: every rank gathers
+                if is_main:
+                    evaluate(scene, g_eval, bg, opt, mesh, printer, iteration, metrics,
+                             pair_budget=pair_budget)
+                del g_eval
 
             if iteration in other.save_iterations:
-                printer.print(f"[iter {iteration}] saving point cloud")
-                save_ply(Path(out_dir) / "point_cloud" / f"iteration_{iteration}"
-                         / "point_cloud.ply", g)
+                g_save = to_host_view(g)
+                if is_main:
+                    printer.print(f"[iter {iteration}] saving point cloud")
+                    save_ply(Path(out_dir) / "point_cloud" / f"iteration_{iteration}"
+                             / "point_cloud.ply", g_save)
+                del g_save
 
             # --- densification (upstream schedule; reference params.h:50-91) ---
             if iteration < opt.densify_until_iter:
                 if (iteration > opt.densify_from_iter
                         and iteration % opt.densification_interval == 0):
                     max_screen = 20.0 if iteration > opt.opacity_reset_interval else 0.0
+                    g, opt_state = to_host_view(g, opt_state)
                     g, opt_state, dropped = densify_and_prune(
                         g, opt_state, split_noise(rng, g.capacity),
                         max_grad=opt.densify_grad_threshold, min_opacity=0.005,
                         extent=scene.cameras_extent, max_screen_size=max_screen,
                         percent_dense=opt.percent_dense,
                     )
-                    dropped = int(dropped)
-                    n_live = int(g.n_live)
+                    dropped, n_live = _agree(dev_mesh, device, dropped, g.n_live)
                     if dropped > 0 or n_live > 0.9 * g.capacity:
                         new_cap = g.capacity * 2
                         printer.print(
@@ -665,25 +732,33 @@ def train(
                         )
                         g = grow_capacity(g, new_cap)
                         opt_state = _grow_opt_state(opt_state, new_cap)
+                    g, opt_state = to_step_view(g, opt_state)
 
                 if iteration % opt.opacity_reset_interval == 0 or (
                     model.white_background and iteration == opt.densify_from_iter
                 ):
-                    g, opt_state = reset_opacity(g, opt_state)
+                    g, opt_state = to_step_view(*reset_opacity(*to_host_view(g, opt_state)))
 
             # checkpoint LAST within the iteration (after densify and the
             # optimizer step) so a resume at iteration + 1 is exact
             if iteration in other.checkpoint_iterations:
-                printer.print(f"[iter {iteration}] saving checkpoint")
-                save_checkpoint(Path(out_dir) / f"chkpnt{iteration}.npz", g, opt_state,
-                                iteration, extra=loop_extras())
+                g_ck, opt_ck = to_host_view(g, opt_state)   # gathered on every rank
+                if is_main:
+                    printer.print(f"[iter {iteration}] saving checkpoint")
+                    save_checkpoint(Path(out_dir) / f"chkpnt{iteration}.npz", g_ck, opt_ck,
+                                    iteration, extra=loop_extras())
+                del g_ck, opt_ck
 
     except KeyboardInterrupt:
         # interrupt recovery: persist an emergency checkpoint so
         # --start_checkpoint can resume exactly here
+        # (on a mesh every rank is interrupted: the sharded gather is a
+        # collective; rank 0 writes)
         path = Path(out_dir) / f"chkpnt_interrupt_{iteration}.npz"
         printer.print(f"interrupted at iter {iteration}; saving {path}")
-        save_checkpoint(path, g, opt_state, iteration, extra=loop_extras())
+        g_ck, opt_ck = to_host_view(g, opt_state)
+        if is_main:
+            save_checkpoint(path, g_ck, opt_ck, iteration, extra=loop_extras())
         raise
     finally:
         if profiler is not None:

@@ -1,6 +1,7 @@
-"""The port stands alone: gsplat_tpu_torch and chip_smoke.py import no jax,
-no gsplat_tpu module and no PIL (the machine with the GPU has none of them),
-and the package imports in a process where jax cannot be imported."""
+"""The port stands alone: gsplat_tpu_torch, chip_smoke.py and the mesh
+tests' rank worker import no jax, no gsplat_tpu module and no PIL (the
+machine with the GPU has none of them), and they import in a process where
+jax cannot be imported."""
 
 import re
 import subprocess
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "gsplat_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "gsplat_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax|PIL)\b|from\s+(jax|flax|PIL)\b"
     r"|import\s+gsplat_tpu(\.|\s|$)|from\s+gsplat_tpu(\.|\s))",
@@ -49,8 +51,15 @@ def test_package_imports_with_jax_blocked():
         "import gsplat_tpu_torch.tools.selfcheck_train\n"
         "import gsplat_tpu_torch.tools.quality_proxy, gsplat_tpu_torch.tools.gpu_parity\n"
         "import gsplat_tpu_torch.tools.profile_step\n"
+        "import gsplat_tpu_torch.dist, gsplat_tpu_torch.dist.mesh, gsplat_tpu_torch.dist.data\n"
+        "import gsplat_tpu_torch.dist.spmd, gsplat_tpu_torch.dist.collectives\n"
+        "import gsplat_tpu_torch.dist.launch, gsplat_tpu_torch.tools.multihost_smoke\n"
+        "import gsplat_tpu_torch.tools.sharded_scale_demo\n"
+
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "spec = importlib.util.spec_from_file_location('w', 'tests/torch_dist_worker.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print('ok')\n"
     )

@@ -493,10 +493,16 @@ def test_interrupt_checkpoint(small_scene, tmp_path, monkeypatch):
     assert "torch_rng" in ckpt.load_checkpoint_extras(path)
 
 
-@pytest.mark.parametrize("mesh", [dict(data_axis=2), dict(tile_axis=2), dict(num_processes=2)],
-                         ids=["data_axis", "tile_axis", "processes"])
-def test_multi_device_mesh_raises(small_scene, tmp_path, mesh):
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
+@pytest.mark.parametrize("mesh,rule", [
+    (dict(data_axis=2), "one process a mesh cell"),
+    (dict(tile_axis=2), "one process a mesh cell"),
+    (dict(num_processes=2), "join the process group")],
+    ids=["data_axis", "tile_axis", "processes"])
+def test_multi_device_mesh_raises(small_scene, tmp_path, mesh, rule):
+    """One process holds one mesh cell: a larger mesh, or num_processes > 1,
+    without a process group of that size raises the rule (tests of the mesh
+    itself: test_torch_dist.py, test_torch_multihost.py)."""
+    with pytest.raises(ValueError, match=rule):
         _port_run(small_scene, tmp_path / "out", 2, mesh=mesh)
 
 
