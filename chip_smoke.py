@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32 and at tile 64, the render CLI over a dataset on disk, the
+at tile 32 and at tile 64, on the f32 and the packed pair table
+(attr_pack), serving_bench, the render CLI over a dataset on disk, the
+training CLI over a JPEG dataset, the
 training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
 repo's quality-proxy scene held to the JAX package's record), the live
 viewer (the SIBR network GUI serving the 1M model, and inside the training
@@ -13,9 +15,11 @@ gloo ranks sharing the card as a 2x2 mesh, its steps and its train CLI).
 
 Phases (any failure exits nonzero, and the final ok line is not printed):
   env      card name + power limit (nvidia-smi), torch / CUDA / nvcc versions
-  build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/; the
-           registers and spills of every kernel (ptxas -v; each pixel-pass
-           count of composite_fwd and composite_bwd): no spills
+  build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/, the C
+           compiler csrc/jpeg_decode.c into build/host/ (all started
+           together); the registers and spills of every kernel (ptxas -v;
+           each pixel-pass count and table layout of composite_fwd and
+           composite_bwd): no spills
   oracle   a tiny scene rendered on the GPU against the port's per-pixel
            oracle and its CPU render (plain kernel versions), 2e-5 abs
   then, for each of two cells, bench.py's scene re-made in numpy
@@ -34,6 +38,9 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            (warp, pair) groups the kernel's exact skip passes over and the
            bound recounted from it (12 operations for a pair-pixel whose
            power lies below its pair's threshold, 31 for the rest)
+  composite_fwd packed, composite_bwd packed  the two checks above on the
+           view's packed (P, 8) pair table (rgb and opacity as bf16 pairs),
+           their bounds recounted for 32-byte rows
   composite_bwd  the kernel against its plain version on the same table and
            the cotangent of the real photometric loss, at the contrib budget
            bench.py fits: keys bit-equal, each d column within 1e-4 of its
@@ -84,6 +91,15 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            up to a chunk, plus a chunk): the image bit-equal and nproc equal
            in every tile to the same view's render without the cull,
            n_dropped 0; frame and stage ms and the device busy share
+  serve packed  the bench view on the packed and the f32 pair table, the
+           saturation cull off and on (sparse: pair and sat budget
+           2,621,440; dense: the fitted budgets and sat budget): K2 on each
+           packed table a render handed it against its plain version (2e-5,
+           nproc equal but at the T_EPS boundary); each packed
+           image within tests/test_attr_pack.py's 2e-2 max and 2e-3 mean of
+           the f32 one, the packed image with the cull bit-equal to the
+           packed image without it, n_dropped 0; frame ms and the gather
+           and composite stages of each, packed beside f32
   train    make_train_step at OptimizationParams() defaults, bg 0, spatial
            LR scale 1, budgets fitted as bench.py fits them with the JAX
            training loop's headroom (1.2x pair and kept, 1.5x contrib; the
@@ -107,6 +123,12 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
   step gradients twice  two gradient passes of one train step at the bench
            view (render, loss, torch.autograd.grad): equal bits in every
            parameter group
+  step sparse packed  the train step's gradients on the packed table
+           (render(..., attr_pack=True), the photometric loss, autograd):
+           two passes the same bits; the image mean's gradients within 2e-2
+           of each group's max of the f32 table's (test_attr_pack.py's
+           objective); 2 make_train_step steps under GSPLAT_PACK=1's
+           default: losses finite, n_dropped 0
   tile 64  composite_fwd and composite_bwd at tile 64 (four pixel passes)
            against their plain versions on the bench view's real pair table
            and loss cotangent (the checks above, the skip census and the
@@ -155,6 +177,13 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            choice, n_live and n_dropped bit-equal, floats within 1e-6.
            Printed: step ms (median, min, max), densify ms and n_live,
            regrowths, checkpoint seconds and bytes, eval ms, probes
+  jpeg     after the train cli phase: every JPEG fixture under tests/data/
+           jpeg/ decoded by the port (io/jpeg.py), its sha256 equal to the
+           manifest's (PIL's decode); the 1080p fixture's decode ms (median
+           of 10, host clock); render_cli's COLMAP source written again
+           with that fixture as every view's .jpg, and cli.main 10
+           iterations over it from start.npz (--pair_budget 2^22): losses
+           finite, n_dropped 0, every camera's image the decode / 255
   viewer serve (sparse, full width)  after the train cli phase: a
            NetworkGUIServer on a free local port over the 1M sparse model at
            one pair budget (the largest fitted one of the requests, 1.2x); a
@@ -194,6 +223,10 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            the CPU); K1-K6 and segment_sum on the final state. Printed:
            LPIPS ms a 1080p pair against its fp32 bound, SSIM, PNG decode,
            render_cli's parts and the wall by part
+  serving_bench  after the dense cell: tools/serving_bench.py in process,
+           without and with --pack (1M Gaussians, 1080p, both scenes, its
+           budgets fitted by the reference's probes): its JSON line printed,
+           every time finite
   train quality (1k, tile 16)  after the dense cell: tools/quality_proxy.py
            --iters 1000 at its defaults (the 120-camera textured scene of
            tools/selfcheck_train.py, built by quality_proxy.make_scene at
@@ -241,12 +274,16 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            20; replicated, then --shard_gaussians, each under LoopSpy: every
            rank exits 0, 20 steps with n_dropped 0, rank 0 alone writes; the
            two final PLYs bit-equal; the wall by part
-The launch counts of the seven kernels are zeroed just before each serve,
-each train, the tile-64 serve-and-train phase, each render_cli run, each
-train CLI run, the viewer's requests, full_eval, the self-check and, in
-each rank of the mesh phases, before its steps (the main paths), and must
-cover every render and step run there (K5 and K6 in the sat phases and
-the loop's probes; K1 and K2 in render_cli); the kernels line sums them
+The launch counts of the seven kernels, and of K2 and K3 on the packed
+table under keys of their own ("composite_fwd packed", "composite_bwd
+packed"), are zeroed just before each serve, each train, the packed serve
+and step phases, the tile-64 serve-and-train phase, each render_cli run,
+each train CLI run (the JPEG one too), the viewer's requests, full_eval,
+each serving_bench run, the self-check and, in each rank of the mesh
+phases, before its steps (the main paths), and must cover every render
+and step run there (K5 and K6 in the sat phases and the loop's probes;
+K1 and K2 in render_cli; the packed K2 and K3 in the packed phases); the
+kernels line sums them
 (the mesh phases' over their ranks) and must show every kernel. The
 kernels JSON rows hold the sparse bench view's times and bound for K1-K4
 and segment_sum, the dense view's for K5 and K6 (the cell whose users run
@@ -594,11 +631,11 @@ def phase_expand(s, label, g, cam, pair_fit, kept):
                 bytes=nbytes, ops=ops, library_ms=None)
 
 
-def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None):
-    """K2 against its plain version on the camera's pair table: tiles within
-    ATOL, nproc equal but where a tile's transmittance sits at T_EPS ->
-    (gathered, tile starts, tile counts, tw, K2's tiles, K2's nproc, max
-    |tiles diff|)."""
+def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None, pack=False):
+    """K2 against its plain version on the camera's pair table (the packed
+    (P, 8) table with `pack`): tiles within ATOL, nproc equal but where a
+    tile's transmittance sits at T_EPS -> (gathered, tile starts, tile
+    counts, tw, K2's tiles, K2's nproc, max |tiles diff|)."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
@@ -610,11 +647,23 @@ def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None):
     b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
-    gathered = pair_table(p, b, kept)
+    gathered = pair_table(p, b, kept, attr_pack=pack)
     del p
     ts, tc = b.tile_start, b.tile_count
     tiles_k, np_k = raster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=tile,
                                          chunk=CHUNK)
+    err = fwd_against_plain(s, f"{label} packed" if pack else label, gathered, ts, tc, tw,
+                            tile, tiles_k, np_k)
+    return gathered, ts, tc, tw, tiles_k, np_k, err
+
+
+def fwd_against_plain(s, label, gathered, ts, tc, tw, tile, tiles_k, np_k):
+    """K2's output (tiles_k, np_k) on a pair table against its plain
+    version's: tiles within ATOL, nproc equal but where a tile's
+    transmittance sits at T_EPS (the two multiply in another order) -> max
+    |tiles diff|."""
+    from gsplat_tpu_torch.render import raster
+
     tiles_p, np_p = raster.composite_fwd_plain(gathered, ts, tc, tw=tw,
                                                tile_size=tile, chunk=CHUNK)
     torch.cuda.synchronize()
@@ -641,14 +690,17 @@ def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None):
             f"{gathered.shape[0]} pairs: max |tiles diff| {err:.3g} (tol {ATOL})")
     s.check(n_bad == 0, f"{label} composite_fwd nproc: {len(bad_tiles)} tiles differ, "
             f"{n_bad} of them away from the T_EPS boundary (want 0)")
-    return gathered, ts, tc, tw, tiles_k, np_k, err
+    return err
 
 
-def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE):
+def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE, pack=False):
+    """K2's check (composite_check), time, plain time, skip census and
+    bound on the view's pair table (packed with `pack`: the row "composite_fwd
+    packed", 32 bytes a pair) -> its kernels row."""
     from gsplat_tpu_torch.render import raster
 
     gathered, ts, tc, tw, tiles_k, np_k, err = composite_check(s, label, g, cam, pair_fit,
-                                                                kept, tile)
+                                                                kept, tile, pack=pack)
     # a tile's pairs past its exit: those beyond its nproc-th chunk of the
     # chunk-aligned grid its segment is swept on
     tc64 = tc.to(torch.int64)
@@ -660,14 +712,19 @@ def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE):
     plain_ms, _ = wall_ms(lambda: raster.composite_fwd_plain(
         gathered, ts, tc, tw=tw, tile_size=tile, chunk=CHUNK))
     chunks = int(np_k.sum())
-    census = skip_census(gathered, ts, tc, np_k, tw, tile)
-    nbytes = chunks * CHUNK * 64 + tiles_k.numel() * 4 + 3 * ts.numel() * 4
-    print(f"  {label} composite_fwd: {ms:.4f} ms, plain {plain_ms:.2f} ms; "
+    census = skip_census(raster.unpack_rows(gathered) if pack else gathered, ts, tc, np_k,
+                         tw, tile)
+    # each composited pair's row read once (64 bytes, 32 packed), the
+    # tiles written once, the tile tables and nproc
+    nbytes = chunks * CHUNK * gathered.shape[1] * 4 + tiles_k.numel() * 4 + 3 * ts.numel() * 4
+    name = "composite_fwd packed" if pack else "composite_fwd"
+    print(f"  {label} {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms; "
           f"{chunks} chunks composited, {census[0] / 1e9:.3f} G pair-pixel evaluations; "
+          f"{nbytes / 1e6:.1f} MB moved ({nbytes / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s); "
           f"kept pairs past their tile's saturation exit {n_past} of {n_kept} "
           f"({n_past / max(n_kept, 1):.2%})")
-    ops = skip_bound(f"{label} composite_fwd", census, K2_OPS_PER_EVAL)
-    return dict(name="composite_fwd", route="cuda",
+    ops = skip_bound(f"{label} {name}", census, K2_OPS_PER_EVAL)
+    return dict(name=name, route="cuda",
                 source="gsplat_tpu_torch/csrc/composite_fwd.cu",
                 replaces="gsplat_tpu/render/raster_pallas.py:536",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
@@ -756,23 +813,26 @@ def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE, size=None):
     return tiles, nproc, g.contiguous()
 
 
-def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=None):
+def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=None,
+                   pack=False):
     """composite_bwd against its plain version at the bench view's fitted
-    budgets, on its real pair table and loss cotangent -> (K3 row, the
-    kernel's d-table)."""
+    budgets, on its real pair table (packed with `pack`: the row
+    "composite_bwd packed") and loss cotangent -> (K3 row, the kernel's
+    d-table)."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
     from gsplat_tpu_torch.render.render import contrib_regions, pair_table
 
-    s.phase(f"kernel composite_bwd ({label})")
+    name = "composite_bwd packed" if pack else "composite_bwd"
+    s.phase(f"kernel {name} ({label})")
     w, h = size or (W, H)
     tw, th = tile_grid(w, h, tile)
     p = project_gaussians(g, cam)
     b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
-    gathered = pair_table(p, b, kept)
+    gathered = pair_table(p, b, kept, attr_pack=pack)
     del p
     ts, tc = b.tile_start, b.tile_count
     tiles, nproc, g_tiles = loss_cotangent(gathered, ts, tc, tw, th, target, tile, size)
@@ -789,25 +849,29 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=Non
            for c in range(raster.N_DCOLS)]
     err = float((d_k[:, :raster.N_DCOLS] - d_p[:, :raster.N_DCOLS]).abs().max())
     s.check(not bool(overflow) and keys_equal and max(rel) <= BWD_RTOL,
-            f"{label} composite_bwd vs plain on {int(np_c.sum())} replayed chunks "
+            f"{label} {name} vs plain on {int(np_c.sum())} replayed chunks "
             f"(contrib budget {contrib}): keys equal {keys_equal}, d columns rel err "
             + " ".join(f"{r:.2g}" for r in rel) + f" (tol {BWD_RTOL} of each column's max)")
-    s.check(torch.equal(d_k, d_k2), f"{label} composite_bwd: two launches give the same bits")
+    s.check(torch.equal(d_k, d_k2), f"{label} {name}: two launches give the same bits")
     del d_k2, d_p
     rows = int(np_c.sum()) * CHUNK
-    census = skip_census(gathered, ts, tc, np_c, tw, tile)
+    census = skip_census(raster.unpack_rows(gathered) if pack else gathered, ts, tc, np_c,
+                         tw, tile)
     # the wrapper fills a fresh d-table before each launch: its time, less
     # that of the fill alone, is the kernel's
     ms = (device_ms(lambda: raster.composite_bwd(*args, **kw), 20)
           - device_ms(lambda: raster.d_table_prefilled(contrib, d_k.device), 20))
     plain_ms, _ = wall_ms(lambda: raster.composite_bwd_plain(*args, **kw))
-    # the replayed pair rows read once, tiles and cotangent read once, the
-    # four tile tables, the replayed d-rows written once
-    nbytes = rows * 64 + 2 * tiles.numel() * 4 + 4 * ts.numel() * 4 + rows * 64
-    print(f"  {label} composite_bwd: {ms:.4f} ms, plain {plain_ms:.2f} ms; {rows} rows "
-          f"replayed, {census[0] / 1e9:.3f} G pair-pixel evaluations", flush=True)
-    ops = skip_bound(f"{label} composite_bwd", census, K3_OPS_PER_EVAL)
-    k3 = dict(name="composite_bwd", route="cuda",
+    # the replayed pair rows read once (64 bytes, 32 packed), tiles and
+    # cotangent read once, the four tile tables, the replayed 64-byte
+    # d-rows written once
+    nbytes = (rows * gathered.shape[1] * 4 + 2 * tiles.numel() * 4 + 4 * ts.numel() * 4
+              + rows * 64)
+    print(f"  {label} {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms; {rows} rows "
+          f"replayed, {census[0] / 1e9:.3f} G pair-pixel evaluations; {nbytes / 1e6:.1f} MB "
+          f"moved ({nbytes / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s)", flush=True)
+    ops = skip_bound(f"{label} {name}", census, K3_OPS_PER_EVAL)
+    k3 = dict(name=name, route="cuda",
               source="gsplat_tpu_torch/csrc/composite_bwd.cu",
               replaces="gsplat_tpu/render/raster_pallas.py:618",
               max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
@@ -1168,10 +1232,13 @@ def train_budgets(g, cam, bg, budget, tile=TILE):
     return pair_fit, kept, contrib
 
 
-def step_gradients(g, cam, bg, tile, pair_fit, kept, contrib):
+def step_gradients(g, cam, bg, tile, pair_fit, kept, contrib, attr_pack=False,
+                   image_mean=False):
     """The gradients one make_train_step step takes (render, the
-    photometric loss, torch.autograd.grad; the mean2d offset too) ->
-    {group: gradient}."""
+    photometric loss, torch.autograd.grad; the mean2d offset too), on the
+    packed pair table with attr_pack; of the image's mean in place of the
+    loss with image_mean (tests/test_attr_pack.py's objective) -> {group:
+    gradient}."""
     from gsplat_tpu_torch.render.render import render
     from gsplat_tpu_torch.train.loss import photometric_loss
 
@@ -1180,9 +1247,9 @@ def step_gradients(g, cam, bg, tile, pair_fit, kept, contrib):
     with torch.enable_grad():
         out = render(cam, g.replace(**params), bg, tile_size=tile, chunk=CHUNK,
                      pair_budget=pair_fit, kept_budget=kept, contrib_budget=contrib,
-                     mean2d_offset=offset)
-        grads = torch.autograd.grad(photometric_loss(out.image, cam.image),
-                                    list(params.values()) + [offset])
+                     mean2d_offset=offset, attr_pack=attr_pack)
+        loss = out.image.mean() if image_mean else photometric_loss(out.image, cam.image)
+        grads = torch.autograd.grad(loss, list(params.values()) + [offset])
     return dict(zip(list(params) + ["mean2d_offset"], grads))
 
 
@@ -1335,7 +1402,10 @@ def kernel_counts():
     return {"expand_pairs": expand.expand_pairs, "composite_fwd": raster.composite_fwd,
             "composite_bwd": raster.composite_bwd, "segment_ends": bounds.segment_ends,
             "segment_sum": reduce.segment_sum, "prefix_sum_small": scan.prefix_sum_small,
-            "compact_runs": compact.compact_runs}
+            "compact_runs": compact.compact_runs,
+            # K2 and K3 on the packed pair table, counted apart from the above
+            "composite_fwd packed": raster.packed_fwd_count,
+            "composite_bwd packed": raster.packed_bwd_count}
 
 
 FWD_KERNELS = ("expand_pairs", "composite_fwd")
@@ -1361,7 +1431,11 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         k1["max_abs_err"] = max(k1["max_abs_err"], phase_expand_sat(s, label, g, cam, pair_fit))
     s.phase(f"kernel composite_fwd ({label})")
     k2 = phase_composite(s, label, g, cam, pair_fit, kept)
+    s.phase(f"kernel composite_fwd packed ({label})")
+    k2p = phase_composite(s, label, g, cam, pair_fit, kept, pack=True)
     target_t = torch.from_numpy(target).to(g.device)
+    k3p, d = phase_backward(s, label, g, cam, target_t, pair_fit, kept, pack=True)
+    del d
     k3, d = phase_backward(s, label, g, cam, target_t, pair_fit, kept)
     k4 = phase_ends(s, label, d, g.capacity)
     k_sum = phase_reduce(s, label, d, g.capacity + 1)
@@ -1415,9 +1489,12 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         results.append(dict(view="sat", **sat_result))
     renders += n_renders
     sat_launches = read(f"{label} sat serve", n_renders, n_sat_renders)
+    s.phase(f"serve {label} packed")
+    pk_launches, _ = serve_packed(s, label, g, cam_args, budget, zero, counts)
+    torch.cuda.empty_cache()
     s.phase(f"train {label}")
     t_launches, trained = train(s, label, g, cam_args, target, budget, TRAIN_STEPS[label])
-    phases = [sat_launches, t_launches]
+    phases = [sat_launches, pk_launches, t_launches]
     if label == "dense":
         s.phase(f"train {label} sat")
         st_launches, trained["sat"] = train(s, f"{label} sat", g, cam_args, target, budget,
@@ -1426,12 +1503,16 @@ def run_cell(s, label, g, cam_args, views, budget, target):
     trained.pop("step1")
     torch.cuda.empty_cache()
     grads_twice(s, label, g, cam_args, target, budget)
+    if label == "sparse":
+        s.phase(f"step {label} packed")
+        phases.append(step_packed(s, label, g, cam_args, target, budget, zero, counts,
+                                  trained["losses"][0]))
     k2w, k3w, w_launches = wide_tile(s, label, g, cam_args, target, budget,
                                      trained["losses"][0], zero, counts)
     phases.append(w_launches)
     for more in phases:
         launches = {k: launches[k] + more[k] for k in launches}
-    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6)}
+    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6, k2p, k3p)}
     rows["composite_fwd tile 64"], rows["composite_bwd tile 64"] = k2w, k3w
     return rows, launches, renders, results, trained
 
@@ -1633,6 +1714,286 @@ def serve_sat(s, g, cam_args, budget, label):
           flush=True)
     return 5 + FRAME_REPS, 4 + FRAME_REPS, dict(n_sat=n_sat, sat=sat, ms=med,
                                                 stages=stage_ms)
+
+
+# the packed pair table against the f32 one: tests/test_attr_pack.py's
+# bounds (bf16 rounding of rgb and opacity, ~2^-9 relative)
+PACK_IMAGE_MAX, PACK_IMAGE_MEAN = 2e-2, 2e-3
+PACK_GRAD_RTOL = 2e-2    # each gradient group, of that group's max
+PACK_STEPS = 2           # make_train_step steps under GSPLAT_PACK=1's default
+
+
+def serve_packed(s, label, g, cam_args, budget, zero, counts):
+    """The bench view served on the packed pair table, the saturation cull
+    off and on, beside the f32 table: K2 on each packed table the render
+    handed it against its plain version (fwd_against_plain), each packed
+    image within PACK_IMAGE_MAX / PACK_IMAGE_MEAN of the f32 one, the
+    packed image with the cull bit-equal to the packed image without it,
+    n_dropped 0; frame ms (FRAME_REPS synced), the gather and composite
+    stages (CUDA events) of each; the launch counts from zero ->
+    (launches, results)."""
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.render import raster
+    from gsplat_tpu_torch.render import render as render_mod
+    from gsplat_tpu_torch.render.binning import tile_grid
+    from gsplat_tpu_torch.render.render import render
+
+    R, T, fovx, fovy = cam_args
+    cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
+    bg = torch.zeros(3, device=g.device)
+    if label == "sparse":
+        # the sparse view's cull regions outnumber its kept pairs: pair and
+        # sat budget SPARSE_BUDGET, as the sat probe phase renders it
+        base = dict(pair_budget=SPARSE_BUDGET, kept_budget=SPARSE_BUDGET - CHUNK)
+        culled = dict(pair_budget=SPARSE_BUDGET, sat_budget=SPARSE_BUDGET)
+    else:
+        pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
+        base = dict(pair_budget=pair_fit, kept_budget=kept)
+        n_sat = int(render(cam, g, bg, tile_size=TILE, chunk=CHUNK, **base,
+                           sat_budget=kept).n_sat)
+        culled = dict(base, sat_budget=-(-n_sat // CHUNK) * CHUNK + CHUNK)
+    zero()
+    renders = {False: 0, True: 0}
+    results, images, k2_inputs = {}, {}, {}
+    real = render_mod.composite_fwd
+
+    def capture(attrs, ts, tc, **k):
+        out = real(attrs, ts, tc, **k)
+        if attrs.shape[1] == raster.PACKED_IN_DIM:
+            k2_inputs.setdefault(cull, (attrs, ts, tc, out))
+        return out
+
+    for cull, kw in (("off", base), ("on", culled)):
+        for pack in (False, True):
+            def run(on_stage=None):
+                renders[pack] += 1
+                return render(cam, g, bg, tile_size=TILE, chunk=CHUNK, attr_pack=pack,
+                              on_stage=on_stage, **kw)
+
+            render_mod.composite_fwd = capture
+            try:
+                out = run()
+            finally:
+                render_mod.composite_fwd = real
+            times = [wall_ms(run)[0] for _ in range(FRAME_REPS)]
+            stages = StageEvents()
+            run(on_stage=stages)
+            st = stages.ms()
+            images[cull, pack] = out.image
+            results[cull, pack] = dict(ms=statistics.median(times), min=min(times),
+                                       max=max(times), gather=st["gather"],
+                                       composite=st["composite"], n_dropped=int(out.n_dropped),
+                                       n_sat=int(out.n_sat))
+        err = (images[cull, True] - images[cull, False]).abs()
+        mx, mean = float(err.max()), float(err.mean())
+        drops = [results[cull, p]["n_dropped"] for p in (False, True)]
+        s.check(mx <= PACK_IMAGE_MAX and mean <= PACK_IMAGE_MEAN and not any(drops),
+                f"{label} packed vs f32 table, cull {cull} ({kw}): image max |diff| {mx:.3g} "
+                f"(tol {PACK_IMAGE_MAX}), mean {mean:.3g} (tol {PACK_IMAGE_MEAN}); n_dropped "
+                f"{drops}")
+        for pack in (False, True):
+            r = results[cull, pack]
+            print(f"  {label} cull {cull}, {'packed' if pack else 'f32'} table: frame ms "
+                  f"median {r['ms']:.3f} min {r['min']:.3f} max {r['max']:.3f}; gather "
+                  f"{r['gather']:.3f} ms, composite (K2) {r['composite']:.3f} ms; n_sat "
+                  f"{r['n_sat']}", flush=True)
+    same = torch.equal(images["on", True], images["off", True])
+    s.check(same, f"{label} packed table: the image with the saturation cull bit-equal to "
+            f"the image without it {same}")
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counts.items()}
+    tw = tile_grid(W, H, TILE)[0]
+    for cull, (attrs, ts, tc, (tiles_k, np_k)) in k2_inputs.items():
+        fwd_against_plain(s, f"{label} cull {cull} packed", attrs, ts, tc, tw, TILE, tiles_k,
+                          np_k)
+    del k2_inputs
+    total = renders[False] + renders[True]
+    s.check(launches["expand_pairs"] >= total and launches["composite_fwd"] >= renders[False]
+            and launches["composite_fwd packed"] >= renders[True]
+            and all(launches[k] >= 2 + FRAME_REPS for k in SAT_KERNELS),
+            f"{label} serve packed kernel launches {launches} cover its {renders[True]} "
+            f"packed and {renders[False]} f32 renders, {2 * (2 + FRAME_REPS)} with the cull")
+    return launches, results
+
+
+def step_packed(s, label, g, cam_args, target, budget, zero, counts, loss1):
+    """One train step's gradients on the packed pair table (render(...,
+    attr_pack=True), the photometric loss, autograd) at the bench view:
+    the same bits from two passes; the gradients of the image's mean
+    (tests/test_attr_pack.py's objective: the L1 term's sign flips wherever
+    the rounding moves a pixel across the random target, which no
+    tolerance of the rounding bounds) on the packed table, each group
+    within PACK_GRAD_RTOL of its max of the f32 table's; then PACK_STEPS
+    make_train_step steps with
+    render's default packed (GSPLAT_PACK=1): losses finite, n_dropped 0,
+    step 1's loss printed beside the f32 step 1's `loss1`; the launch
+    counts from zero -> launches."""
+    from gsplat_tpu_torch.config import MeshParams, OptimizationParams
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.render import raster
+    from gsplat_tpu_torch.train.loop import make_train_step
+    from gsplat_tpu_torch.train.optim import init_adam_state
+
+    R, T, fovx, fovy = cam_args
+    cam = make_camera(R, T, fovx, fovy, W, H, image=target, device="cuda")
+    bg = torch.zeros(3, device=g.device)
+    pair_fit, kept, contrib = train_budgets(g, cam, bg, budget)
+    zero()
+    a = step_gradients(g, cam, bg, TILE, pair_fit, kept, contrib, attr_pack=True)
+    b = step_gradients(g, cam, bg, TILE, pair_fit, kept, contrib, attr_pack=True)
+    torch.cuda.synchronize()
+    differ = {k: int((a[k] != b[k]).sum()) for k in a}
+    s.check(not any(differ.values()),
+            f"{label} packed table: two gradient passes of one train step, entries that "
+            f"differ per group {differ} (want 0 each)")
+    a = step_gradients(g, cam, bg, TILE, pair_fit, kept, contrib, attr_pack=True,
+                       image_mean=True)
+    f = step_gradients(g, cam, bg, TILE, pair_fit, kept, contrib, image_mean=True)
+    rel = {k: float((a[k] - f[k]).abs().max() / f[k].abs().max().clamp(min=1e-30))
+           for k in a}
+    s.check(all(v <= PACK_GRAD_RTOL for v in rel.values()),
+            f"{label} packed vs f32 table gradients of the image mean, max |diff| of each "
+            f"group's max: "
+            + " ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" (tol {PACK_GRAD_RTOL})")
+    del a, b, f
+    step_fn = make_train_step(OptimizationParams(), MeshParams(
+        tile_size=TILE, chunk_size=CHUNK, pair_budget=pair_fit), 1.0, W, H,
+        kept_budget=kept, contrib_budget=contrib)
+    opt_state, ema, losses, ok, times = init_adam_state(g.params()), 0.0, [], True, []
+    real = raster.PACK_DEFAULT
+    raster.PACK_DEFAULT = True     # what GSPLAT_PACK=1 sets at import
+    try:
+        with torch.enable_grad():
+            g1 = g
+            for step in range(1, PACK_STEPS + 1):
+                ms, out = wall_ms(lambda: step_fn(g1, opt_state, cam, bg, step, ema))
+                g1, opt_state, loss, ema, _, n_dropped, _, n_contrib, _ = out
+                losses.append(float(loss))
+                times.append(ms)
+                ok &= int(n_dropped) == 0 and int(n_contrib) <= contrib
+    finally:
+        raster.PACK_DEFAULT = real
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counts.items()}
+    s.check(ok and all(math.isfinite(x) for x in losses),
+            f"{label} {PACK_STEPS} train steps on the packed table (GSPLAT_PACK=1): losses "
+            f"{losses} finite, n_dropped 0, contrib within {contrib}; step 1 loss vs the f32 "
+            f"step 1 {loss1:.6f}: diff {losses[0] - loss1:+.3e}; step ms {times}")
+    need = 3 + PACK_STEPS
+    s.check(all(launches[k] >= need for k in ("composite_fwd packed", "composite_bwd packed",
+                                              "expand_pairs", "segment_ends", "segment_sum"))
+            and launches["composite_fwd"] >= 1 and launches["composite_bwd"] >= 1,
+            f"{label} step packed kernel launches {launches} cover its 3 packed gradient "
+            f"passes and {PACK_STEPS} packed steps, and the f32 pass")
+    del g1, opt_state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serving_bench(s, counts):
+    """tools/serving_bench.py in process, as a user runs it (1M Gaussians,
+    1080p, both scenes), without and with --pack, each with the launch
+    counts from zero: its JSON line printed, every time finite -> launches
+    summed."""
+    import contextlib
+    import io
+
+    from gsplat_tpu_torch.tools import serving_bench
+
+    total = {k: 0 for k in counts}
+    for argv in ([], ["--pack"]):
+        s.phase("serving_bench " + " ".join(argv))
+        for f in counts.values():
+            f.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serving_bench.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        line = buf.getvalue().strip().splitlines()[-1]
+        print("  " + line)
+        got = json.loads(line)
+        launches = {k: f.launches for k, f in counts.items()}
+        key = "composite_fwd packed" if argv else "composite_fwd"
+        times = [got[f"{c}_{m}"] for c in ("sparse", "dense")
+                 for m in ("ms", "pipelined_ms")]
+        # each scene: one frame checked, 8 synced, 10 pipelined
+        s.check(rc == 0 and got["attr_pack"] == bool(argv)
+                and all(math.isfinite(t) and t > 0 for t in times)
+                and launches[key] >= 2 * 19 and launches["expand_pairs"] >= 2 * 19,
+                f"serving_bench {' '.join(argv)}: exit {rc}, frame ms {times} finite; "
+                f"launches {launches} cover its 2 x 19 frames ({key}); {wall:.1f} s wall")
+        total = {k: total[k] + launches[k] for k in total}
+        torch.cuda.empty_cache()
+    return total
+
+
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+JPEG_1080P = "smooth_1080p_420.jpg"
+JPEG_ITERS = 10
+
+
+def phase_jpeg(s, tmp, counts):
+    """The port's JPEG decoder on the committed fixtures (sha256 of each
+    decode against the manifest's, PIL's), the 1080p fixture's decode ms;
+    then render_cli's COLMAP source written again with .jpg images (the
+    1080p fixture as every view's) and cli.main JPEG_ITERS iterations over
+    it from the sparse scene's start.npz: losses finite, n_dropped 0, the
+    Scene's camera images the decode / 255 -> launches."""
+    import hashlib
+
+    from gsplat_tpu_torch.io import colmap, jpeg
+
+    s.phase("jpeg")
+    manifest = json.loads((JPEG_DIR / "manifest.json").read_text())
+    bad = []
+    for name, want in sorted(manifest.items()):
+        arr = jpeg.read_jpeg(JPEG_DIR / name)
+        if list(arr.shape) != want["shape"] or \
+                hashlib.sha256(arr.tobytes()).hexdigest() != want["sha256"]:
+            bad.append(name)
+    s.check(not bad, f"the port's JPEG decode of {len(manifest)} committed fixtures: sha256 "
+            f"equal to the manifest's (PIL's decode) but {bad} (want none)")
+    data = (JPEG_DIR / JPEG_1080P).read_bytes()
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        img = jpeg.decode_jpeg(data, JPEG_1080P)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  {JPEG_1080P} ({len(data)} bytes, {img.shape}): decode ms median "
+          f"{statistics.median(ms):.3f} min {min(ms):.3f} max {max(ms):.3f} (host clock, 10)",
+          flush=True)
+
+    src, jsrc = Path(tmp) / "cli_source", Path(tmp) / "cli_source_jpg"
+    shutil.copytree(src / "sparse", jsrc / "sparse")
+    (jsrc / "images").mkdir()
+    sparse = jsrc / "sparse" / "0"
+    images = colmap.read_extrinsics_binary(sparse / "images.bin")
+    for im in images.values():
+        im.name = Path(im.name).with_suffix(".jpg").name
+        (jsrc / "images" / im.name).write_bytes(data)
+    colmap.write_extrinsics_binary(images, sparse / "images.bin")
+    argv = ["-s", str(jsrc), "-m", str(Path(tmp) / "train_jpg"), "--resolution", "1",
+            "--eval", "--iterations", str(JPEG_ITERS), "--quiet", "--pair_budget",
+            str(1 << 22), "--start_checkpoint", str(Path(tmp) / "start.npz")]
+    spy, launches, wall = run_train_cli(s, "jpeg cli", argv, counts)
+    g_end, scene = spy.result
+    want = torch.from_numpy(img.astype(np.float32) / 255.0)
+    cams = scene.get_train_cameras() + scene.get_test_cameras()
+    same = [torch.equal(c.image.cpu(), want) for c in cams]
+    losses = [st["loss"] for st in spy.steps]
+    s.check(len(spy.steps) == JPEG_ITERS and all(math.isfinite(x) for x in losses)
+            and all(st["n_dropped"] == 0 for st in spy.steps) and all(same)
+            and len(same) == len(CLI_VIEWS),
+            f"jpeg cli over {len(cams)} JPEG views ({img.shape[1]}x{img.shape[0]} 4:2:0): "
+            f"{len(spy.steps)} "
+            f"steps, losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}), n_dropped "
+            f"{[st['n_dropped'] for st in spy.steps]}; each camera's image the decode / 255 "
+            f"{same}; {wall:.1f} s wall: {spy.wall_split(wall)}")
+    del g_end, scene
+    torch.cuda.empty_cache()
+    return launches
 
 
 CLI_ITERATION = 30_000
@@ -3906,6 +4267,13 @@ def main() -> int:
                     f"stack, spill stores {u.get('spill_stores')} loads "
                     f"{u.get('spill_loads')} (ptxas -v; want no spills)")
 
+    cc_v = subprocess.run([_build._cc(), "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    for name in _build.HOST_SOURCES:
+        _build.load_host(name)
+    print(f"  host sources {list(_build.HOST_SOURCES)} built and loaded ({cc_v}, "
+          f"{' '.join(_build.HOST_CFLAGS)})", flush=True)
+
     s.phase("oracle")
     phase_oracle(s)
 
@@ -3937,6 +4305,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         l_cli = phase_render_cli(s, g, cam_args, target, tmp)
         l_train, e_train = phase_train_cli(s, g, cam_args, target, tmp, kernel_counts())
+        l_jpeg = phase_jpeg(s, tmp, kernel_counts())
         l_viewer, e_viewer = phase_viewer_serve(s, g, cam_args, tmp, kernel_counts())
         l_train_viewer = phase_train_viewer(s, cam_args, tmp, kernel_counts())
         l_full_eval, e_full_eval = phase_full_eval(s, tmp, kernel_counts())
@@ -3957,6 +4326,7 @@ def main() -> int:
                 f"({(got - REF_DENSE_CULLED) / REF_DENSE_CULLED:+.5%}, tol 0.1%)")
         del g, target, dense
         torch.cuda.empty_cache()
+        l_bench = phase_serving_bench(s, kernel_counts())
         l_quality, e_quality = phase_train_quality(s, tmp, kernel_counts())
         l_selfcheck, e_selfcheck = phase_selfcheck(s, kernel_counts())
 
@@ -3969,7 +4339,7 @@ def main() -> int:
                "train_cli": l_train, "train_quality": l_quality, "viewer": l_viewer,
                "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
                "selfcheck": l_selfcheck, "mesh_nccl_1x1": l_mesh_nccl, "mesh_2x2": l_mesh,
-               "train_cli_mesh_2x2": l_cli_mesh}
+               "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
@@ -3983,7 +4353,12 @@ def main() -> int:
           f"self-check (K1 {l_selfcheck['expand_pairs']}); the mesh phases' steps, summed over "
           f"ranks (1x1 K1 {l_mesh_nccl['expand_pairs']}, 2x2 K1 {l_mesh['expand_pairs']}, "
           f"K5 {l_mesh['prefix_sum_small']}; the 2x2 train CLI K1 "
-          f"{l_cli_mesh['expand_pairs']}, K5 {l_cli_mesh['prefix_sum_small']})")
+          f"{l_cli_mesh['expand_pairs']}, K5 {l_cli_mesh['prefix_sum_small']}); the packed "
+          f"table's serve and step phases (K2 packed {l_sparse['composite_fwd packed']} "
+          f"sparse, {l_dense['composite_fwd packed']} dense; K3 packed "
+          f"{l_sparse['composite_bwd packed']}), serving_bench (K2 {l_bench['composite_fwd']}, "
+          f"K2 packed {l_bench['composite_fwd packed']}) and the JPEG train CLI (K1 "
+          f"{l_jpeg['expand_pairs']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")

@@ -68,6 +68,13 @@
 // --fmad=false and an IEEE division keep the plain version's rounding of
 // the power, of alpha and of the alpha >= 1/255 decision (the forward's
 // decisions); only the pixel sums use explicit fused multiply-adds.
+//
+// The packed table (PACK, the port of _bwd_kernel's packed branch,
+// raster_pallas.py:687-697): composite_fwd's (P, 8) rows of 32 bytes, two
+// 16-byte copies a pair, rgb and opacity unpacked from their bf16 halves in
+// staging, the key from column 7. The replay runs on the unpacked values
+// and the d-rows are the same 16 columns: the gradient passes straight
+// through the bf16 rounding, as the reference's does.
 
 #include "common.cuh"
 
@@ -75,7 +82,13 @@
 
 namespace {
 
-constexpr int kAttrDim = 16;
+constexpr int kAttrDim = 16;   // a d-table row (and a 16-column pair table row)
+// a pair table row: 16 floats, or 8 packed
+template <bool PACK>
+constexpr int kRowDim = PACK ? 8 : 16;
+// the 16-byte pieces of a row the kernel copies: columns 0-11, or 0-7 packed
+template <bool PACK>
+constexpr int kRowVecs = PACK ? 2 : 3;
 constexpr int kSums = 10;         // per pair: w*g (3), gda (1), dpow * basis (6)
 constexpr int kSub = 32;          // pairs per cross-warp round
 // threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
@@ -111,6 +124,23 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Copied row k's columns 0-11 in the 16-column layout (composite_fwd.cu's
+// row_columns): (mx, my, a, b), (c, r, g, b), (op, gid, -, -).
+template <bool PACK>
+__device__ __forceinline__ void row_columns(const float4* raw, int k, float4& a0, float4& a1,
+                                            float4& a2) {
+  if constexpr (PACK) {
+    const float4 p0 = raw[2 * k], p1 = raw[2 * k + 1];
+    const unsigned rg = __float_as_uint(p1.y), bo = __float_as_uint(p1.z);
+    a0 = p0;
+    a1 = make_float4(p1.x, __uint_as_float(rg & 0xFFFF0000u), __uint_as_float(rg << 16),
+                     __uint_as_float(bo & 0xFFFF0000u));
+    a2 = make_float4(__uint_as_float(bo << 16), p1.w, 0.f, 0.f);
+  } else {
+    a0 = raw[3 * k], a1 = raw[3 * k + 1], a2 = raw[3 * k + 2];
+  }
 }
 
 // keep + the partner's send, across the xor distance `o`
@@ -176,8 +206,8 @@ __device__ __forceinline__ void load_cotangent(
 // NPASS pixel passes of blockDim.x 2x2 blocks each (one at tiles up to 32).
 // With more than one pass the per-pixel running state of every pass stays
 // in registers, and the cotangent terms are reloaded for each pass of a
-// round; two blocks an SM only at one pass.
-template <int NPASS>
+// round; two blocks an SM only at one pass. PACK: the packed pair table.
+template <int NPASS, bool PACK>
 __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd_kernel(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count,
@@ -186,12 +216,13 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
     int tile_size, int chunk, int p_out, float alpha_min, float alpha_max,
     float key_invalid, float* __restrict__ d_out) {
   // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, a, c);
-  // then the raw rows of the next chunk (columns 0-11), copied in flight;
-  // then two buffers of [warp][pair of the round][sum] partials; then the keys
+  // then the raw rows of the next chunk (columns 0-11, or 0-7 packed),
+  // copied in flight; then two buffers of [warp][pair of the round][sum]
+  // partials; then the keys
   extern __shared__ float4 sm[];
   float4* raw = sm + 3 * chunk;
   const int nwarps = blockDim.x >> 5;
-  float* s_part = reinterpret_cast<float*>(sm + 6 * chunk);
+  float* s_part = reinterpret_cast<float*>(sm + (3 + kRowVecs<PACK>) * chunk);
   const int part_size = nwarps * kSub * kSums;
   float* s_key = s_part + 2 * part_size;
 
@@ -239,10 +270,9 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
   // barrier of its own
   auto prefetch = [&](int jj) {
     for (int k = tid; k < chunk; k += blockDim.x) {
-      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kAttrDim;
-      cp_async16(raw + 3 * k, a);
-      cp_async16(raw + 3 * k + 1, a + 4);
-      cp_async16(raw + 3 * k + 2, a + 8);
+      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
+#pragma unroll
+      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
     }
     cp_async_commit();
   };
@@ -259,7 +289,8 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
     cp_async_wait_all();
     for (int k = tid; k < chunk; k += blockDim.x) {
       const int idx = j * chunk + k;
-      const float4 a0 = raw[3 * k], a1 = raw[3 * k + 1], a2 = raw[3 * k + 2];
+      float4 a0, a1, a2;
+      row_columns<PACK>(raw, k, a0, a1, a2);
       const bool ok = idx >= head && idx < head + count;
       const float op = ok ? a2.x : 0.f;
       const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
@@ -415,32 +446,51 @@ int map_threads(int tile_size) {
   return (nbx * nbx + 31) / 32 * 32;
 }
 
-template <int NPASS>
+template <int NPASS, bool PACK>
 cudaError_t launch(int num_tiles, int threads, int chunk, cudaStream_t stream,
                    const float* attrs, const int32_t* tile_start,
                    const int32_t* tile_count, const int32_t* comp_start,
                    const int32_t* nproc, const float* tiles, const float* g_tiles,
                    int tw, int tile_size, int p_out, float alpha_min, float alpha_max,
                    float key_invalid, float* d_out) {
-  const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk) +
+  const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk) +
                       sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
                                        static_cast<size_t>(chunk));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel<NPASS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        composite_bwd_kernel<NPASS, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  composite_bwd_kernel<NPASS><<<num_tiles, threads, smem, stream>>>(
+  composite_bwd_kernel<NPASS, PACK><<<num_tiles, threads, smem, stream>>>(
       attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size,
       chunk, p_out, alpha_min, alpha_max, key_invalid, d_out);
   return cudaGetLastError();
 }
 
+template <bool PACK>
+cudaError_t launch_passes(int npass, int num_tiles, int threads, int chunk, cudaStream_t st,
+                          const float* a, const int32_t* s, const int32_t* c,
+                          const int32_t* cs, const int32_t* np, const float* r,
+                          const float* g, int tw, int tile_size, int p_out, float alpha_min,
+                          float alpha_max, float key_invalid, float* d) {
+  switch (npass) {
+    case 1: return launch<1, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+                                   tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
+    case 2: return launch<2, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+                                   tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
+    case 3: return launch<3, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+                                   tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
+    default: return launch<4, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
+  }
+}
+
 }  // namespace
 
-// attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
-// every segment inside it; tile_start, tile_count, comp_start, nproc:
+// attrs: (P, 16) float32, or (P, 8) packed where `packed` is nonzero,
+// 16-byte aligned, with P a multiple of chunk and every segment inside it;
+// tile_start, tile_count, comp_start, nproc:
 // (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4, tile_size^2) float32;
 // d_out: (p_out, 16) float32, prefilled by the caller. tile_size <=
 // kMaxTile. alpha_min, alpha_max, key_invalid: render/raster.py's
@@ -450,7 +500,7 @@ extern "C" int composite_bwd_launch(
     const void* attrs, const void* tile_start, const void* tile_count,
     const void* comp_start, const void* nproc, const void* tiles,
     const void* g_tiles, int num_tiles, int tw, int tile_size, int chunk,
-    int p_out, float alpha_min, float alpha_max, float key_invalid,
+    int p_out, int packed, float alpha_min, float alpha_max, float key_invalid,
     void* d_out, void* stream) {
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (tile_size < 1 || tile_size > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
@@ -466,16 +516,10 @@ extern "C" int composite_bwd_launch(
   const auto* r = static_cast<const float*>(tiles);
   const auto* g = static_cast<const float*>(g_tiles);
   auto* d = static_cast<float*>(d_out);
-  cudaError_t e;
-  switch (npass) {
-    case 1: e = launch<1>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
-                          p_out, alpha_min, alpha_max, key_invalid, d); break;
-    case 2: e = launch<2>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
-                          p_out, alpha_min, alpha_max, key_invalid, d); break;
-    case 3: e = launch<3>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
-                          p_out, alpha_min, alpha_max, key_invalid, d); break;
-    default: e = launch<4>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw, tile_size,
-                           p_out, alpha_min, alpha_max, key_invalid, d); break;
-  }
+  const cudaError_t e =
+      packed ? launch_passes<true>(npass, num_tiles, threads, chunk, st, a, s, c, cs, np, r, g,
+                                   tw, tile_size, p_out, alpha_min, alpha_max, key_invalid, d)
+             : launch_passes<false>(npass, num_tiles, threads, chunk, st, a, s, c, cs, np, r, g,
+                                    tw, tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
   return static_cast<int>(e);
 }

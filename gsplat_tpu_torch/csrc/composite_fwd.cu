@@ -57,6 +57,14 @@
 // Within a chunk T is held fixed and the exclusive product of (1 - alpha)
 // runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the chunk: the
 // plain PyTorch version's association.
+//
+// The packed table (PACK, the port of _fwd_kernel's packed branch,
+// raster_pallas.py:572-577): (P, 8) rows of 32 bytes, mean xy, conic abc,
+// (bf16(r) << 16) | bf16(g), (bf16(b) << 16) | bf16(opacity), the gid. A
+// pair's copy is two 16-byte loads instead of three; staging unpacks rgb and
+// opacity with a mask and a shift (a bf16 is the top half of an f32) into
+// the same shared records, and everything after it runs as above. It halves
+// the bytes a pair costs; the kernel stays bound by its operations.
 
 #include "common.cuh"
 
@@ -64,7 +72,12 @@
 
 namespace {
 
-constexpr int kAttrDim = 16;
+// a pair table row: 16 floats, or 8 packed (see the note above)
+template <bool PACK>
+constexpr int kRowDim = PACK ? 8 : 16;
+// the 16-byte pieces of a row the kernel copies: columns 0-11, or 0-7 packed
+template <bool PACK>
+constexpr int kRowVecs = PACK ? 2 : 3;
 // threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
 // in pixel passes of kMaxThreads blocks each, up to four (tile 64).
 constexpr int kMaxThreads = 256;
@@ -102,15 +115,35 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// One tile in NPASS pixel passes (the two kernels below).
-template <int NPASS>
+// Copied row k's columns 0-11 in the 16-column layout: (mx, my, a, b),
+// (c, r, g, b), (op, gid, -, -). A packed row's rgb and opacity are the
+// bf16 halves of its columns 5 and 6 (raster_pallas.py::_unpack_rgbop).
+template <bool PACK>
+__device__ __forceinline__ void row_columns(const float4* raw, int k, float4& a0, float4& a1,
+                                            float4& a2) {
+  if constexpr (PACK) {
+    const float4 p0 = raw[2 * k], p1 = raw[2 * k + 1];
+    const unsigned rg = __float_as_uint(p1.y), bo = __float_as_uint(p1.z);
+    a0 = p0;
+    a1 = make_float4(p1.x, __uint_as_float(rg & 0xFFFF0000u), __uint_as_float(rg << 16),
+                     __uint_as_float(bo & 0xFFFF0000u));
+    a2 = make_float4(__uint_as_float(bo << 16), p1.w, 0.f, 0.f);
+  } else {
+    a0 = raw[3 * k], a1 = raw[3 * k + 1], a2 = raw[3 * k + 2];
+  }
+}
+
+// One tile in NPASS pixel passes (the two kernels below), on a 16-column
+// or a packed table.
+template <int NPASS, bool PACK>
 __device__ __forceinline__ void composite_tile(
     const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count, int tw, int tile_size, int chunk,
     float alpha_min, float alpha_max, float t_eps, float* __restrict__ tiles,
     int32_t* __restrict__ nproc) {
   // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, -, -);
-  // then the raw rows of the next chunk (columns 0-11), copied in flight
+  // then the raw rows of the next chunk (columns 0-11, or 0-7 packed),
+  // copied in flight
   extern __shared__ float4 sm[];
   float4* raw = sm + 3 * chunk;
 
@@ -148,10 +181,9 @@ __device__ __forceinline__ void composite_tile(
   // barrier of its own
   auto prefetch = [&](int jj) {
     for (int k = tid; k < chunk; k += blockDim.x) {
-      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kAttrDim;
-      cp_async16(raw + 3 * k, a);
-      cp_async16(raw + 3 * k + 1, a + 4);
-      cp_async16(raw + 3 * k + 2, a + 8);
+      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
+#pragma unroll
+      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
     }
     cp_async_commit();
   };
@@ -176,8 +208,9 @@ __device__ __forceinline__ void composite_tile(
     cp_async_wait_all();
     for (int k = tid; k < chunk; k += blockDim.x) {
       const int idx = j * chunk + k;
-      const float4 a0 = raw[3 * k], a1 = raw[3 * k + 1];
-      const float op = idx >= head && idx < head + count ? raw[3 * k + 2].x : 0.f;
+      float4 a0, a1, a2;
+      row_columns<PACK>(raw, k, a0, a1, a2);
+      const float op = idx >= head && idx < head + count ? a2.x : 0.f;
       const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
       sm[3 * k] = make_float4(a0.x - ox, a0.y - oy, 0.5f * a0.z, a0.w);
       sm[3 * k + 1] = make_float4(0.5f * a1.x, a1.y, a1.z, a1.w);
@@ -243,17 +276,18 @@ __device__ __forceinline__ void composite_tile(
       int32_t *__restrict__ nproc
 
 // tiles up to 32: one pass
+template <bool PACK>
 __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(COMPOSITE_FWD_ARGS) {
-  composite_tile<1>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
-                    alpha_max, t_eps, tiles, nproc);
+  composite_tile<1, PACK>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
+                          alpha_max, t_eps, tiles, nproc);
 }
 
 // larger tiles: every pass's state lives in registers, capped so that two
 // blocks share an SM (one block alone waits on its latencies, ~25% slower)
-template <int NPASS>
+template <int NPASS, bool PACK>
 __global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_passes(COMPOSITE_FWD_ARGS) {
-  composite_tile<NPASS>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
-                        alpha_max, t_eps, tiles, nproc);
+  composite_tile<NPASS, PACK>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
+                              alpha_max, t_eps, tiles, nproc);
 }
 
 // fwd_pixel_blocks' threads at this tile size: one per 2x2 pixel block, in
@@ -263,17 +297,19 @@ int map_threads(int tile_size) {
   return (nbx * nbx + 31) / 32 * 32;
 }
 
-template <int NPASS>
-cudaError_t launch(int num_tiles, int threads, size_t smem, cudaStream_t stream,
+template <int NPASS, bool PACK>
+cudaError_t launch(int num_tiles, int threads, cudaStream_t stream,
                    const float* attrs, const int32_t* tile_start,
                    const int32_t* tile_count, int tw, int tile_size, int chunk,
                    float alpha_min, float alpha_max, float t_eps, float* tiles,
                    int32_t* nproc) {
+  // the staged records (3 float4 a pair) and the copy of the next chunk
+  const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk);
   void (*kernel)(COMPOSITE_FWD_ARGS);
   if constexpr (NPASS == 1) {
-    kernel = composite_fwd_kernel;
+    kernel = composite_fwd_kernel<PACK>;
   } else {
-    kernel = composite_fwd_passes<NPASS>;
+    kernel = composite_fwd_passes<NPASS, PACK>;
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -286,17 +322,35 @@ cudaError_t launch(int num_tiles, int threads, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+template <bool PACK>
+cudaError_t launch_passes(int npass, int num_tiles, int threads, cudaStream_t st,
+                          const float* a, const int32_t* s, const int32_t* c, int tw,
+                          int tile_size, int chunk, float alpha_min, float alpha_max,
+                          float t_eps, float* o, int32_t* n) {
+  switch (npass) {
+    case 1: return launch<1, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                   alpha_min, alpha_max, t_eps, o, n);
+    case 2: return launch<2, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                   alpha_min, alpha_max, t_eps, o, n);
+    case 3: return launch<3, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                   alpha_min, alpha_max, t_eps, o, n);
+    default: return launch<4, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                    alpha_min, alpha_max, t_eps, o, n);
+  }
+}
+
 }  // namespace
 
-// attrs: (P, 16) float32, 16-byte aligned, with P a multiple of chunk and
-// every segment inside it; tile_start, tile_count: (num_tiles,) int32; tiles:
+// attrs: (P, 16) float32, or (P, 8) packed where `packed` is nonzero,
+// 16-byte aligned, with P a multiple of chunk and every segment inside it;
+// tile_start, tile_count: (num_tiles,) int32; tiles:
 // (num_tiles, 4, tile_size^2) float32; nproc: (num_tiles,) int32.
 // tile_size <= kMaxTile. alpha_min, alpha_max, t_eps: render/raster.py's
 // ALPHA_MIN, ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a tile above kMaxTile).
 extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     const void* tile_count, int num_tiles,
-                                    int tw, int tile_size, int chunk,
+                                    int tw, int tile_size, int chunk, int packed,
                                     float alpha_min, float alpha_max,
                                     float t_eps, void* tiles, void* nproc,
                                     void* stream) {
@@ -305,23 +359,16 @@ extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
   const int virt = map_threads(tile_size);
   const int threads = virt < kMaxThreads ? virt : kMaxThreads;
   const int npass = (virt + kMaxThreads - 1) / kMaxThreads;
-  const size_t smem = 6 * sizeof(float4) * static_cast<size_t>(chunk);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(attrs);
   const auto* s = static_cast<const int32_t*>(tile_start);
   const auto* c = static_cast<const int32_t*>(tile_count);
   auto* o = static_cast<float*>(tiles);
   auto* n = static_cast<int32_t*>(nproc);
-  cudaError_t e;
-  switch (npass) {
-    case 1: e = launch<1>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
-                          alpha_min, alpha_max, t_eps, o, n); break;
-    case 2: e = launch<2>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
-                          alpha_min, alpha_max, t_eps, o, n); break;
-    case 3: e = launch<3>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
-                          alpha_min, alpha_max, t_eps, o, n); break;
-    default: e = launch<4>(num_tiles, threads, smem, st, a, s, c, tw, tile_size, chunk,
-                           alpha_min, alpha_max, t_eps, o, n); break;
-  }
+  const cudaError_t e =
+      packed ? launch_passes<true>(npass, num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                   alpha_min, alpha_max, t_eps, o, n)
+             : launch_passes<false>(npass, num_tiles, threads, st, a, s, c, tw, tile_size,
+                                    chunk, alpha_min, alpha_max, t_eps, o, n);
   return static_cast<int>(e);
 }

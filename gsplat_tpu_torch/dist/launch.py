@@ -7,19 +7,51 @@ nonzero, or the time runs out, every rank still running is killed (a rank
 blocked in a collective would otherwise wait for the dead one forever).
 -> [(exit code, output)] in rank order; a killed rank's code is negative.
 `free_port()` picks a localhost port for the tcp:// rendezvous.
+
+A port is free only until someone binds it, and the ranks bind theirs
+seconds after free_port returns. `bind(("localhost", 0))` draws from the
+kernel's ephemeral range (ip_local_port_range), where every other
+process's bind(0) (another program picking its own rendezvous port the
+same way) and every outgoing connection's local port draw too: eight gloo
+ranks open dozens. So free_port draws below that range, where nothing
+takes a port unless it names it.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import socket
 import subprocess
 import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+_PORT_RANGE = "/proc/sys/net/ipv4/ip_local_port_range"
+
+
+def _ephemeral_low() -> int:
+    try:
+        with open(_PORT_RANGE) as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768    # Linux's default
+
 
 def free_port() -> int:
+    """A localhost port free now, drawn from the half of the ports below the
+    ephemeral range (bind(0) where that leaves fewer than 1024)."""
+    low = _ephemeral_low()
+    if low - max(1024, low // 2) >= 1024:
+        draw = random.Random(os.urandom(8))
+        for _ in range(64):
+            port = draw.randrange(max(1024, low // 2), low)
+            with socket.socket() as s:
+                try:
+                    s.bind(("localhost", port))
+                except OSError:
+                    continue
+                return port
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

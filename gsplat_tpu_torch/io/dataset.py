@@ -2,10 +2,10 @@
 
 The port's own copy of gsplat_tpu/io/dataset.py: the same CameraInfo and
 SceneInfo, readers, train/test split (llffhold 8) and NeRF++
-normalisation. It decodes images without PIL: `.png` through the port's
-own codec (io/png.py), `.jpg`/`.jpeg` through the native library
-(io/native_loader.py) where it loads; any other file, or a JPEG without the
-library, raises an error that names the file.
+normalisation. It decodes images without PIL, with the port's own codecs
+on every machine: `.png` through io/png.py, `.jpg`/`.jpeg` through
+io/jpeg.py (both give PIL's bits); any other file raises an error that
+names the file.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from gsplat_tpu_torch.core.transforms import focal2fov, fov2focal, get_world2view_2
-from gsplat_tpu_torch.io import colmap, native_loader, png
+from gsplat_tpu_torch.io import colmap, jpeg, png
 from gsplat_tpu_torch.io.ply import BasicPointCloud, fetch_ply, store_ply
 
 
@@ -65,15 +65,9 @@ def load_image_rgb(path: str | Path) -> np.ndarray:
     if name.lower().endswith(".png"):
         arr = png.read_png(path)
     elif name.lower().endswith((".jpg", ".jpeg")):
-        if not native_loader.available():
-            raise IOError(f"{name}: a JPEG decodes through the native library "
-                          f"(native/libgsplat_io.so), which is not available: "
-                          f"{native_loader.build_error}")
-        width, height = native_loader.image_size(path)
-        return native_loader.decode_image(path, width, height)
+        arr = jpeg.read_jpeg(path)
     else:
-        raise ValueError(f"{name}: no decoder for this image type (PNG, or JPEG "
-                         "through the native library)")
+        raise ValueError(f"{name}: no decoder for this image type (PNG and JPEG only)")
     return np.asarray(arr, dtype=np.float32) / 255.0
 
 

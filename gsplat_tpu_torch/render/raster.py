@@ -14,12 +14,25 @@ contiguous for the gather and for the kernel's staging load):
   8 opacity | 9 gid as an f32 value | 10..15 zero.
 The backward's d-table has the same row layout: d{mean x, mean y, conic a,
 b, c, r, g, b, opacity} | the gid key | zero.
+
+The packed pair table (`attr_pack`, raster_pallas.py:238-304 of the
+reference): (P, 8) float32, one 32-byte row per pair:
+  0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c |
+  5 (bf16(r) << 16) | bf16(g) | 6 (bf16(b) << 16) | bf16(opacity) |
+  7 gid as an f32 value,
+rgb and opacity rounded to bfloat16 (to nearest even). Both compositors
+take either table and choose by its width, as the reference's _fwd_call
+does; the d-table keeps its 16 columns, and the gradient passes straight
+through the rounding. `GSPLAT_PACK` sets render's default, read at import:
+"0" (the default) off, "1" on, "auto" packed for CUDA tensors and f32 on the
+CPU (the reference's "packed unless interpret").
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,6 +56,41 @@ _PLAIN_TILE_BATCH = 256
 # the kernels' largest tile: 256 threads, each a 2x2 pixel block in each of
 # up to four pixel passes
 MAX_TILE = 64
+# the packed pair table's width and its gid column
+PACKED_IN_DIM = 8
+PACKED_GID_COL = 7
+
+
+def pack_default(env: str) -> Optional[bool]:
+    """A GSPLAT_PACK value -> render's attr_pack default: "1" True, "auto"
+    None (packed on CUDA tensors), anything else False (raster_pallas.py:
+    258-259 of the reference)."""
+    return None if env == "auto" else env == "1"
+
+
+PACK_DEFAULT = pack_default(os.environ.get("GSPLAT_PACK", "0"))
+
+
+def resolve_attr_pack(attr_pack: Optional[bool], device) -> bool:
+    """render's attr_pack: as given, else GSPLAT_PACK's default, "auto"
+    meaning packed on CUDA tensors and f32 on the CPU."""
+    if attr_pack is None:
+        attr_pack = PACK_DEFAULT
+    if attr_pack is None:
+        return torch.device(device).type == "cuda"
+    return bool(attr_pack)
+
+
+class LaunchCount:
+    """A count of launches kept apart from its wrapper's own `launches`:
+    the packed table's launches of composite_fwd and composite_bwd."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+packed_fwd_count = LaunchCount()
+packed_bwd_count = LaunchCount()
 
 
 def _plain_tile_batch(npix: int) -> int:
@@ -64,11 +112,69 @@ def pack_attrs(mean2d, conic, rgb, opacity) -> torch.Tensor:
     return torch.cat([mean2d, conic, rgb, opacity[:, None], pad], dim=1).to(torch.float32)
 
 
+def _u32_to_f32(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the float32s with those bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32).view(torch.float32)
+
+
+def _pack_pair_cols(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two f32 columns -> one f32 column holding (bf16(hi) << 16) | bf16(lo),
+    each rounded to the nearest bfloat16 (ties to even)."""
+    def bits(x):
+        return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    return _u32_to_f32((bits(hi) << 16) | bits(lo))
+
+
+def _unpack_hi(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the bf16 in its upper 16 bits, as f32 (a bf16 is a truncated
+    f32, so masking the low half is the value)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _unpack_lo(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the bf16 in its lower 16 bits, as f32."""
+    return _u32_to_f32((x.view(torch.int32).to(torch.int64) & 0xFFFF) << 16)
+
+
+def pack_attrs8(attrs: torch.Tensor) -> torch.Tensor:
+    """(N, 16) attribute rows -> (N, 7) packed columns (the packed layout
+    without its gid column): geometry f32, rgb and opacity as bf16 pairs."""
+    rg = _pack_pair_cols(attrs[:, 5], attrs[:, 6])
+    bo = _pack_pair_cols(attrs[:, 7], attrs[:, 8])
+    return torch.cat([attrs[:, :5], rg[:, None], bo[:, None]], dim=1)
+
+
+def unpack_rows(attrs: torch.Tensor) -> torch.Tensor:
+    """A packed (P, 8) pair table -> the (P, 16) table of its values (rgb
+    and opacity unpacked, the gid in column 9): what the compositors see."""
+    rg, bo = attrs[:, 5], attrs[:, 6]
+    out = attrs.new_zeros((attrs.shape[0], ATTR_DIM))
+    out[:, :5] = attrs[:, :5]
+    out[:, 5], out[:, 6] = _unpack_hi(rg), _unpack_lo(rg)
+    out[:, 7], out[:, 8] = _unpack_hi(bo), _unpack_lo(bo)
+    out[:, KEY_COL] = attrs[:, PACKED_GID_COL]
+    return out
+
+
+def _table_width(attrs: torch.Tensor, what: str) -> bool:
+    """Check a pair table for a kernel -> whether it is packed."""
+    if attrs.dtype != torch.float32 or attrs.dim() != 2 \
+            or attrs.shape[1] not in (ATTR_DIM, PACKED_IN_DIM) \
+            or not attrs.is_contiguous() or attrs.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned float32 (P, 16) "
+                         f"or packed (P, 8) table")
+    return attrs.shape[1] == PACKED_IN_DIM
+
+
 def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
     """Plain PyTorch version of the composite_fwd kernel (same signature),
     over _PLAIN_TILE_BATCH tiles at a time. Within a chunk the exclusive
     transmittance is a cumprod of (1 - alpha) against the chunk's entry T,
-    as in the reference."""
+    as in the reference. A packed (P, 8) table composites its unpacked
+    values."""
+    if attrs.shape[1] == PACKED_IN_DIM:
+        attrs = unpack_rows(attrs)
     dev = attrs.device
     num_tiles = tile_start.shape[0]
     npix = tile_size * tile_size
@@ -157,28 +263,26 @@ def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
     return torch.where(ok, y * tile_size + x, -1)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 3)
 
 
 def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """attrs (P, 16) gathered pair table; tile_start/tile_count (num_tiles,)
-    int32 -> (tiles (num_tiles, 4, tile_size^2) rgb accumulation + final T,
-    nproc (num_tiles,) int32 chunks composited before the whole-tile early
-    exit). A tile with no pairs comes out (0, 0, 0, T=1); its nproc is 0
-    unless its (empty) segment starts mid-chunk, where the reference too
-    sweeps that one masked chunk."""
+    """attrs (P, 16) gathered pair table, or (P, 8) packed; tile_start/
+    tile_count (num_tiles,) int32 -> (tiles (num_tiles, 4, tile_size^2) rgb
+    accumulation + final T, nproc (num_tiles,) int32 chunks composited
+    before the whole-tile early exit). A tile with no pairs comes out (0,
+    0, 0, T=1); its nproc is 0 unless its (empty) segment starts mid-chunk,
+    where the reference too sweeps that one masked chunk. A launch on a
+    packed table counts in packed_fwd_count, not in composite_fwd.launches."""
     if attrs.device.type == "cpu":
         return composite_fwd_plain(attrs, tile_start, tile_count, tw=tw,
                                    tile_size=tile_size, chunk=chunk)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on cuda or cpu, not {attrs.device}")
     P = attrs.shape[0]
-    if attrs.dtype != torch.float32 or attrs.shape[1:] != (ATTR_DIM,) \
-            or not attrs.is_contiguous() or attrs.data_ptr() % 16:
-        raise ValueError("composite_fwd needs a contiguous, 16-byte aligned float32 "
-                         "(P, 16) table")
+    packed = _table_width(attrs, "composite_fwd")
     if P % chunk:
         raise ValueError(f"pair table rows {P} are not a multiple of chunk {chunk}")
     npix = tile_size * tile_size
@@ -195,11 +299,11 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
     fn.restype = ctypes.c_int
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-                 num_tiles, tw, tile_size, chunk, ALPHA_MIN, ALPHA_MAX, T_EPS,
+                 num_tiles, tw, tile_size, chunk, int(packed), ALPHA_MIN, ALPHA_MAX, T_EPS,
                  tiles.data_ptr(), nproc.data_ptr(),
                  torch.cuda.current_stream(attrs.device).cuda_stream)
     _build.check(lib, err, "composite_fwd launch")
-    composite_fwd.launches += 1
+    (packed_fwd_count if packed else composite_fwd).launches += 1
     return tiles, nproc
 
 
@@ -222,7 +326,10 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     backward (raster_pallas.py::_bwd_kernel) with exact-f32 sums over the
     pixels. Association: t_i = t_exc * t_run with t_exc the in-chunk
     exclusive cumprod; pref = in-chunk inclusive cumsum of w*cg + the carried
-    prefix; total_cg from the forward's saved tile colour."""
+    prefix; total_cg from the forward's saved tile colour. A packed (P, 8)
+    table replays its unpacked values (the d-table is the same)."""
+    if attrs.shape[1] == PACKED_IN_DIM:
+        attrs = unpack_rows(attrs)
     dev = attrs.device
     d = d_table_prefilled(p_out, dev)
     num_tiles = tile_start.shape[0]
@@ -304,13 +411,14 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     return d
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
                  + [ctypes.c_void_p] * 2)
 
 
 def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles,
                   *, tw, tile_size, chunk, p_out) -> torch.Tensor:
-    """The backward sweep of composite_fwd: attrs (P, 16) pair table,
+    """The backward sweep of composite_fwd: attrs (P, 16) pair table (or
+    (P, 8) packed: launches counted in packed_bwd_count),
     tile_start/tile_count (num_tiles,) int32, comp_start/nproc (num_tiles,)
     int32 (each tile's region offset and its chunks to replay), tiles (the
     forward's output) and g_tiles (their cotangent), both (num_tiles, 4,
@@ -328,10 +436,7 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
                                    chunk=chunk, p_out=p_out)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on cuda or cpu, not {attrs.device}")
-    if attrs.dtype != torch.float32 or attrs.shape[1:] != (ATTR_DIM,) \
-            or not attrs.is_contiguous() or attrs.data_ptr() % 16:
-        raise ValueError("composite_bwd needs a contiguous, 16-byte aligned float32 "
-                         "(P, 16) table")
+    packed = _table_width(attrs, "composite_bwd")
     if attrs.shape[0] % chunk or p_out % chunk:
         raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
                          f"be multiples of chunk {chunk}")
@@ -356,11 +461,11 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     with torch.cuda.device(attrs.device):
         err = fn(attrs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
                  comp_start.data_ptr(), nproc.data_ptr(), tiles.data_ptr(),
-                 g_tiles.data_ptr(), num_tiles, tw, tile_size, chunk, p_out,
+                 g_tiles.data_ptr(), num_tiles, tw, tile_size, chunk, p_out, int(packed),
                  ALPHA_MIN, ALPHA_MAX, KEY_INVALID, d.data_ptr(),
                  torch.cuda.current_stream(attrs.device).cuda_stream)
     _build.check(lib, err, "composite_bwd launch")
-    composite_bwd.launches += 1
+    (packed_bwd_count if packed else composite_bwd).launches += 1
     return d
 
 

@@ -11,7 +11,9 @@ keys, sorts the keys, finds each Gaussian's segment end (K4) and sums each
 segment's rows in a fixed order (segment_sum). No scatter, no atomics: the
 same inputs give the same gradient bits.
 A render whose inputs need no gradient (or under torch.no_grad()) runs the
-forward kernels alone and saves nothing.
+forward kernels alone and saves nothing. With attr_pack the pair table is
+the packed (P, 8) layout of render/raster.py (rgb and opacity as bf16
+pairs); the gradient passes straight through the rounding.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from gsplat_tpu_torch.render.binning import Binning, bin_gaussians, out_budget, 
 from gsplat_tpu_torch.render.bounds import segment_ends
 from gsplat_tpu_torch.render.project import Projection, project_gaussians
 from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, composite_bwd, composite_fwd,
-                                            pack_attrs, untile_image)
+                                            pack_attrs, pack_attrs8, resolve_attr_pack,
+                                            untile_image)
 from gsplat_tpu_torch.render.reduce import segment_sum
 
 
@@ -51,22 +54,29 @@ def _attr_rows(proj: Projection) -> torch.Tensor:
     return torch.cat([attrs, attrs.new_zeros((1, ATTR_DIM))], dim=0)
 
 
-def _gather_with_gid(attrs: torch.Tensor, gid_s: torch.Tensor) -> torch.Tensor:
+def _gather_with_gid(attrs: torch.Tensor, gid_s: torch.Tensor,
+                     attr_pack: bool = False) -> torch.Tensor:
     """(N+1, 16) attribute rows + (P,) sorted gids -> (P, 16) pair table whose
     column 9 holds each pair's gid as an f32 value (render/raster.py layout;
-    the reference's (16, P) table is its transpose). One row gather: the gid
-    column is filled per Gaussian first."""
-    attrs = attrs.clone()
-    attrs[:, KEY_COL] = torch.arange(attrs.shape[0], dtype=torch.float32,
-                                     device=attrs.device)
-    return attrs.index_select(0, gid_s)
+    the reference's (16, P) table is its transpose), or with attr_pack the
+    packed (P, 8) table, its gid in column 7. One row gather: the rows are
+    packed and their gid column filled per Gaussian first."""
+    gid = torch.arange(attrs.shape[0], dtype=torch.float32, device=attrs.device)
+    if attr_pack:
+        rows = torch.cat([pack_attrs8(attrs), gid[:, None]], dim=1)
+    else:
+        rows = attrs.clone()
+        rows[:, KEY_COL] = gid
+    return rows.index_select(0, gid_s)
 
 
-def pair_table(proj: Projection, binning: Binning, kept_budget: int) -> torch.Tensor:
+def pair_table(proj: Projection, binning: Binning, kept_budget: int,
+               attr_pack: bool = False) -> torch.Tensor:
     """The compositor's input: the first kept_budget sorted pairs of
-    `binning` as a (kept_budget, 16) table of `proj`'s attributes, the
-    padding slots (gid N) pointing at an appended inert null row."""
-    return _gather_with_gid(_attr_rows(proj), binning.gid_s[:kept_budget])
+    `binning` as a (kept_budget, 16) table of `proj`'s attributes (packed:
+    (kept_budget, 8)), the padding slots (gid N) pointing at an appended
+    inert null row."""
+    return _gather_with_gid(_attr_rows(proj), binning.gid_s[:kept_budget], attr_pack)
 
 
 def contrib_regions(nproc: torch.Tensor, chunk: int, c_budget: int):
@@ -106,12 +116,14 @@ class _Rasterize(torch.autograd.Function):
     """attrs (N+1, 16) differentiable attribute rows; gid_s (kept or sat,)
     sorted gids and the tile tables (no gradient); grad_ok () bool, False on
     kept- or sat-budget overflow -> (tiles (num_tiles, 4, npix), nproc (num_tiles,)
-    int32). static: (tw, tile_size, chunk, contrib_budget)."""
+    int32). static: (tw, tile_size, chunk, contrib_budget, attr_pack). The
+    backward's gradient of a packed table's rows is its d-table's, as if
+    unrounded (the reference's straight-through _rasterize_bwd)."""
 
     @staticmethod
     def forward(ctx, attrs, gid_s, tile_start, tile_count, grad_ok, static, on_stage):
-        tw, tile_size, chunk, _ = static
-        gathered = _gather_with_gid(attrs, gid_s)
+        tw, tile_size, chunk, _, attr_pack = static
+        gathered = _gather_with_gid(attrs, gid_s, attr_pack)
         if on_stage is not None:
             on_stage("gather")
         tiles, nproc = composite_fwd(gathered, tile_start, tile_count, tw=tw,
@@ -125,7 +137,7 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_tiles, _g_nproc):
         gathered, tile_start, tile_count, nproc, grad_ok, tiles = ctx.saved_tensors
-        tw, tile_size, chunk, c_budget = ctx.static
+        tw, tile_size, chunk, c_budget, _ = ctx.static
         if g_tiles is None:
             g_tiles = torch.zeros_like(tiles)
         np_c, comp_start, overflow = contrib_regions(nproc, chunk, c_budget)
@@ -156,11 +168,12 @@ def render(
     kept_budget: Optional[int] = None,
     contrib_budget: Optional[int] = None,
     sat_budget: Optional[int] = None,
-    attr_pack: bool = False,
+    attr_pack: Optional[bool] = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Render `g` through `cam` over background `bg` (3,), on the device the
     tensors live on (the kernels on CUDA, their plain versions on the CPU).
+    attr_pack: the packed pair table (render_projected).
 
     mean2d_offset: optional zeros (N,2); differentiate w.r.t. it for the
     screen-space positional gradient densification reads.
@@ -199,7 +212,7 @@ def render_projected(
     kept_budget: Optional[int] = None,
     contrib_budget: Optional[int] = None,
     sat_budget: Optional[int] = None,
-    attr_pack: bool = False,
+    attr_pack: Optional[bool] = None,
     on_stage: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Bin + composite a pre-computed `Projection`.
@@ -238,13 +251,15 @@ def render_projected(
     and the backward run on the sat_budget packed survivors. Image, nproc
     and gradients are bit-identical to the render without it; n_sat reports
     the rows needed, and an overflow zeroes the gradient and shows in
-    n_dropped. Budgets are rounded up to whole chunks. attr_pack (the
-    bf16-packed pair table, a TPU bandwidth lever) is not ported and
-    raises."""
-    if attr_pack:
-        raise NotImplementedError(
-            "attr_pack: the bf16-packed pair table is a TPU bandwidth lever "
-            "the port does not carry")
+    n_dropped. Budgets are rounded up to whole chunks.
+
+    attr_pack gathers the packed (P, 8) pair table (render/raster.py):
+    32-byte rows with rgb and opacity rounded to bfloat16, in the image and
+    in the gradient chain (the parameters stay float32; the gradient
+    passes straight through the rounding). None takes GSPLAT_PACK's
+    default (raster.resolve_attr_pack). A projection whose rgb and opacity
+    are already bf16 values renders the same bits either way."""
+    attr_pack = resolve_attr_pack(attr_pack, proj.mean2d.device)
     key_tiles = None
     if region is not None:
         key_tiles = tile_grid(width, height, tile_size)
@@ -287,8 +302,8 @@ def render_projected(
     gid_post = binning.gid_s[:kept_budget] if sat_budget is None else binning.gid_s
     tiles, nproc = _Rasterize.apply(
         _attr_rows(proj), gid_post, binning.tile_start,
-        binning.tile_count, binning.grad_ok, (tw, tile_size, chunk, contrib_budget),
-        on_stage)
+        binning.tile_count, binning.grad_ok,
+        (tw, tile_size, chunk, contrib_budget, attr_pack), on_stage)
     if on_stage is not None:
         on_stage("composite")
     rgb, transmittance = untile_image(tiles, tw, th, tile_size, width, height)

@@ -15,7 +15,9 @@ equal (crafted tile tables, the warp skip's edge cases and tiles of 48 and
 64 too); composite_bwd's d columns within 1e-4 of each column's max (the
 kernel sums pixels in its own fixed order, the plain version in matmul
 order) and the same bits from two launches (fixture scenes, crafted tiles,
-skip edges, tiles of 48 and 64); expand_pairs on crafted tables too; the
+skip edges, tiles of 48 and 64), on the packed pair table too (fixture
+scenes, crafted tiles, skip edges, and a packed render against the CPU's);
+expand_pairs on crafted tables too; the
 per-Gaussian reduction (segment_sum) within 1e-6 of each column's max of
 its plain version, the same bits twice; render gradients within 2e-4 of
 each group's max of the CPU's, and two gradient passes of one train step
@@ -261,6 +263,92 @@ def test_composite_bwd_kernel_skip_edges(cuda_device, tile, chunk):
     power within 1e-3 of the threshold on both sides
     (torch_port_fixtures.skip_edge_tile)."""
     assert_bwd_matches_plain(cuda_device, *skip_edge_tile(tile, chunk), 1, tile, chunk)
+
+
+def packed_table(attrs):
+    """A (P, 16) pair table -> its packed (P, 8) table (render/raster.py)."""
+    attrs = torch.as_tensor(attrs)
+    return torch.cat([traster.pack_attrs8(attrs),
+                      attrs[:, traster.KEY_COL:traster.KEY_COL + 1]], 1).contiguous()
+
+
+def assert_packed_kernels_match_plain(device, attrs, ts, tc, tw, tile, chunk):
+    """K2 and K3 on the packed table of `attrs` against their plain versions
+    (tiles 2e-5 abs, nproc equal; keys equal, d columns 1e-4 of each
+    column's max, the same bits twice), each launch counted in the packed
+    counts and not in the wrappers' own."""
+    from gsplat_tpu_torch.render.render import contrib_regions
+
+    p = packed_table(attrs)
+    tables = [t.to(device) for t in (p, torch.as_tensor(ts), torch.as_tensor(tc))]
+    counts = (traster.composite_fwd, traster.composite_bwd, traster.packed_fwd_count,
+              traster.packed_bwd_count)
+    before = [c.launches for c in counts]
+    want_tiles, want_np = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile,
+                                                      chunk=chunk)
+    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got_np.cpu().numpy(), want_np.cpu().numpy())
+    p_out = tb.out_budget(p.shape[0], tables[1].shape[0], chunk)
+    np_c, comp_start, _ = contrib_regions(want_np, chunk, p_out)
+    g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
+        size=want_tiles.shape).astype(np.float32)).to(device)
+    args = (*tables, comp_start, np_c, want_tiles, g)
+    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out)
+    want = traster.composite_bwd_plain(*args, **kw)
+    got = traster.composite_bwd(*args, **kw)
+    again = traster.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert_d_tables_match(got, want)
+    assert torch.equal(got, again)
+    assert [c.launches for c in counts] == [before[0], before[1], before[2] + 1,
+                                             before[3] + 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_composite_kernels_packed_match_plain(cuda_device, name):
+    tw, _ = tb.tile_grid(F.W, F.H, F.TILE)
+    gathered, ts, tc = pair_tables(F.make_scene(**SCENES[name]))
+    assert_packed_kernels_match_plain(cuda_device, gathered, ts, tc, tw, F.TILE, F.CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("chunk", [8, 128])
+def test_composite_kernels_packed_crafted_tiles(cuda_device, tile, chunk):
+    """The packed table of torch_port_fixtures.crafted_tiles (empty tiles,
+    mid-chunk starts, exits before the last chunk) and of the warp skip's
+    edge cases."""
+    attrs, ts, tc = crafted_tiles(3, 2, tile, chunk)
+    assert_packed_kernels_match_plain(cuda_device, attrs, ts, tc, 3, tile, chunk)
+    attrs, ts, tc = skip_edge_tile(tile, chunk)
+    assert_packed_kernels_match_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
+
+
+@pytest.mark.cuda
+def test_packed_render_on_gpu_matches_cpu(cuda_device):
+    """render(attr_pack=True) on the card against the CPU: the image within
+    2e-5, the counts equal, and the packed kernels launched."""
+    from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
+    from gsplat_tpu_torch.render.render import render
+
+    s = F.make_scene()
+    out = {}
+    before = traster.packed_fwd_count.launches
+    for dev in ("cpu", cuda_device):
+        g = gaussians_from_numpy(s.params, s.n_live, 3, 3, device=dev)
+        cam = camera_from_numpy(s.R, s.T, F.FOVX, F.FOVY, F.W, F.H, device=dev)
+        out[str(dev)] = render(cam, g, torch.tensor([0.1, 0.2, 0.3]), tile_size=F.TILE,
+                               chunk=F.CHUNK, pair_budget=F.BUDGET, attr_pack=True)
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    assert traster.packed_fwd_count.launches == before + 1
+    np.testing.assert_allclose(gpu.image.cpu().numpy(), cpu.image.numpy(), rtol=0,
+                               atol=ATOL)
+    for f in ("n_pairs", "n_culled", "n_contrib", "n_dropped"):
+        assert int(getattr(gpu, f)) == int(getattr(cpu, f)), f
 
 
 @pytest.mark.cuda
@@ -731,7 +819,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     table, total, meta = expansion_inputs(100, 1, 1024, True)
     counts = (texp.expand_pairs, traster.composite_fwd, traster.composite_bwd,
               tbounds.segment_ends, treduce.segment_sum, tscan.prefix_sum_small,
-              tcompact.compact_runs)
+              tcompact.compact_runs, traster.packed_fwd_count, traster.packed_bwd_count)
     before = [f.launches for f in counts]
     texp.expand_pairs(table, total, 1024, **meta)
     texp.expand_pairs(table, total, 1024, **{**meta, "sat_pack": True})
@@ -741,6 +829,10 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     traster.composite_fwd(*tables, tw=4, tile_size=F.TILE, chunk=F.CHUNK)
     args, kw = bwd_inputs("sparse", "cpu")
     traster.composite_bwd(*args, **kw)
+    # the packed table too, with its own counts
+    packed = packed_table(tables[0])
+    traster.composite_fwd(packed, *tables[1:], tw=4, tile_size=F.TILE, chunk=F.CHUNK)
+    traster.composite_bwd(packed_table(args[0]), *args[1:], **kw)
     tbounds.segment_ends(torch.arange(8, dtype=torch.float32), 10)
     d, n_rows = crafted_d_table("long_segment")
     d = torch.from_numpy(d)

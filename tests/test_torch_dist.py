@@ -30,6 +30,7 @@ from gsplat_tpu_torch.train.densify import add_densification_stats
 from gsplat_tpu_torch.train.loop import make_train_step
 from gsplat_tpu_torch.train.loss import photometric_loss
 from gsplat_tpu_torch.train.optim import adam_update, current_lrs, init_adam_state, make_lr_fns
+from torch_port_fixtures import niced
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_dist_worker.py")
@@ -81,8 +82,8 @@ def run_port(tmp, g, cams, data, tile, evaluate=True):
              data=data, tile=tile, tile_size=MP.tile_size, chunk=MP.chunk_size,
              budget=MP.pair_budget, eval=evaluate)
     world, port = data * tile, free_port()
-    res = run_ranks(lambda r: [sys.executable, WORKER, "steps", str(r), str(world), str(port),
-                               str(inp), str(tmp)], world, RANK_TIMEOUT,
+    res = run_ranks(lambda r: niced([sys.executable, WORKER, "steps", str(r), str(world),
+                                     str(port), str(inp), str(tmp)]), world, RANK_TIMEOUT,
                     env={"OMP_NUM_THREADS": "1"}, cwd=str(REPO))
     for r, (rc, out) in enumerate(res):
         assert rc == 0, f"rank {r} exit {rc}:\n{out[-4000:]}"
@@ -460,3 +461,24 @@ def test_agree_builds_its_vector_on_the_ranks_device(monkeypatch):
     mesh = Mesh(data=2, tile=1, d=0, t=0, rank=0, distributed=True)
     assert loop._agree(mesh, torch.device("meta"), 5, 2) == [7, 9]
     assert seen == [torch.device("meta")]
+
+
+def test_free_port_lies_below_the_ephemeral_range(monkeypatch, tmp_path):
+    """free_port draws below the kernel's ephemeral range, where no bind(0)
+    and no outgoing connection takes a port, and each port it returns
+    binds; where the range leaves too few ports below it, bind(0)."""
+    import socket
+
+    from gsplat_tpu_torch.dist import launch
+
+    low = launch._ephemeral_low()
+    for _ in range(20):
+        port = free_port()
+        assert max(1024, low // 2) <= port < low
+        with socket.socket() as s:
+            s.bind(("localhost", port))
+    fake = tmp_path / "range"
+    fake.write_text("1500\t60999\n")
+    monkeypatch.setattr(launch, "_PORT_RANGE", str(fake))
+    assert launch._ephemeral_low() == 1500 and free_port() > 0
+

@@ -3,7 +3,8 @@ rank, against the JAX CLI's single-process run on the same 4x2 mesh
 (tests/test_multihost.py's comparison): the same seeds give the same camera
 picks, so the final PLYs agree within 1e-6 (xyz, opacity). Also the
 torchrun bootstrap, the mesh rule's errors, the launcher stopping every
-rank when one fails, and tools/sharded_scale_demo.py.
+rank when one fails, and tools/sharded_scale_demo.py. Every process they
+start runs niced (torch_port_fixtures.niced).
 """
 
 import json
@@ -17,6 +18,7 @@ import pytest
 from gsplat_tpu_torch.dist.launch import free_port, run_ranks
 from gsplat_tpu_torch.io.ply import load_gaussian_ply
 from gsplat_tpu_torch.io.synthetic import make_colmap_scene
+from torch_port_fixtures import niced
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = str(REPO / "tests" / "torch_dist_worker.py")
@@ -54,9 +56,9 @@ def jax_split_noise(path, n_draws=4, caps=(64, 128, 256, 512)):
 
 def port_ranks(scene, out_root, world, extra, noise="-"):
     port = free_port()
-    res = run_ranks(lambda r: [sys.executable, WORKER, "cli", str(noise), str(r), str(world),
-                               str(port), str(scene), str(out_root / f"out{r}"),
-                               "--data_device", "cpu"] + extra,
+    res = run_ranks(lambda r: niced([sys.executable, WORKER, "cli", str(noise), str(r),
+                                     str(world), str(port), str(scene),
+                                     str(out_root / f"out{r}"), "--data_device", "cpu"] + extra),
                     world, TIMEOUT, env=ENV, cwd=str(REPO))
     for r, (rc, out) in enumerate(res):
         assert rc == 0, f"rank {r} exit {rc}:\n{out[-4000:]}"
@@ -65,8 +67,8 @@ def port_ranks(scene, out_root, world, extra, noise="-"):
 
 
 def jax_single_process(scene, out, extra):
-    p = subprocess.run([sys.executable, str(REPO / "scripts" / "multihost_smoke.py"), "0",
-                        "1", str(free_port()), str(scene), str(out)] + extra,
+    p = subprocess.run(niced([sys.executable, str(REPO / "scripts" / "multihost_smoke.py"),
+                              "0", "1", str(free_port()), str(scene), str(out)] + extra),
                        capture_output=True, text=True, timeout=600, cwd=str(REPO))
     assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-2000:]
 
@@ -122,8 +124,8 @@ def test_cli_under_torchrun_environment(scene, tmp_path):
             "64", "--pair_budget", "64", "--chunk_size", "32", "--tile_size", "16",
             "--data_axis", "-1", "--tile_axis", "1", "--densify_from_iter", "100",
             "--test_iterations"]
-    res = run_ranks(lambda r: [sys.executable, "-m", "gsplat_tpu_torch.cli", "-m",
-                               str(tmp_path / "env")] + args,
+    res = run_ranks(lambda r: niced([sys.executable, "-m", "gsplat_tpu_torch.cli", "-m",
+                                     str(tmp_path / "env")] + args),
                     2, TIMEOUT, cwd=str(REPO),
                     env=dict(ENV, MASTER_ADDR="localhost", MASTER_PORT=str(port),
                              WORLD_SIZE="2"),
@@ -146,9 +148,9 @@ def test_cli_mesh_rule_raises(scene, tmp_path, case):
              ["--data_axis", "2", "--tile_axis", "1", "--capacity", "65",
               "--shard_gaussians"])
     port = free_port()
-    res = run_ranks(lambda r: [sys.executable, WORKER, "cli", "-", str(r), "2", str(port),
-                               str(scene), str(tmp_path / f"out{r}"), "--data_device",
-                               "cpu"] + extra, 2, TIMEOUT, env=ENV, cwd=str(REPO))
+    res = run_ranks(lambda r: niced([sys.executable, WORKER, "cli", "-", str(r), "2", str(port),
+                                     str(scene), str(tmp_path / f"out{r}"), "--data_device",
+                                     "cpu"] + extra), 2, TIMEOUT, env=ENV, cwd=str(REPO))
     want = ("world size must equal data_axis * tile_axis" if case == "world"
             else "capacity % data_axis == 0")
     assert all(rc != 0 for rc, _ in res)
@@ -163,7 +165,7 @@ def test_ranks_read_a_fresh_source_at_once(tmp_path):
     code = ("import sys; from gsplat_tpu_torch.io.dataset import read_colmap_scene_info; "
             "info = read_colmap_scene_info(sys.argv[1], 'images', False, 8, "
             "load_images=False); print(len(info.point_cloud.points))")
-    res = run_ranks(lambda r: [sys.executable, "-c", code, str(tmp_path / "fresh")], 8,
+    res = run_ranks(lambda r: niced([sys.executable, "-c", code, str(tmp_path / "fresh")]), 8,
                     TIMEOUT, env=ENV, cwd=str(REPO))
     assert all(rc == 0 and out.strip().endswith("3000") for rc, out in res), res
     sparse = tmp_path / "fresh" / "sparse" / "0"
@@ -185,8 +187,9 @@ def test_run_ranks_stops_every_rank_when_one_fails():
 
 
 def test_sharded_scale_demo_tool():
-    p = subprocess.run([sys.executable, "-m", "gsplat_tpu_torch.tools.sharded_scale_demo",
-                        "--capacity", "4096", "--data", "2", "--tile", "2", "--device", "cpu"],
+    p = subprocess.run(niced([sys.executable, "-m", "gsplat_tpu_torch.tools.sharded_scale_demo",
+                              "--capacity", "4096", "--data", "2", "--tile", "2", "--device",
+                              "cpu"]),
                        capture_output=True, text=True, timeout=TIMEOUT, cwd=str(REPO))
     assert p.returncode == 0, p.stderr[-3000:]
     res = json.loads(p.stdout.strip().splitlines()[-1])

@@ -376,6 +376,19 @@ def saturating_projection(n, seed, width=64, height=64):
     return mean2d, radius, depth, conic, opacity
 
 
+# niceness of the processes the mesh tests start: they run beside
+# tests/test_multihost.py on another worker, whose two JAX processes give up
+# on each other's gloo context after 30 s, and a mesh of busy ranks at the
+# same priority can starve one of them that long
+RANK_NICE = 10
+
+
+def niced(cmd):
+    """`cmd` run at RANK_NICE above the caller's niceness, through nice(1)
+    (a preexec_fn would fork a threaded parent, which may deadlock)."""
+    return ["nice", "-n", str(RANK_NICE), *cmd]
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA device, for tests marked `cuda`; skips where there is none
@@ -385,3 +398,219 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     return torch.device("cuda")
+
+
+# ---- JPEG fixtures (tests/data/jpeg/) ----
+
+JPEG_DIR = __import__("pathlib").Path(__file__).resolve().parent / "data" / "jpeg"
+
+
+def _jpeg_block_bits(diff, blk, dc_codes, ac_codes):
+    """The Huffman bits of one quantised block (zigzag order) whose DC is
+    coded as `diff` -> [(code, length)]."""
+    s = abs(diff).bit_length()
+    out = [dc_codes[s]] + ([(diff if diff > 0 else diff + (1 << s) - 1, s)] if s else [])
+    run = 0
+    for k in range(1, 64):
+        v = int(blk[k])
+        if v == 0:
+            run += 1
+            continue
+        while run > 15:
+            out.append(ac_codes[0xF0])
+            run -= 16
+        s = abs(v).bit_length()
+        out.append(ac_codes[(run << 4) | s])
+        out.append((v if v > 0 else v + (1 << s) - 1, s))
+        run = 0
+    if run:
+        out.append(ac_codes[0x00])
+    return out
+
+
+def _jpeg_pack(bits):
+    """[(code, length)] -> entropy-coded bytes: 1-bit padding, FF stuffed."""
+    acc, n, out = 0, 0, bytearray()
+    for code, length in bits:
+        acc = (acc << length) | code
+        n += length
+        while n >= 8:
+            n -= 8
+            byte = (acc >> n) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+        acc &= (1 << n) - 1
+    if n:
+        byte = ((acc << (8 - n)) | ((1 << (8 - n)) - 1)) & 0xFF
+        out.append(byte)
+        if byte == 0xFF:
+            out.append(0)
+    return bytes(out)
+
+
+def encode_jpeg(img, sampling=((1, 1), (1, 1), (1, 1)), restart=0, interleaved=True,
+                colour="jfif") -> bytes:
+    """A baseline JPEG of uint8 (H, W, 3) or (H, W) `img`, written in numpy
+    for the layouts PIL does not write: any sampling factors (4:4:0 is
+    ((1, 2), (1, 1), (1, 1))), one scan a component (interleaved=False),
+    restart intervals of `restart` MCUs, and colour "jfif" (YCbCr, a JFIF
+    APP0), "adobe-rgb" (RGB under an Adobe APP14, transform 0) or
+    "rgb-ids" (RGB named by component ids 'R', 'G', 'B', no APPn). A float
+    DCT and fixed-length Huffman codes (any valid stream will do: PIL's
+    decode of it is the reference)."""
+    import struct
+
+    img = np.asarray(img, np.uint8)
+    gray = img.ndim == 2
+    h_img, w_img = img.shape[:2]
+    x = img.astype(np.float64)
+    if gray:
+        planes, sampling, ids = [x], sampling[:1], [1]
+    elif colour == "jfif":
+        r, g, b = x[..., 0], x[..., 1], x[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        ids = [1, 2, 3]
+    else:
+        planes = [x[..., 0], x[..., 1], x[..., 2]]
+        ids = [82, 71, 66] if colour == "rgb-ids" else [1, 2, 3]
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
+    qt = [np.array([[2 + 2 * (i + j) for j in range(8)] for i in range(8)], np.float64),
+          np.array([[3 + 3 * (i + j) for j in range(8)] for i in range(8)], np.float64)]
+    k = np.arange(8)
+    dct = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * np.where(
+        k[:, None] == 0, np.sqrt(1 / 8), np.sqrt(2 / 8))
+    zz = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+                   40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+                   36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+                   60, 61, 54, 47, 55, 62, 63])
+    comps = []
+    for c, (plane, (hc, vc)) in enumerate(zip(planes, sampling)):
+        fx, fy = hmax // hc, vmax // vc
+        dw, dh = -(-w_img * hc // hmax), -(-h_img * vc // vmax)
+        bw, bh = mcux * hc, mcuy * vc
+        p = np.pad(plane, ((0, bh * 8 * fy - h_img), (0, bw * 8 * fx - w_img)), mode="edge")
+        p = p.reshape(bh * 8, fy, bw * 8, fx).mean(axis=(1, 3)) - 128.0
+        blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = dct @ blocks @ dct.T
+        q = np.round(coef / qt[min(c, 1)]).astype(np.int64)
+        comps.append(dict(q=q.reshape(bh, bw, 64)[..., zz], hc=hc, vc=vc,
+                          nbx=-(-dw // 8), nby=-(-dh // 8)))
+    # fixed-length codes: 4 bits for the 12 DC categories, 8 bits for the AC symbols
+    dc_syms, ac_syms = list(range(12)), [0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                                                        for s in range(1, 11)]
+    dc_codes = {s: (i, 4) for i, s in enumerate(dc_syms)}
+    ac_codes = {s: (i, 8) for i, s in enumerate(ac_syms)}
+
+    def seg(marker, body):
+        return struct.pack(">HH", marker, len(body) + 2) + body
+
+    out = bytearray(b"\xff\xd8")
+    if colour == "jfif" or gray:
+        out += seg(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    elif colour == "adobe-rgb":
+        out += seg(0xFFEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")
+    for t in range(2):
+        out += seg(0xFFDB, bytes([t]) + bytes(int(v) for v in qt[t].reshape(64)[zz]))
+    out += seg(0xFFC0, struct.pack(">BHHB", 8, h_img, w_img, len(comps)) + b"".join(
+        bytes([ids[c], (cp["hc"] << 4) | cp["vc"], min(c, 1)]) for c, cp in enumerate(comps)))
+    dc_counts = [0] * 16
+    dc_counts[3] = len(dc_syms)
+    ac_counts = [0] * 16
+    ac_counts[7] = len(ac_syms)
+    out += seg(0xFFC4, bytes([0x00] + dc_counts + dc_syms) + bytes([0x10] + ac_counts + ac_syms))
+    if restart:
+        out += seg(0xFFDD, struct.pack(">H", restart))
+    scans = [list(range(len(comps)))] if interleaved else [[c] for c in range(len(comps))]
+    for scan in scans:
+        out += seg(0xFFDA, bytes([len(scan)]) + b"".join(bytes([ids[c], 0x00])
+                                                         for c in scan) + b"\x00\x3f\x00")
+        if len(scan) == 1:
+            cp = comps[scan[0]]
+            units = [[(scan[0], cp["q"][by, bx])] for by in range(cp["nby"])
+                     for bx in range(cp["nbx"])]
+        else:
+            units = []
+            for my in range(mcuy):
+                for mx in range(mcux):
+                    units.append([(c, comps[c]["q"][my * comps[c]["vc"] + by,
+                                                     mx * comps[c]["hc"] + bx])
+                                  for c in scan for by in range(comps[c]["vc"])
+                                  for bx in range(comps[c]["hc"])])
+        step = restart or len(units)
+        for i0 in range(0, len(units), step):
+            if i0:
+                out += bytes([0xFF, 0xD0 + (i0 // step - 1) % 8])
+            bits, preds = [], {}
+            for unit in units[i0:i0 + step]:
+                for c, blk in unit:
+                    bits += _jpeg_block_bits(int(blk[0]) - preds.get(c, 0), blk, dc_codes,
+                                             ac_codes)
+                    preds[c] = int(blk[0])
+            out += _jpeg_pack(bits)
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def jpeg_fixture_image(height, width, seed, channels=3, noise=2.0):
+    """A seeded uint8 image of waves and gradients plus Gaussian noise of
+    std `noise` (smooth, as a capture is, at the default)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    img = np.stack([128 + 100 * np.sin(xx / 97 + yy / 53 + ph[0]),
+                    128 + 90 * np.cos(xx / 41 - yy / 77 + ph[1]),
+                    128 + 80 * np.sin((xx + yy) / 150 + ph[2])], axis=-1)
+    img = np.clip(img + rng.normal(0, noise, img.shape), 0, 255).astype(np.uint8)
+    return img[..., 0] if channels == 1 else img
+
+
+# name -> (height, width, seed, how it is written): "pil" with PIL's save
+# options, "numpy" with encode_jpeg's (PIL does not write 4:4:0)
+JPEG_FIXTURES = {
+    "rgb444.jpg": (48, 64, 1, "pil", dict(quality=90, subsampling=0)),
+    "rgb422.jpg": (48, 64, 2, "pil", dict(quality=90, subsampling=1)),
+    "rgb420.jpg": (48, 64, 3, "pil", dict(quality=90, subsampling=2)),
+    "rgb440.jpg": (48, 64, 4, "numpy", dict(sampling=((1, 2), (1, 1), (1, 1)))),
+    "gray.jpg": (48, 64, 5, "pil", dict(quality=90)),
+    "restart.jpg": (40, 72, 6, "pil", dict(quality=85, subsampling=2,
+                                            restart_marker_blocks=3)),
+    "odd_23x37.jpg": (23, 37, 7, "pil", dict(quality=95, subsampling=2)),
+    "smooth_1080p_420.jpg": (1080, 1920, 8, "pil", dict(quality=85, subsampling=2)),
+}
+
+
+def write_jpeg_fixtures(root=JPEG_DIR):
+    """Write JPEG_FIXTURES under `root` and manifest.json beside them: each
+    file's shape and the sha256 of PIL's decode of it (np.asarray(
+    PIL.Image.open(path)).tobytes()). Needs PIL, which the tests have."""
+    import hashlib
+    import io
+    import json
+    from pathlib import Path
+
+    from PIL import Image
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    manifest = {}
+    for name, (h, w, seed, how, kw) in JPEG_FIXTURES.items():
+        img = jpeg_fixture_image(h, w, seed, 1 if name.startswith("gray") else 3,
+                                 noise=2.0 if h * w > 1 << 20 else 24.0)
+        if how == "pil":
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, "JPEG", **kw)
+            data = buf.getvalue()
+        else:
+            data = encode_jpeg(img, **kw)
+        (root / name).write_bytes(data)
+        with Image.open(root / name) as im:
+            ref = np.asarray(im)
+        manifest[name] = {"shape": list(ref.shape),
+                          "sha256": hashlib.sha256(ref.tobytes()).hexdigest()}
+    (root / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
+    return manifest
