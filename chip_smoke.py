@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32 and at tile 64, on the f32 and the packed pair table
+at tile 32, at tile 64 and at tile 128, on the f32 and the packed pair table
 (attr_pack), serving_bench, the render CLI over a dataset on disk, the
 training CLI over a JPEG dataset, the
 training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
@@ -129,11 +129,13 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            of each group's max of the f32 table's (test_attr_pack.py's
            objective); 2 make_train_step steps under GSPLAT_PACK=1's
            default: losses finite, n_dropped 0
-  tile 64  composite_fwd and composite_bwd at tile 64 (four pixel passes)
-           against their plain versions on the bench view's real pair table
-           and loss cotangent (the checks above, the skip census and the
-           bound recounted at that tile); then a served frame (timed) and one
-           train step at tile 64, its loss within 2e-4 of the tile-32 step 1
+  tile 64, tile 128  composite_fwd and composite_bwd at tile 64 (four
+           pixel passes) and at tile 128 (four windows of 64x64) against
+           their plain versions on the bench view's real pair table and loss
+           cotangent (the checks above, K3's same bits twice, the skip
+           census and the bound recounted at that tile); then a served frame
+           (timed) and one train step at that tile, its loss within 2e-4 of
+           the tile-32 step 1
   render_cli (sparse)  after the sparse cell: a COLMAP source written with
            the port's writers (a PINHOLE camera whose focal lengths give
            back fovx 1.2 and fovy 0.8; the bench view and the yaw +2, -3,
@@ -153,7 +155,11 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            native library loaded. Then render_cli at the default
            --resolution -1: 1600x900 frames (the 1.6K cap), each equal to
            the render at that camera; K1 there as at 1080p, and K2 against
-           its plain version at the bench view's final budget. Then a fresh Scene on the same source:
+           its plain version at the bench view's final budget. Then
+           render_cli --tile_size 128 --skip_train at --resolution 1: the
+           test frame's PNG bit-equal to the quantised render at tile 128
+           (its largest difference from the tile-32 render printed). Then a
+           fresh Scene on the same source:
            create_from_pcd over the 2^18 points on the card, parameters
            finite, its wall time and the 3-NN search's share
   train cli (sparse, full width)  after render_cli, on its COLMAP source
@@ -178,12 +184,13 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            Printed: step ms (median, min, max), densify ms and n_live,
            regrowths, checkpoint seconds and bytes, eval ms, probes
   jpeg     after the train cli phase: every JPEG fixture under tests/data/
-           jpeg/ decoded by the port (io/jpeg.py), its sha256 equal to the
-           manifest's (PIL's decode); the 1080p fixture's decode ms (median
+           jpeg/ (baseline, progressive, CMYK, YCCK) decoded by the port
+           (io/jpeg.py), its sha256 equal to the manifest's (PIL's decode);
+           the 1080p fixtures' decode ms (baseline and progressive, median
            of 10, host clock); render_cli's COLMAP source written again
-           with that fixture as every view's .jpg, and cli.main 10
+           with those fixtures in turns as the views' .jpg, and cli.main 10
            iterations over it from start.npz (--pair_budget 2^22): losses
-           finite, n_dropped 0, every camera's image the decode / 255
+           finite, n_dropped 0, every camera's image its file's decode / 255
   viewer serve (sparse, full width)  after the train cli phase: a
            NetworkGUIServer on a free local port over the 1M sparse model at
            one pair budget (the largest fitted one of the requests, 1.2x); a
@@ -277,7 +284,8 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
 The launch counts of the seven kernels, and of K2 and K3 on the packed
 table under keys of their own ("composite_fwd packed", "composite_bwd
 packed"), are zeroed just before each serve, each train, the packed serve
-and step phases, the tile-64 serve-and-train phase, each render_cli run,
+and step phases, the tile-64 and tile-128 serve-and-train phases, each
+render_cli run (the tile-128 one too),
 each train CLI run (the JPEG one too), the viewer's requests, full_eval,
 each serving_bench run, the self-check and, in each rank of the mesh
 phases, before its steps (the main paths), and must cover every render
@@ -292,7 +300,8 @@ of the two cells and the checks of the train, quality, viewer, full_eval,
 self-check and 2x2 mesh phases, the launches of each cell's main path, of
 render_cli, of the train, quality, viewer, train-with-viewer, full_eval,
 self-check and mesh phases beside their total (`launches_by_view`), and
-for K2 and K3 their times and bounds at tile 64 (`tile_64`).
+for K2 and K3 their times and bounds at tile 64 (`tile_64`) and at tile 128
+(`tile_128`).
 Numbers are printed with the card they ran on; TF32 is switched off for
 matmuls and cuDNN (the loss's blur pins full fp32 itself).
 """
@@ -363,7 +372,9 @@ K1_OPS_PER_SLOT = 110
 # subtractions, 1 - alpha, the division ~4, the product: 9), gda and dpow
 # (2), the ten summands (3 + 6), and one add each of the ten pixel sums (10)
 K3_OPS_PER_EVAL = 65
-TILE_WIDE = 64    # the widest tile the compositing kernels run, in four pixel passes
+TILE_WIDE = 64    # the widest tile the compositing kernels run in pixel passes (four)
+TILE_WINDOWED = 128   # a tile the kernels run in windows of 64x64 (four)
+WIDE_TILES = (TILE_WIDE, TILE_WINDOWED)
 FRAME_REPS = 10   # synced frames timed per view
 TRAIN_STEPS = {"sparse": 10, "dense": 3}
 
@@ -770,10 +781,12 @@ def skip_census(gathered, ts, tc, nproc, tw, tile=TILE):
     astart = start // CHUNK * CHUNK
     head = start - astart
     evals = below_n = groups = skipped = 0
+    # tiles a step: (tiles, chunk, pixels) temporaries of at most 2^27 elements
+    step = min(256, (1 << 27) // (CHUNK * npix))
     for j in range(int(np64.max()) if np64.numel() else 0):
         live = torch.nonzero(np64 > j).squeeze(1)
-        for b0 in range(0, live.numel(), 256):
-            t = live[b0:b0 + 256]
+        for b0 in range(0, live.numel(), step):
+            t = live[b0:b0 + step]
             idx = j * CHUNK + lane
             a = gathered[astart[t, None] + idx]                 # (B, chunk, 16)
             ok = (idx >= head[t, None]) & (idx < (head + count)[t, None])
@@ -1507,47 +1520,48 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         s.phase(f"step {label} packed")
         phases.append(step_packed(s, label, g, cam_args, target, budget, zero, counts,
                                   trained["losses"][0]))
-    k2w, k3w, w_launches = wide_tile(s, label, g, cam_args, target, budget,
-                                     trained["losses"][0], zero, counts)
-    phases.append(w_launches)
+    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6, k2p, k3p)}
+    for tile in WIDE_TILES:
+        k2w, k3w, w_launches = wide_tile(s, label, g, cam_args, target, budget,
+                                         trained["losses"][0], zero, counts, tile)
+        phases.append(w_launches)
+        rows[f"composite_fwd tile {tile}"], rows[f"composite_bwd tile {tile}"] = k2w, k3w
     for more in phases:
         launches = {k: launches[k] + more[k] for k in launches}
-    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6, k2p, k3p)}
-    rows["composite_fwd tile 64"], rows["composite_bwd tile 64"] = k2w, k3w
     return rows, launches, renders, results, trained
 
 
-def wide_tile(s, label, g, cam_args, target, budget, loss1, zero, counts):
-    """Tile 64, the widest the compositing kernels take (four pixel
-    passes): K2 and K3 against their plain versions on the bench view's
-    real pair table and loss cotangent, then, with the launch counts from
-    zero, a served frame and one train step at tile 64, whose loss must
-    stay within 2e-4 of the tile-32 step 1's `loss1` -> (K2 row, K3 row,
-    launches)."""
+def wide_tile(s, label, g, cam_args, target, budget, loss1, zero, counts, tile):
+    """A tile above 32: 64, the widest the compositing kernels run in pixel
+    passes (four), or 128, which they run in windows of 64x64. K2 and K3
+    against their plain versions on the bench view's real pair table and
+    loss cotangent, then, with the launch counts from zero, a served frame
+    and one train step at that tile, whose loss must stay within 2e-4 of the
+    tile-32 step 1's `loss1` -> (K2 row, K3 row, launches)."""
     from gsplat_tpu_torch.config import MeshParams, OptimizationParams
     from gsplat_tpu_torch.core.camera import make_camera
     from gsplat_tpu_torch.render.render import render
     from gsplat_tpu_torch.train.loop import make_train_step
     from gsplat_tpu_torch.train.optim import init_adam_state
 
-    wl = f"{label} tile {TILE_WIDE}"
+    wl = f"{label} tile {tile}"
     R, T, fovx, fovy = cam_args
     cam = make_camera(R, T, fovx, fovy, W, H, image=target, device="cuda")
     bg = torch.zeros(3, device=g.device)
-    pair_fit, kept, _, _ = fit_budgets(g, cam, budget, TILE_WIDE)
+    pair_fit, kept, _, _ = fit_budgets(g, cam, budget, tile)
     s.phase(f"kernel composite_fwd ({wl})")
-    k2 = phase_composite(s, wl, g, cam, pair_fit, kept, TILE_WIDE)
-    k3, d = phase_backward(s, wl, g, cam, cam.image, pair_fit, kept, TILE_WIDE)
+    k2 = phase_composite(s, wl, g, cam, pair_fit, kept, tile)
+    k3, d = phase_backward(s, wl, g, cam, cam.image, pair_fit, kept, tile)
     del d
     torch.cuda.empty_cache()
-    pair_t, kept_t, contrib = train_budgets(g, cam, bg, budget, TILE_WIDE)
+    pair_t, kept_t, contrib = train_budgets(g, cam, bg, budget, tile)
     step_fn = make_train_step(OptimizationParams(), MeshParams(
-        tile_size=TILE_WIDE, chunk_size=CHUNK, pair_budget=pair_t), 1.0, W, H,
+        tile_size=tile, chunk_size=CHUNK, pair_budget=pair_t), 1.0, W, H,
         kept_budget=kept_t, contrib_budget=contrib)
     opt_state = init_adam_state(g.params())
 
     def frame():
-        return render(cam, g, bg, tile_size=TILE_WIDE, chunk=CHUNK, pair_budget=pair_fit,
+        return render(cam, g, bg, tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       kept_budget=kept)
 
     zero()
@@ -1930,17 +1944,19 @@ def phase_serving_bench(s, counts):
 
 
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
-JPEG_1080P = "smooth_1080p_420.jpg"
+# the 1080p fixtures, baseline and progressive (both 4:2:0)
+JPEG_1080P = ("smooth_1080p_420.jpg", "smooth_1080p_prog420.jpg")
 JPEG_ITERS = 10
 
 
 def phase_jpeg(s, tmp, counts):
     """The port's JPEG decoder on the committed fixtures (sha256 of each
-    decode against the manifest's, PIL's), the 1080p fixture's decode ms;
-    then render_cli's COLMAP source written again with .jpg images (the
-    1080p fixture as every view's) and cli.main JPEG_ITERS iterations over
-    it from the sparse scene's start.npz: losses finite, n_dropped 0, the
-    Scene's camera images the decode / 255 -> launches."""
+    decode against the manifest's, PIL's: baseline, progressive, CMYK and
+    YCCK), the 1080p fixtures' decode ms; then render_cli's COLMAP source
+    written again with .jpg images (the baseline and the progressive 1080p
+    fixture in turns as the views') and cli.main JPEG_ITERS iterations over
+    it from the sparse scene's start.npz: losses finite, n_dropped 0, each
+    Scene camera's image its file's decode / 255 -> launches."""
     import hashlib
 
     from gsplat_tpu_torch.io import colmap, jpeg
@@ -1955,38 +1971,43 @@ def phase_jpeg(s, tmp, counts):
             bad.append(name)
     s.check(not bad, f"the port's JPEG decode of {len(manifest)} committed fixtures: sha256 "
             f"equal to the manifest's (PIL's decode) but {bad} (want none)")
-    data = (JPEG_DIR / JPEG_1080P).read_bytes()
-    ms = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        img = jpeg.decode_jpeg(data, JPEG_1080P)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"  {JPEG_1080P} ({len(data)} bytes, {img.shape}): decode ms median "
-          f"{statistics.median(ms):.3f} min {min(ms):.3f} max {max(ms):.3f} (host clock, 10)",
-          flush=True)
+    data, decoded = {}, {}
+    for name in JPEG_1080P:
+        data[name] = (JPEG_DIR / name).read_bytes()
+        ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            decoded[name] = jpeg.decode_jpeg(data[name], name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  {name} ({len(data[name])} bytes, {decoded[name].shape}): decode ms median "
+              f"{statistics.median(ms):.3f} min {min(ms):.3f} max {max(ms):.3f} (host clock, "
+              "10)", flush=True)
 
     src, jsrc = Path(tmp) / "cli_source", Path(tmp) / "cli_source_jpg"
     shutil.copytree(src / "sparse", jsrc / "sparse")
     (jsrc / "images").mkdir()
     sparse = jsrc / "sparse" / "0"
     images = colmap.read_extrinsics_binary(sparse / "images.bin")
-    for im in images.values():
+    file_of = {}
+    for i, im in enumerate(sorted(images.values(), key=lambda im: im.name)):
         im.name = Path(im.name).with_suffix(".jpg").name
-        (jsrc / "images" / im.name).write_bytes(data)
+        file_of[Path(im.name).stem] = JPEG_1080P[i % 2]
+        (jsrc / "images" / im.name).write_bytes(data[JPEG_1080P[i % 2]])
     colmap.write_extrinsics_binary(images, sparse / "images.bin")
     argv = ["-s", str(jsrc), "-m", str(Path(tmp) / "train_jpg"), "--resolution", "1",
             "--eval", "--iterations", str(JPEG_ITERS), "--quiet", "--pair_budget",
             str(1 << 22), "--start_checkpoint", str(Path(tmp) / "start.npz")]
     spy, launches, wall = run_train_cli(s, "jpeg cli", argv, counts)
     g_end, scene = spy.result
-    want = torch.from_numpy(img.astype(np.float32) / 255.0)
     cams = scene.get_train_cameras() + scene.get_test_cameras()
-    same = [torch.equal(c.image.cpu(), want) for c in cams]
+    kinds = [file_of[Path(c.image_name).stem] for c in cams]
+    same = [torch.equal(c.image.cpu(), torch.from_numpy(decoded[k].astype(np.float32) / 255.0))
+            for c, k in zip(cams, kinds)]
     losses = [st["loss"] for st in spy.steps]
     s.check(len(spy.steps) == JPEG_ITERS and all(math.isfinite(x) for x in losses)
             and all(st["n_dropped"] == 0 for st in spy.steps) and all(same)
-            and len(same) == len(CLI_VIEWS),
-            f"jpeg cli over {len(cams)} JPEG views ({img.shape[1]}x{img.shape[0]} 4:2:0): "
+            and len(same) == len(CLI_VIEWS) and set(kinds) == set(JPEG_1080P),
+            f"jpeg cli over {len(cams)} JPEG views of 1920x1080 4:2:0 ({kinds}): "
             f"{len(spy.steps)} "
             f"steps, losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}), n_dropped "
             f"{[st['n_dropped'] for st in spy.steps]}; each camera's image the decode / 255 "
@@ -2103,16 +2124,16 @@ class CliTimer:
         self.mod.render, self.mod.save_png = self.real
 
 
-def run_cli(s, label, model, resolution, zero, counts):
-    """render_cli.main over the model, the launch counts from zero ->
-    (CliTimer, launches, wall seconds)."""
+def run_cli(s, label, model, resolution, zero, counts, extra=()):
+    """render_cli.main over the model (with the flags `extra`), the launch
+    counts from zero -> (CliTimer, launches, wall seconds)."""
     from gsplat_tpu_torch import render_cli
 
     zero()
     t0 = time.perf_counter()
     with CliTimer(render_cli) as timer:
         rc = render_cli.main(["--model_path", str(model), "--resolution", str(resolution),
-                              "--eval"])
+                              "--eval", *extra])
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counts.items()}
@@ -2301,6 +2322,9 @@ def phase_render_cli(s, g, cam_args, target, tmp):
           f"ground truth resized by the {'native bilinear' if native else 'LANCZOS'} path "
           f"(a Scene at -1: {t_scene:.3f} s)", flush=True)
 
+    s.phase(f"render_cli (sparse, --tile_size {TILE_WINDOWED})")
+    launches3 = cli_tile_frame(s, model, src, zero, counts)
+
     s.phase("fresh Scene (sparse source)")
     real_knn, knn_s = gaussians_mod._mean_knn_dist2, []
 
@@ -2330,7 +2354,49 @@ def phase_render_cli(s, g, cam_args, target, tmp):
           f"{knn_s[0]:.3f} s ({knn_s[0] / t_fresh:.1%})", flush=True)
     del fresh, fg
     torch.cuda.empty_cache()
-    return {k: launches[k] + launches2[k] for k in launches}
+    return {k: launches[k] + launches2[k] + launches3[k] for k in launches}
+
+
+def cli_tile_frame(s, model, src, zero, counts, tile=TILE_WINDOWED):
+    """render_cli at --tile_size `tile` (--resolution 1, --skip_train): the
+    test camera's frame, n_dropped 0, its PNG bit-equal to the quantised
+    render at that tile and the budget the CLI ended at; its largest
+    difference from the tile-32 render (at a budget of 2^22, which drops no
+    pair there) printed -> launches."""
+    from gsplat_tpu_torch.config import ModelParams
+    from gsplat_tpu_torch.io import png
+    from gsplat_tpu_torch.render.render import render
+    from gsplat_tpu_torch.scene import Scene
+
+    label = f"render_cli --tile_size {tile}"
+    timer, launches, wall = run_cli(s, label, model, 1, zero, counts,
+                                    ("--tile_size", str(tile), "--skip_train"))
+    frames = cli_frames(timer)
+    final = frames[-1]["final"] if frames else {}
+    scene = Scene(ModelParams(source_path=str(src), model_path=str(model), resolution=1,
+                              eval=True), load_iteration=-1, shuffle=False)
+    cam = scene.get_test_cameras()[0]
+    bg = torch.zeros(3, device=scene.gaussians.device)
+    out = render(cam, scene.gaussians, bg, tile_size=tile, chunk=CHUNK,
+                 pair_budget=final.get("budget", CLI_BUDGET))
+    ref = render(cam, scene.gaussians, bg, tile_size=TILE, chunk=CHUNK,
+                 pair_budget=CLI_BUDGET << 2)
+    want = (torch.clamp(out.image, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+    got = png.read_png(Path(model) / "test" / f"ours_{CLI_ITERATION}" / "renders" / "00000.png")
+    s.check(len(frames) == 1 and final["n_dropped"] == 0 and int(out.n_dropped) == 0
+            and (final["width"], final["height"]) == (W, H) and np.array_equal(got, want),
+            f"{label}: {len(frames)} frame(s) (want 1, the test camera), "
+            f"{final.get('width')}x{final.get('height')}, n_dropped {final.get('n_dropped')}; "
+            f"its PNG bit-equal to the quantised render at tile {tile}: "
+            f"{got.shape == want.shape and np.array_equal(got, want)}")
+    diff = float((out.image - ref.image).abs().max())
+    print(f"  {label}: {wall:.3f} s wall, render {final.get('device_ms', 0.0):.3f} device ms "
+          f"(budget {final.get('budget')}, {len(frames[-1]['regrown']) if frames else 0} "
+          f"regrowth renders before it); max |image - tile {TILE} image| {diff:.3g} (the "
+          f"tile-{TILE} render's n_dropped {int(ref.n_dropped)})", flush=True)
+    del scene, out, ref
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---- the training loop and its CLI (train/loop.py, cli.py) ----
@@ -4342,8 +4408,9 @@ def main() -> int:
                "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
-          f"{2 * (2 + FRAME_REPS)} at tile {TILE_WIDE}, {TRAIN_STEPS['sparse']} + "
-          f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at tile {TILE_WIDE}; "
+          f"{2 * (2 + FRAME_REPS)} at each of tiles {WIDE_TILES}, {TRAIN_STEPS['sparse']} + "
+          f"{2 * TRAIN_STEPS['dense']} train steps at tile {TILE} and 2 at each of tiles "
+          f"{WIDE_TILES}; "
           f"render_cli's renders {l_cli['composite_fwd']}; the train CLI's steps and probes "
           f"(K1 {l_train['expand_pairs']}, K5 {l_train['prefix_sum_small']}) and the quality "
           f"run's (K1 {l_quality['expand_pairs']}, K5 {l_quality['prefix_sum_small']}); the "
@@ -4392,12 +4459,13 @@ def main() -> int:
                                          e_mesh.get(name, 0.0)),
                          other_view=dict(view=other, **{k: o[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))
-        wide = f"{name} tile {TILE_WIDE}"
-        if wide in k_sparse:
-            # the same kernel at the widest tile, in pixel passes, on each view
-            rows[-1][f"tile_{TILE_WIDE}"] = {view: {k: cell[wide][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-                for view, cell in (("sparse", k_sparse), ("dense", k_dense))}
+        for tile in WIDE_TILES:
+            wide = f"{name} tile {tile}"
+            if wide in k_sparse:
+                # the same kernel at tile 64 (pixel passes) and 128 (windows), each view
+                rows[-1][f"tile_{tile}"] = {view: {k: cell[wide][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                    for view, cell in (("sparse", k_sparse), ("dense", k_dense))}
     print(json.dumps({"kernels": rows}))
     print(card)
     if s.failures:

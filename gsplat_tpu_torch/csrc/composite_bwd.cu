@@ -59,12 +59,26 @@
 //   - two blocks an SM (96 registers, no spills). Capped at 80 for a third
 //     block the kernel ran ~9% faster but spilled, with the per-pixel
 //     cotangent terms in registers and with them in shared memory alike.
-//   - tiles above 32, up to 64, run in composite_fwd's pixel passes (256
+//   - tiles from 33 to 64 run in composite_fwd's pixel passes (256
 //     threads, pass p on map thread p * 256 + tid). Within a round of 32
 //     pairs the passes run in turn, and each adds its warp totals into the
 //     lane's slot of the partial array after the passes before it; the
 //     cross-warp round then sums the warps as before. So a d-row sums its
 //     pixels pass by pass within a warp, then warp by warp: a fixed order.
+//   - tiles above 64 run in composite_fwd's windows (composite_bwd_windows:
+//     windows of at most 64x64 pixels, each cut into units of 256 map
+//     threads). Each unit replays the tile's nproc chunks over its pixels
+//     with the one-pass body above, its running state in registers. A
+//     unit's six basis sums are taken about its window's centre, not the
+//     tile's (the d-values are the same sums of dpow * (pixel - mean) terms
+//     either way): about the tile's centre the basis reaches 64^2 at tile
+//     128 where a splat's own terms are a few px^2, and the algebra that
+//     turns the sums into d conic cancels them, ~1e-4 of a column's max in
+//     f32, where about a window's centre it stays at tile 64's ~2e-5. Each
+//     unit turns its sums into d-values, and a d-row adds them unit by
+//     unit: the first unit writes the row, each later one adds its values
+//     (the block's own rows: no atomics). So a d-row sums its pixels in a
+//     fixed order, and two launches give the same bits.
 // --fmad=false and an IEEE division keep the plain version's rounding of
 // the power, of alpha and of the alpha >= 1/255 decision (the forward's
 // decisions); only the pixel sums use explicit fused multiply-adds.
@@ -80,6 +94,8 @@
 
 #include <math_constants.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kAttrDim = 16;   // a d-table row (and a 16-column pair table row)
@@ -91,23 +107,24 @@ template <bool PACK>
 constexpr int kRowVecs = PACK ? 2 : 3;
 constexpr int kSums = 10;         // per pair: w*g (3), gda (1), dpow * basis (6)
 constexpr int kSub = 32;          // pairs per cross-warp round
-// threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
-// in pixel passes of kMaxThreads blocks each, up to four (tile 64).
+// threads of a block: a 32x32 tile's 2x2 pixel blocks. A tile up to kWin
+// runs in pixel passes of kMaxThreads blocks each, up to four (tile 64); a
+// larger one in windows of at most kWin x kWin pixels.
 constexpr int kMaxThreads = 256;
-constexpr int kMaxTile = 64;
+constexpr int kWin = 64;
 constexpr unsigned kFull = 0xffffffffu;
 // render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
 constexpr float kSkipMargin = 1e-3f;
 
-// Upper-left pixel of thread tid's 2x2 block: composite_fwd.cu's map
-// (render/raster.py::fwd_pixel_blocks).
-__device__ __forceinline__ void block_origin(int tid, int ts, int& x0, int& y0) {
-  if (ts % 16 == 0) {
-    const int warp = tid >> 5, lane = tid & 31, wpr = ts / 16;
+// Upper-left pixel of thread tid's 2x2 block in a w x h rectangle (a tile
+// or a window): composite_fwd.cu's map (render/raster.py::fwd_pixel_blocks).
+__device__ __forceinline__ void block_origin(int tid, int w, int h, int& x0, int& y0) {
+  if (w % 16 == 0 && h % 8 == 0) {
+    const int warp = tid >> 5, lane = tid & 31, wpr = w / 16;
     x0 = (warp % wpr) * 16 + (lane & 7) * 2;
     y0 = (warp / wpr) * 8 + (lane >> 3) * 2;
   } else {
-    const int nbx = (ts + 1) / 2;
+    const int nbx = (w + 1) / 2;
     x0 = (tid % nbx) * 2;
     y0 = (tid / nbx) * 2;
   }
@@ -184,14 +201,17 @@ __device__ __forceinline__ int reduce_slot(int lane) {
 
 // The cotangent terms of a thread's four pixels at block origin (x0, y0):
 // g_rgb, the forward colour dotted with it (total_cg) and t_final * g_t.
+// Index: the type of a pixel's offset in the tile's four planes (int up to
+// tile 64, size_t above).
+template <typename Index>
 __device__ __forceinline__ void load_cotangent(
     const float* __restrict__ res, const float* __restrict__ gt, int ts, int x0, int y0,
     const bool (&valid)[4], float (&gr)[4], float (&gg)[4], float (&gb)[4],
     float (&total_cg)[4], float (&tf_gt)[4]) {
-  const int npix = ts * ts;
+  const Index npix = static_cast<Index>(ts) * ts;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int p = (y0 + (q >> 1)) * ts + x0 + (q & 1);
+    const Index p = static_cast<Index>(y0 + (q >> 1)) * ts + x0 + (q & 1);
     gr[q] = gg[q] = gb[q] = total_cg[q] = tf_gt[q] = 0.f;
     if (valid[q]) {
       gr[q] = gt[p];
@@ -203,18 +223,27 @@ __device__ __forceinline__ void load_cotangent(
   }
 }
 
-// NPASS pixel passes of blockDim.x 2x2 blocks each (one at tiles up to 32).
-// With more than one pass the per-pixel running state of every pass stays
-// in registers, and the cotangent terms are reloaded for each pass of a
-// round; two blocks an SM only at one pass. PACK: the packed pair table.
-template <int NPASS, bool PACK>
-__global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd_kernel(
-    const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
-    const int32_t* __restrict__ tile_count,
-    const int32_t* __restrict__ comp_start, const int32_t* __restrict__ nproc,
-    const float* __restrict__ tiles, const float* __restrict__ g_tiles, int tw,
-    int tile_size, int chunk, int p_out, float alpha_min, float alpha_max,
-    float key_invalid, float* __restrict__ d_out) {
+#define COMPOSITE_BWD_ARGS                                                              \
+  const float *__restrict__ attrs, const int32_t *__restrict__ tile_start,             \
+      const int32_t *__restrict__ tile_count, const int32_t *__restrict__ comp_start,  \
+      const int32_t *__restrict__ nproc, const float *__restrict__ tiles,              \
+      const float *__restrict__ g_tiles, int tw, int tile_size, int chunk, int p_out,  \
+      float alpha_min, float alpha_max, float key_invalid, float *__restrict__ d_out
+#define COMPOSITE_BWD_PASS                                                            \
+  attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size, chunk, \
+      p_out, alpha_min, alpha_max, key_invalid, d_out
+
+// The replay of tile blockIdx.x's nproc chunks over the pixels of map
+// threads v0 + p * blockDim.x + tid (p < NPASS) of the ww x wh window at
+// (wx, wy) of the tile (the whole tile: (0, 0, ts, ts, v0 = 0)). With more
+// than one pass the per-pixel running state of every pass stays in
+// registers, and the cotangent terms are reloaded for each pass of a
+// round. WIN: one unit of composite_bwd_windows, whose basis sums are
+// taken about its window's centre and whose d-values add to the d-rows the
+// units before it wrote (`first`: none has). PACK: the packed pair table.
+template <int NPASS, bool PACK, bool WIN>
+__device__ __forceinline__ void replay_tile(COMPOSITE_BWD_ARGS, int np, int wx, int wy,
+                                            int ww, int wh, int v0, bool first) {
   // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, a, c);
   // then the raw rows of the next chunk (columns 0-11, or 0-7 packed),
   // copied in flight; then two buffers of [warp][pair of the round][sum]
@@ -227,14 +256,12 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
   float* s_key = s_part + 2 * part_size;
 
   const int t = blockIdx.x;
-  const int np = nproc[t];
-  if (np <= 0) return;  // the same for every thread of the block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int ts = tile_size;
-  const int npix = ts * ts;
-  const int nblk = ((ts + 1) / 2) * ((ts + 1) / 2);
+  const size_t npix = static_cast<size_t>(ts) * ts;
+  const int nblk = ((ww + 1) / 2) * ((wh + 1) / 2);
   const int start = tile_start[t];
   const int count = tile_count[t];
   const int astart = (start / chunk) * chunk;
@@ -250,20 +277,27 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
   bool valid[NPASS][4];
 #pragma unroll
   for (int p = 0; p < NPASS; ++p) {
-    const int v = p * blockDim.x + tid;
-    block_origin(v, ts, x0[p], y0[p]);
-    px0[p] = static_cast<float>(x0[p] - h), px1[p] = static_cast<float>(x0[p] + 1 - h);
-    py0[p] = static_cast<float>(y0[p] - h), py1[p] = static_cast<float>(y0[p] + 1 - h);
+    const int v = v0 + p * blockDim.x + tid;
+    block_origin(v, ww, wh, x0[p], y0[p]);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      valid[p][q] = v < nblk && x0[p] + (q & 1) < ts && y0[p] + (q >> 1) < ts;
+      valid[p][q] = v < nblk && x0[p] + (q & 1) < ww && y0[p] + (q >> 1) < wh;
+    x0[p] += wx, y0[p] += wy;
+    px0[p] = static_cast<float>(x0[p] - h), px1[p] = static_cast<float>(x0[p] + 1 - h);
+    py0[p] = static_cast<float>(y0[p] - h), py1[p] = static_cast<float>(y0[p] + 1 - h);
   }
   const int slot = reduce_slot(lane);
+  // the basis's origin: the window's centre in tile-centred pixels (an
+  // integer, so the shifted pixel coordinates stay exact)
+  const float wcx = static_cast<float>(wx + ww / 2 - h);
+  const float wcy = static_cast<float>(wy + wh / 2 - h);
 
   const float* res = tiles + static_cast<size_t>(t) * 4 * npix;
   const float* gt = g_tiles + static_cast<size_t>(t) * 4 * npix;
   float gr[4], gg[4], gb[4], total_cg[4], tf_gt[4];
-  if (NPASS == 1) load_cotangent(res, gt, ts, x0[0], y0[0], valid[0], gr, gg, gb, total_cg, tf_gt);
+  using Index = typename std::conditional<WIN, size_t, int>::type;
+  if (NPASS == 1)
+    load_cotangent<Index>(res, gt, ts, x0[0], y0[0], valid[0], gr, gg, gb, total_cg, tf_gt);
 
   // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
   // each chunk: it reads only rows it copied itself, so the copy needs no
@@ -316,7 +350,8 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
 #pragma unroll
       for (int p = 0; p < NPASS; ++p) {
         if (NPASS > 1)
-          load_cotangent(res, gt, ts, x0[p], y0[p], valid[p], gr, gg, gb, total_cg, tf_gt);
+          load_cotangent<Index>(res, gt, ts, x0[p], y0[p], valid[p], gr, gg, gb, total_cg,
+                                tf_gt);
         // kept a loop: unrolled 32 times (nvcc does so at one pass) the
         // round's code outgrows the instruction cache, ~7x slower
 #pragma unroll 1
@@ -364,22 +399,24 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
             sgda += gda;
             t_exc[p][q] *= 1.f - alpha;
           }
-          // the basis sums over the block: columns x0, x1 and rows y0, y1
+          // the basis sums over the block: columns x0, x1 and rows y0, y1,
+          // about the tile's centre (a window's with WIN)
           const float sx0 = dpow[0] + dpow[2], sx1 = dpow[1] + dpow[3];
           const float sy0 = dpow[0] + dpow[1], sy1 = dpow[2] + dpow[3];
+          const float bx0 = WIN ? px0[p] - wcx : px0[p], bx1 = WIN ? px1[p] - wcx : px1[p];
+          const float by0 = WIN ? py0[p] - wcy : py0[p], by1 = WIN ? py1[p] - wcy : py1[p];
           float v[kSums];
           v[0] = sr;
           v[1] = sg;
           v[2] = sb;
           v[3] = sgda;
-          v[4] = __fmaf_rn(px1[p] * px1[p], sx1, (px0[p] * px0[p]) * sx0);
-          v[5] = __fmaf_rn(py1[p] * py1[p], sy1, (py0[p] * py0[p]) * sy0);
-          v[6] = __fmaf_rn(px1[p] * py1[p], dpow[3],
-                           __fmaf_rn(px0[p] * py1[p], dpow[2],
-                                     __fmaf_rn(px1[p] * py0[p], dpow[1],
-                                               (px0[p] * py0[p]) * dpow[0])));
-          v[7] = __fmaf_rn(px1[p], sx1, px0[p] * sx0);
-          v[8] = __fmaf_rn(py1[p], sy1, py0[p] * sy0);
+          v[4] = __fmaf_rn(bx1 * bx1, sx1, (bx0 * bx0) * sx0);
+          v[5] = __fmaf_rn(by1 * by1, sy1, (by0 * by0) * sy0);
+          v[6] = __fmaf_rn(bx1 * by1, dpow[3],
+                           __fmaf_rn(bx0 * by1, dpow[2],
+                                     __fmaf_rn(bx1 * by0, dpow[1], (bx0 * by0) * dpow[0])));
+          v[7] = __fmaf_rn(bx1, sx1, bx0 * sx0);
+          v[8] = __fmaf_rn(by1, sy1, by0 * sy0);
           v[9] = sx0 + sx1;
           const float total = warp_reduce_scatter(v, lane);
           if (slot >= 0) dst[slot] = p == 0 ? total : dst[slot] + total;
@@ -404,7 +441,10 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
           tot[i] = __shfl_sync(kFull, i < 8 ? t0 : t1, (lane & ~7) | (i & 7));
         const int k = k0 + pc;
         const float4 g0 = sm[3 * k], g2 = sm[3 * k + 2];
-        const float mxl = g0.x, myl = g0.y, ca = g2.z, cb = g0.w, cc = g2.w;
+        // the mean relative to the basis's origin
+        float mxl = g0.x, myl = g0.y;
+        if constexpr (WIN) mxl -= wcx, myl -= wcy;
+        const float ca = g2.z, cb = g0.w, cc = g2.w;
         const float du0 = tot[4], du1 = tot[5], du2 = tot[6];
         const float du3 = tot[7], du4 = tot[8], du5 = tot[9];
         float2 o = make_float2(0.f, 0.f);
@@ -423,8 +463,16 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
           o = make_float2(tot[3], s_key[k]);
         }
         const int row = ostart + j * chunk + k;
-        if (act && row >= 0 && row < p_out)
-          reinterpret_cast<float2*>(d_out + static_cast<size_t>(row) * kAttrDim)[s] = o;
+        if (act && row >= 0 && row < p_out) {
+          float2* drow = reinterpret_cast<float2*>(d_out + static_cast<size_t>(row) * kAttrDim);
+          if (WIN && !first) {
+            // the d-values of the units before this one (the key is the same)
+            const float2 prev = __ldcg(drow + s);
+            o.x = prev.x + o.x;
+            if (s != 4) o.y = prev.y + o.y;
+          }
+          drow[s] = o;
+        }
       }
       // no barrier here: the next round writes the other buffer, and the
       // round after it passes the next round's barrier first
@@ -437,6 +485,33 @@ __global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1) composite_bwd
         prefix[p][q] = csum[p][q] + prefix[p][q];
       }
   }
+}
+
+// NPASS pixel passes of blockDim.x 2x2 blocks each (one at tiles up to 32);
+// two blocks an SM only at one pass.
+template <int NPASS, bool PACK>
+__global__ void __launch_bounds__(kMaxThreads, NPASS == 1 ? 2 : 1)
+    composite_bwd_kernel(COMPOSITE_BWD_ARGS) {
+  const int np = nproc[blockIdx.x];
+  if (np <= 0) return;  // the same for every thread of the block
+  replay_tile<NPASS, PACK, false>(COMPOSITE_BWD_PASS, np, 0, 0, tile_size, tile_size, 0, true);
+}
+
+// Tiles above kWin: composite_fwd_windows' windows and units, in its order,
+// one unit at a time.
+template <bool PACK>
+__global__ void __launch_bounds__(kMaxThreads, 2) composite_bwd_windows(COMPOSITE_BWD_ARGS) {
+  const int np = nproc[blockIdx.x];
+  if (np <= 0) return;
+  const int ts = tile_size;
+  for (int wy = 0; wy < ts; wy += kWin)
+    for (int wx = 0; wx < ts; wx += kWin) {
+      const int ww = min(kWin, ts - wx), wh = min(kWin, ts - wy);
+      const int nblk = ((ww + 1) / 2) * ((wh + 1) / 2);
+      for (int v0 = 0; v0 < nblk; v0 += blockDim.x)
+        replay_tile<1, PACK, true>(COMPOSITE_BWD_PASS, np, wx, wy, ww, wh, v0,
+                                   wx == 0 && wy == 0 && v0 == 0);
+    }
 }
 
 // fwd_pixel_blocks' threads at this tile size: one per 2x2 pixel block, in
@@ -456,13 +531,18 @@ cudaError_t launch(int num_tiles, int threads, int chunk, cudaStream_t stream,
   const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk) +
                       sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
                                        static_cast<size_t>(chunk));
+  void (*kernel)(COMPOSITE_BWD_ARGS);
+  if constexpr (NPASS == 0) {
+    kernel = composite_bwd_windows<PACK>;
+  } else {
+    kernel = composite_bwd_kernel<NPASS, PACK>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel<NPASS, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  composite_bwd_kernel<NPASS, PACK><<<num_tiles, threads, smem, stream>>>(
+  kernel<<<num_tiles, threads, smem, stream>>>(
       attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size,
       chunk, p_out, alpha_min, alpha_max, key_invalid, d_out);
   return cudaGetLastError();
@@ -475,6 +555,8 @@ cudaError_t launch_passes(int npass, int num_tiles, int threads, int chunk, cuda
                           const float* g, int tw, int tile_size, int p_out, float alpha_min,
                           float alpha_max, float key_invalid, float* d) {
   switch (npass) {
+    case 0: return launch<0, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+                                   tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
     case 1: return launch<1, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
     case 2: return launch<2, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
@@ -492,10 +574,11 @@ cudaError_t launch_passes(int npass, int num_tiles, int threads, int chunk, cuda
 // 16-byte aligned, with P a multiple of chunk and every segment inside it;
 // tile_start, tile_count, comp_start, nproc:
 // (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4, tile_size^2) float32;
-// d_out: (p_out, 16) float32, prefilled by the caller. tile_size <=
-// kMaxTile. alpha_min, alpha_max, key_invalid: render/raster.py's
-// ALPHA_MIN, ALPHA_MAX, KEY_INVALID. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a tile above kMaxTile).
+// d_out: (p_out, 16) float32, prefilled by the caller. tile_size >= 1: up
+// to kWin in pixel passes (1 to 4), above it in windows. alpha_min,
+// alpha_max, key_invalid: render/raster.py's ALPHA_MIN, ALPHA_MAX,
+// KEY_INVALID. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a tile below 1).
 extern "C" int composite_bwd_launch(
     const void* attrs, const void* tile_start, const void* tile_count,
     const void* comp_start, const void* nproc, const void* tiles,
@@ -503,10 +586,11 @@ extern "C" int composite_bwd_launch(
     int p_out, int packed, float alpha_min, float alpha_max, float key_invalid,
     void* d_out, void* stream) {
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  if (tile_size < 1 || tile_size > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int virt = map_threads(tile_size);
+  if (tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // pixel passes up to kWin (1 to 4); 0 selects the windows
+  const int virt = tile_size <= kWin ? map_threads(tile_size) : kMaxThreads;
   const int threads = virt < kMaxThreads ? virt : kMaxThreads;
-  const int npass = (virt + kMaxThreads - 1) / kMaxThreads;
+  const int npass = tile_size <= kWin ? (virt + kMaxThreads - 1) / kMaxThreads : 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(attrs);
   const auto* s = static_cast<const int32_t*>(tile_start);

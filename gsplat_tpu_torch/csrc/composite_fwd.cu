@@ -46,7 +46,7 @@
 //   - staging one chunk ahead: every thread copies its rows of the next
 //     chunk with 16-byte cp.async while the block composites this one, and
 //     turns them into the packed pair records after the next exit vote.
-//   - tiles above 32, up to 64, run in pixel passes: the block stays at 256
+//   - tiles from 33 to 64 run in pixel passes: the block stays at 256
 //     threads, and in pass p thread tid takes the 2x2 block of map thread
 //     p * 256 + tid (at tile 64 a pass is a 64x16 band). The kernel is a
 //     template on the pass count, so one pass compiles to the tile-32 code;
@@ -54,6 +54,16 @@
 //     128, two blocks an SM), a staged chunk is composited pass after pass,
 //     and the exit vote covers all of the tile's pixels, so nproc is the
 //     tile's and not a pass's.
+//   - tiles above 64 run in windows (composite_fwd_windows): the tile is cut
+//     into windows of at most 64x64 pixels, row-major (tile 96: 64 + 32 in
+//     each direction), each mapped as a tile of its own size is, and cut
+//     into units of 256 map threads. Each staged chunk is composited unit
+//     after unit; a unit's running colour and T live in the output tile
+//     between chunks (loaded before the chunk, stored after it: the same
+//     bits as registers would hold), so the registers hold one unit's
+//     state whatever the tile. The exit vote still covers every pixel of
+//     the tile before each chunk: a window whose pixels saturate early goes
+//     on compositing to the tile's exit, as the reference's pixels do.
 // Within a chunk T is held fixed and the exclusive product of (1 - alpha)
 // runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the chunk: the
 // plain PyTorch version's association.
@@ -78,24 +88,26 @@ constexpr int kRowDim = PACK ? 8 : 16;
 // the 16-byte pieces of a row the kernel copies: columns 0-11, or 0-7 packed
 template <bool PACK>
 constexpr int kRowVecs = PACK ? 2 : 3;
-// threads of a block: a 32x32 tile's 2x2 pixel blocks. A larger tile runs
-// in pixel passes of kMaxThreads blocks each, up to four (tile 64).
+// threads of a block: a 32x32 tile's 2x2 pixel blocks. A tile up to kWin
+// runs in pixel passes of kMaxThreads blocks each, up to four (tile 64); a
+// larger one in windows of at most kWin x kWin pixels.
 constexpr int kMaxThreads = 256;
-constexpr int kMaxTile = 64;
+constexpr int kWin = 64;
 // render/raster.py::SKIP_MARGIN: the skip's margin below log(1/255 / op)
 constexpr float kSkipMargin = 1e-3f;
 
-// Upper-left pixel of thread tid's 2x2 block. Tiles whose side is a multiple
-// of 16 give each warp a 16x8-pixel rectangle (8 x 4 blocks), which makes
-// the skip likelier than a 32x4 strip; others go row-major over blocks.
-// render/raster.py::fwd_pixel_blocks is the same map.
-__device__ __forceinline__ void block_origin(int tid, int ts, int& x0, int& y0) {
-  if (ts % 16 == 0) {
-    const int warp = tid >> 5, lane = tid & 31, wpr = ts / 16;
+// Upper-left pixel of thread tid's 2x2 block in a w x h rectangle of pixels
+// (a tile, or a window of one). A width that is a multiple of 16 and a
+// height that is a multiple of 8 give each warp a 16x8-pixel rectangle (8 x
+// 4 blocks), which makes the skip likelier than a 32x4 strip; others go
+// row-major over blocks. render/raster.py::fwd_pixel_blocks is the same map.
+__device__ __forceinline__ void block_origin(int tid, int w, int h, int& x0, int& y0) {
+  if (w % 16 == 0 && h % 8 == 0) {
+    const int warp = tid >> 5, lane = tid & 31, wpr = w / 16;
     x0 = (warp % wpr) * 16 + (lane & 7) * 2;
     y0 = (warp / wpr) * 8 + (lane >> 3) * 2;
   } else {
-    const int nbx = (ts + 1) / 2;
+    const int nbx = (w + 1) / 2;
     x0 = (tid % nbx) * 2;
     y0 = (tid / nbx) * 2;
   }
@@ -133,6 +145,64 @@ __device__ __forceinline__ void row_columns(const float4* raw, int k, float4& a0
   }
 }
 
+// Chunk j's copied rows (raw) -> the pair records the compositing reads
+// (sm): thread tid stages the rows it copied, rows outside the segment
+// [head, head + count) masked to opacity 0.
+template <bool PACK>
+__device__ __forceinline__ void stage_chunk(float4* sm, const float4* raw, int j, int chunk,
+                                            int head, int count, float ox, float oy,
+                                            float alpha_min) {
+  for (int k = threadIdx.x; k < chunk; k += blockDim.x) {
+    const int idx = j * chunk + k;
+    float4 a0, a1, a2;
+    row_columns<PACK>(raw, k, a0, a1, a2);
+    const float op = idx >= head && idx < head + count ? a2.x : 0.f;
+    const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
+    sm[3 * k] = make_float4(a0.x - ox, a0.y - oy, 0.5f * a0.z, a0.w);
+    sm[3 * k + 1] = make_float4(0.5f * a1.x, a1.y, a1.z, a1.w);
+    sm[3 * k + 2] = make_float4(op, thr, 0.f, 0.f);
+  }
+}
+
+// One staged chunk composited into a thread's 2x2 block (pixel columns
+// px0, px1 and rows py0, py1, tile-centred): its running colour and T.
+__device__ __forceinline__ void composite_chunk(const float4* sm, int chunk, float px0,
+                                                float px1, float py0, float py1,
+                                                const bool (&valid)[4], float (&T)[4],
+                                                float (&cr)[4], float (&cg)[4],
+                                                float (&cb)[4], float alpha_min,
+                                                float alpha_max) {
+  float t_exc[4] = {1.f, 1.f, 1.f, 1.f};
+  for (int k = 0; k < chunk; ++k) {
+    const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
+    const float dx0 = px0 - g0.x, dx1 = px1 - g0.x;
+    const float dy0 = py0 - g0.y, dy1 = py1 - g0.y;
+    const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
+    const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
+    float power[4];
+    power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
+    power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
+    power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
+    power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
+    bool below = true;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[q];
+    if (__all_sync(0xffffffffu, below)) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float raw = g2.x * expf(power[q] > 0.f ? -100.f : power[q]);
+      const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
+      const float w = alpha * t_exc[q] * T[q];
+      cr[q] = __fmaf_rn(g1.y, w, cr[q]);
+      cg[q] = __fmaf_rn(g1.z, w, cg[q]);
+      cb[q] = __fmaf_rn(g1.w, w, cb[q]);
+      t_exc[q] *= 1.f - alpha;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) T[q] *= t_exc[q];
+}
+
 // One tile in NPASS pixel passes (the two kernels below), on a 16-column
 // or a packed table.
 template <int NPASS, bool PACK>
@@ -168,7 +238,7 @@ __device__ __forceinline__ void composite_tile(
 #pragma unroll
   for (int p = 0; p < NPASS; ++p) {
     const int v = p * blockDim.x + tid;
-    block_origin(v, ts, x0[p], y0[p]);
+    block_origin(v, ts, ts, x0[p], y0[p]);
     px0[p] = static_cast<float>(x0[p] - h), px1[p] = static_cast<float>(x0[p] + 1 - h);
     py0[p] = static_cast<float>(y0[p] - h), py1[p] = static_cast<float>(y0[p] + 1 - h);
 #pragma unroll
@@ -206,51 +276,14 @@ __device__ __forceinline__ void composite_tile(
     // another thread is still compositing
     if (!__syncthreads_or(alive)) break;
     cp_async_wait_all();
-    for (int k = tid; k < chunk; k += blockDim.x) {
-      const int idx = j * chunk + k;
-      float4 a0, a1, a2;
-      row_columns<PACK>(raw, k, a0, a1, a2);
-      const float op = idx >= head && idx < head + count ? a2.x : 0.f;
-      const float thr = op > 0.f ? logf(alpha_min / op) - kSkipMargin : CUDART_INF_F;
-      sm[3 * k] = make_float4(a0.x - ox, a0.y - oy, 0.5f * a0.z, a0.w);
-      sm[3 * k + 1] = make_float4(0.5f * a1.x, a1.y, a1.z, a1.w);
-      sm[3 * k + 2] = make_float4(op, thr, 0.f, 0.f);
-    }
+    stage_chunk<PACK>(sm, raw, j, chunk, head, count, ox, oy, alpha_min);
     // the next chunk's rows travel while this one is composited
     if (j + 1 < nch) prefetch(j + 1);
     __syncthreads();
 #pragma unroll
-    for (int p = 0; p < NPASS; ++p) {
-      float t_exc[4] = {1.f, 1.f, 1.f, 1.f};
-      for (int k = 0; k < chunk; ++k) {
-        const float4 g0 = sm[3 * k], g1 = sm[3 * k + 1], g2 = sm[3 * k + 2];
-        const float dx0 = px0[p] - g0.x, dx1 = px1[p] - g0.x;
-        const float dy0 = py0[p] - g0.y, dy1 = py1[p] - g0.y;
-        const float ax0 = g0.z * (dx0 * dx0), ax1 = g0.z * (dx1 * dx1);
-        const float cy0 = g1.x * (dy0 * dy0), cy1 = g1.x * (dy1 * dy1);
-        float power[4];
-        power[0] = -((ax0 + g0.w * (dx0 * dy0)) + cy0);
-        power[1] = -((ax1 + g0.w * (dx1 * dy0)) + cy0);
-        power[2] = -((ax0 + g0.w * (dx0 * dy1)) + cy1);
-        power[3] = -((ax1 + g0.w * (dx1 * dy1)) + cy1);
-        bool below = true;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) below &= power[q] < g2.y || !valid[p][q];
-        if (__all_sync(0xffffffffu, below)) continue;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float raw = g2.x * expf(power[q] > 0.f ? -100.f : power[q]);
-          const float alpha = raw >= alpha_min ? fminf(raw, alpha_max) : 0.f;
-          const float w = alpha * t_exc[q] * T[p][q];
-          cr[p][q] = __fmaf_rn(g1.y, w, cr[p][q]);
-          cg[p][q] = __fmaf_rn(g1.z, w, cg[p][q]);
-          cb[p][q] = __fmaf_rn(g1.w, w, cb[p][q]);
-          t_exc[q] *= 1.f - alpha;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) T[p][q] *= t_exc[q];
-    }
+    for (int p = 0; p < NPASS; ++p)
+      composite_chunk(sm, chunk, px0[p], px1[p], py0[p], py1[p], valid[p], T[p], cr[p], cg[p],
+                      cb[p], alpha_min, alpha_max);
   }
   // a tile that exits early leaves its next chunk's copy in flight: retire it
   cp_async_wait_all();
@@ -290,6 +323,96 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_passes(COMPOSITE
                               alpha_max, t_eps, tiles, nproc);
 }
 
+// Tiles above kWin, in windows (see the note at the top). Window (wx, wy)
+// covers pixels [wx, wx + ww) x [wy, wy + wh) of the tile, mapped by
+// block_origin as a ww x wh tile; its map threads run in units of
+// blockDim.x, unit by unit after the windows before it.
+template <bool PACK>
+__global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_windows(COMPOSITE_FWD_ARGS) {
+  extern __shared__ float4 sm[];
+  float4* raw = sm + 3 * chunk;
+
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int ts = tile_size;
+  const size_t npix = static_cast<size_t>(ts) * ts;
+  const int start = tile_start[t];
+  const int count = tile_count[t];
+  const int astart = (start / chunk) * chunk;
+  const int head = start - astart;
+  const int nch = (head + count + chunk - 1) / chunk;
+  const int h = ts / 2;
+  const float ox = static_cast<float>((t % tw) * ts + h);
+  const float oy = static_cast<float>((t / tw) * ts + h);
+  float* out = tiles + static_cast<size_t>(t) * 4 * npix;
+
+  auto prefetch = [&](int jj) {
+    for (int k = tid; k < chunk; k += blockDim.x) {
+      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
+#pragma unroll
+      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
+    }
+    cp_async_commit();
+  };
+  if (nch > 0) prefetch(0);
+
+  bool alive = true;  // before the first chunk every pixel has T = 1
+  int j = 0;
+  for (; j < nch; ++j) {
+    // the whole-tile exit: a vote over every pixel of every window
+    if (!__syncthreads_or(alive)) break;
+    cp_async_wait_all();
+    stage_chunk<PACK>(sm, raw, j, chunk, head, count, ox, oy, alpha_min);
+    if (j + 1 < nch) prefetch(j + 1);
+    __syncthreads();
+    alive = false;
+    for (int wy = 0; wy < ts; wy += kWin)
+      for (int wx = 0; wx < ts; wx += kWin) {
+        const int ww = min(kWin, ts - wx), wh = min(kWin, ts - wy);
+        const int nblk = ((ww + 1) / 2) * ((wh + 1) / 2);
+        for (int v0 = 0; v0 < nblk; v0 += blockDim.x) {
+          const int v = v0 + tid;
+          int x0, y0;
+          block_origin(v, ww, wh, x0, y0);
+          bool valid[4];
+          size_t px[4];
+          float T[4], cr[4], cg[4], cb[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            valid[q] = v < nblk && x0 + (q & 1) < ww && y0 + (q >> 1) < wh;
+            px[q] = static_cast<size_t>(wy + y0 + (q >> 1)) * ts + wx + x0 + (q & 1);
+            T[q] = 1.f, cr[q] = cg[q] = cb[q] = 0.f;
+            if (j > 0 && valid[q]) {
+              cr[q] = out[px[q]];
+              cg[q] = out[npix + px[q]];
+              cb[q] = out[2 * npix + px[q]];
+              T[q] = out[3 * npix + px[q]];
+            }
+          }
+          x0 += wx, y0 += wy;
+          composite_chunk(sm, chunk, static_cast<float>(x0 - h), static_cast<float>(x0 + 1 - h),
+                          static_cast<float>(y0 - h), static_cast<float>(y0 + 1 - h), valid, T,
+                          cr, cg, cb, alpha_min, alpha_max);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (!valid[q]) continue;
+            out[px[q]] = cr[q];
+            out[npix + px[q]] = cg[q];
+            out[2 * npix + px[q]] = cb[q];
+            out[3 * npix + px[q]] = T[q];
+            alive |= T[q] >= t_eps;
+          }
+        }
+      }
+  }
+  cp_async_wait_all();
+  // a tile with no chunk to composite: every pixel (0, 0, 0, T = 1)
+  if (j == 0)
+    for (size_t i = tid; i < npix; i += blockDim.x)
+      out[i] = out[npix + i] = out[2 * npix + i] = 0.f, out[3 * npix + i] = 1.f;
+  if (tid == 0) nproc[t] = j;
+}
+
 // fwd_pixel_blocks' threads at this tile size: one per 2x2 pixel block, in
 // whole warps (render/raster.py::fwd_pixel_blocks).
 int map_threads(int tile_size) {
@@ -306,7 +429,9 @@ cudaError_t launch(int num_tiles, int threads, cudaStream_t stream,
   // the staged records (3 float4 a pair) and the copy of the next chunk
   const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk);
   void (*kernel)(COMPOSITE_FWD_ARGS);
-  if constexpr (NPASS == 1) {
+  if constexpr (NPASS == 0) {
+    kernel = composite_fwd_windows<PACK>;
+  } else if constexpr (NPASS == 1) {
     kernel = composite_fwd_kernel<PACK>;
   } else {
     kernel = composite_fwd_passes<NPASS, PACK>;
@@ -328,6 +453,8 @@ cudaError_t launch_passes(int npass, int num_tiles, int threads, cudaStream_t st
                           int tile_size, int chunk, float alpha_min, float alpha_max,
                           float t_eps, float* o, int32_t* n) {
   switch (npass) {
+    case 0: return launch<0, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+                                   alpha_min, alpha_max, t_eps, o, n);
     case 1: return launch<1, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
                                    alpha_min, alpha_max, t_eps, o, n);
     case 2: return launch<2, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
@@ -345,9 +472,10 @@ cudaError_t launch_passes(int npass, int num_tiles, int threads, cudaStream_t st
 // 16-byte aligned, with P a multiple of chunk and every segment inside it;
 // tile_start, tile_count: (num_tiles,) int32; tiles:
 // (num_tiles, 4, tile_size^2) float32; nproc: (num_tiles,) int32.
-// tile_size <= kMaxTile. alpha_min, alpha_max, t_eps: render/raster.py's
-// ALPHA_MIN, ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a tile above kMaxTile).
+// tile_size >= 1: up to kWin in pixel passes (1 to 4), above it in
+// windows. alpha_min, alpha_max, t_eps: render/raster.py's ALPHA_MIN,
+// ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a tile below 1).
 extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     const void* tile_count, int num_tiles,
                                     int tw, int tile_size, int chunk, int packed,
@@ -355,10 +483,11 @@ extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
                                     float t_eps, void* tiles, void* nproc,
                                     void* stream) {
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  if (tile_size < 1 || tile_size > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int virt = map_threads(tile_size);
+  if (tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // pixel passes up to kWin (1 to 4); 0 selects the windows
+  const int virt = tile_size <= kWin ? map_threads(tile_size) : kMaxThreads;
   const int threads = virt < kMaxThreads ? virt : kMaxThreads;
-  const int npass = (virt + kMaxThreads - 1) / kMaxThreads;
+  const int npass = tile_size <= kWin ? (virt + kMaxThreads - 1) / kMaxThreads : 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(attrs);
   const auto* s = static_cast<const int32_t*>(tile_start);

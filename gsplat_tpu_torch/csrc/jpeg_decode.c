@@ -1,11 +1,22 @@
-/* jpeg_decode: a baseline and extended-sequential Huffman JPEG decoder in
- * plain C, the port's JPEG path where the JAX package decodes with PIL.
+/* jpeg_decode: a baseline, extended-sequential and progressive Huffman JPEG
+ * decoder in plain C, the port's JPEG path where the JAX package decodes
+ * with PIL.
  *
  * Host code (no CUDA), built by _build.py's host route with the system C
  * compiler into build/host/ and loaded with ctypes (io/jpeg.py). It returns
  * the bytes `np.asarray(PIL.Image.open(path))` gives, PIL being built on
  * libjpeg-turbo at its defaults: each step follows libjpeg-turbo's C code,
  * whose SIMD paths give the same bits.
+ *   - progressive files (jdphuff.c): DC first and refinement scans, AC
+ *     spectral selection, successive approximation, EOB runs, restart
+ *     intervals inside the scans. The coefficients of the whole image are
+ *     kept until the file ends and then go through the steps below, as
+ *     libjpeg's non-buffered decode reads the whole file before its output
+ *     pass. libjpeg smooths the blocks of a progressive image (jdcoefct.c
+ *     decompress_smooth_data) where some coefficient's last bits were never
+ *     sent; a file whose scans leave any coefficient of a component
+ *     incomplete fails with that reason, and a complete one (every encoder's
+ *     default script) needs no smoothing;
  *   - the JDCT_ISLOW integer IDCT (jidctint.c jpeg_idct_islow), with its
  *     post-IDCT range-limit table (jdmaster.c prepare_range_limit_table);
  *   - fancy upsampling, on by default, so the merged upsampler never runs
@@ -16,21 +27,26 @@
  *     (jdmainct.c's context pointers);
  *   - the table-driven YCbCr -> RGB conversion (jdcolor.c ycc_rgb_convert);
  *   - the colour space libjpeg-turbo infers (jdapimin.c
- *     default_decompress_parms): a JFIF APP0 means YCbCr; else an Adobe
- *     APP14 with transform 0 means RGB (no conversion), any other YCbCr;
- *     else component ids 'R', 'G', 'B' mean RGB, anything else YCbCr.
+ *     default_decompress_parms): 3 components: a JFIF APP0 means YCbCr;
+ *     else an Adobe APP14 with transform 0 means RGB (no conversion), any
+ *     other YCbCr; else component ids 'R', 'G', 'B' mean RGB, anything else
+ *     YCbCr. 4 components: an Adobe APP14 with a nonzero transform means
+ *     YCCK (jdcolor.c ycck_cmyk_convert), else CMYK; PIL then inverts all
+ *     four channels (its "CMYK;I" raw mode, Adobe's convention), so the
+ *     result is (H, W, 4).
  * APPn and COM segments are skipped: EXIF orientation is not applied, as
  * PIL's decode does not apply it.
  *
- * Supported: 8-bit samples, 1 or 3 components, sampling 4:4:4, 4:2:2
+ * Supported: 8-bit samples, 1, 3 or 4 components, sampling 4:4:4, 4:2:2
  * (h2v1), 4:2:0 (h2v2) and 4:4:0 (h1v2) (any factors whose ratio to the
  * largest is 1 or 2 in each direction), interleaved or one scan a
  * component, restart intervals, partial MCUs at the right and bottom
- * edges. Everything else fails with a message: progressive, lossless,
- * hierarchical and arithmetic-coded files, 12-bit samples, 2 or 4
- * components (CMYK, YCCK), other sampling ratios, DNL, and a truncated or
- * corrupt stream (a missing EOI, entropy-coded data that runs past its
- * segment, a bad Huffman code or table, a wrong restart marker).
+ * edges. Everything else fails with a message: lossless, hierarchical and
+ * arithmetic-coded files, 12-bit samples, 2 components, other sampling
+ * ratios, DNL, a progressive file whose scans leave a coefficient
+ * incomplete or break the progression's rules, and a truncated or corrupt
+ * stream (a missing EOI, entropy-coded data that runs past its segment, a
+ * bad Huffman code or table, a wrong restart marker).
  *
  * Entry points (plain C ABI):
  *   jpeg_header(data, size, &w, &h, &channels, err, errlen)
@@ -71,6 +87,8 @@ typedef struct {
   int coded;       /* appeared in a scan */
   int latched;     /* its quantisation table copied at its first scan */
   uint16_t q[64];  /* that table, natural order */
+  int coef_bits[64]; /* progressive: the Al of the last scan that coded each
+                        coefficient (zigzag order), -1 before any */
   int16_t* coef;   /* bh * bw blocks of 64, natural order */
   uint8_t* plane;  /* (bh * 8) x (bw * 8) samples after the IDCT */
 } comp_t;
@@ -86,7 +104,9 @@ typedef struct {
   int at_marker;
   /* frame */
   int sof, W, H, ncomp, hmax, vmax, mcux, mcuy;
-  comp_t comp[3];
+  int progressive; /* SOF2 */
+  int eobrun;      /* progressive: blocks left in the current EOB run */
+  comp_t comp[4];
   uint16_t qt[4][64];
   int qt_present[4];
   huff_t dc[4], ac[4];
@@ -106,7 +126,7 @@ static void fail(dec_t* d, const char* fmt, ...) {
 }
 
 static void free_all(dec_t* d) {
-  for (int c = 0; c < 3; ++c) {
+  for (int c = 0; c < 4; ++c) {
     free(d->comp[c].coef);
     free(d->comp[c].plane);
     d->comp[c].coef = NULL;
@@ -233,9 +253,9 @@ static void parse_sof(dec_t* d, int marker) {
   d->ncomp = s[5];
   if (precision != 8)
     fail(d, "%d-bit samples are not supported (8-bit JPEG only)", precision);
-  if (d->ncomp != 1 && d->ncomp != 3)
-    fail(d, "%d components are not supported (grayscale or 3-component colour only; "
-            "CMYK and YCCK are not)", d->ncomp);
+  if (d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4)
+    fail(d, "%d components are not supported (grayscale, 3-component colour, CMYK or "
+            "YCCK only)", d->ncomp);
   if (d->H == 0) fail(d, "a height defined by a DNL marker is not supported");
   if (d->W == 0) fail(d, "corrupt frame header (width 0)");
   if (len < 6 + 3 * d->ncomp) fail(d, "truncated frame header");
@@ -251,18 +271,20 @@ static void parse_sof(dec_t* d, int marker) {
            k->v, k->tq);
     if (k->h > d->hmax) d->hmax = k->h;
     if (k->v > d->vmax) d->vmax = k->v;
+    for (int i = 0; i < 64; ++i) k->coef_bits[i] = -1;
   }
   for (int c = 0; c < d->ncomp; ++c) {
     comp_t* k = &d->comp[c];
     const int rh = d->hmax / k->h, rv = d->vmax / k->v;
     if (d->ncomp > 1 && (d->hmax % k->h || d->vmax % k->v || rh > 2 || rv > 2))
-      fail(d, "sampling factors %dx%d,%dx%d,%dx%d are not supported (4:4:4, 4:2:2, "
-              "4:2:0 and 4:4:0 only)", d->comp[0].h, d->comp[0].v, d->comp[1].h,
-           d->comp[1].v, d->comp[2].h, d->comp[2].v);
+      fail(d, "sampling factors %dx%d of component %d under a %dx%d maximum are not "
+              "supported (4:4:4, 4:2:2, 4:2:0 and 4:4:0 only)", k->h, k->v, c, d->hmax,
+           d->vmax);
   }
   d->mcux = (d->W + 8 * d->hmax - 1) / (8 * d->hmax);
   d->mcuy = (d->H + 8 * d->vmax - 1) / (8 * d->vmax);
   d->sof = marker;
+  d->progressive = marker == 0xC2;
 }
 
 static void parse_app(dec_t* d, int marker) {
@@ -362,6 +384,97 @@ static void decode_block(dec_t* d, comp_t* k, int16_t* blk) {
   }
 }
 
+/* ---- progressive scans (jdphuff.c) ---- */
+
+/* decode_mcu_DC_first: the DC difference, shifted up by Al */
+static void decode_dc_first(dec_t* d, comp_t* k, int16_t* blk, int al) {
+  const int s = decode_huff(d, &d->dc[k->td]);
+  k->pred += s ? extend(get_bits(d, s), s) : 0;
+  blk[0] = (int16_t)((uint32_t)k->pred << al);
+}
+
+/* decode_mcu_DC_refine: one more bit of the DC */
+static void decode_dc_refine(dec_t* d, int16_t* blk, int al) {
+  if (get_bits(d, 1)) blk[0] = (int16_t)(blk[0] | (1 << al));
+}
+
+/* decode_mcu_AC_first: coefficients ss..se (zigzag), shifted up by Al, or
+ * one block of an EOB run */
+static void decode_ac_first(dec_t* d, comp_t* k, int16_t* blk, int ss, int se, int al) {
+  if (d->eobrun > 0) {
+    --d->eobrun;
+    return;
+  }
+  const huff_t* ac = &d->ac[k->ta];
+  for (int i = ss; i <= se; ++i) {
+    const int rs = decode_huff(d, ac);
+    const int r = rs >> 4, sz = rs & 15;
+    if (sz) {
+      i += r;
+      if (i > se) fail(d, "corrupt entropy-coded data (a run past the band's end)");
+      blk[kNatural[i]] = (int16_t)((uint32_t)extend(get_bits(d, sz), sz) << al);
+    } else if (r == 15) {
+      i += 15;
+    } else {
+      d->eobrun = (1 << r) - 1;
+      if (r) d->eobrun += get_bits(d, r);
+      break;
+    }
+  }
+}
+
+/* A correction bit for nonzero coefficient c: 1 adds 2^Al to its magnitude
+ * (unless a bit of that weight is there already) */
+static void refine_nonzero(dec_t* d, int16_t* c, int p1) {
+  if (get_bits(d, 1) && (*c & p1) == 0) *c = (int16_t)(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+/* decode_mcu_AC_refine: the next bit of coefficients ss..se: new ones of
+ * magnitude 2^Al where a code places them, a correction bit for every one
+ * already nonzero that the band passes over */
+static void decode_ac_refine(dec_t* d, comp_t* k, int16_t* blk, int ss, int se, int al) {
+  const int p1 = 1 << al;
+  int i = ss;
+  if (d->eobrun == 0) {
+    const huff_t* ac = &d->ac[k->ta];
+    for (; i <= se; ++i) {
+      const int rs = decode_huff(d, ac);
+      int r = rs >> 4, v = 0;
+      if (rs & 15) {
+        if ((rs & 15) != 1)
+          fail(d, "corrupt entropy-coded data (a refinement coefficient of size %d)",
+               rs & 15);
+        v = get_bits(d, 1) ? p1 : -p1;
+      } else if (r != 15) {
+        d->eobrun = 1 << r;
+        if (r) d->eobrun += get_bits(d, r);
+        break;
+      }
+      /* pass over r zero coefficients (and every nonzero one between them,
+       * each with its correction bit) to the one the code names */
+      do {
+        int16_t* c = blk + kNatural[i];
+        if (*c != 0) {
+          refine_nonzero(d, c, p1);
+        } else if (--r < 0) {
+          break;
+        }
+        ++i;
+      } while (i <= se);
+      if (v) {
+        if (i > se) fail(d, "corrupt entropy-coded data (a run past the band's end)");
+        blk[kNatural[i]] = (int16_t)v;
+      }
+    }
+  }
+  if (d->eobrun > 0) {
+    /* in an EOB run: correction bits for the rest of the band */
+    for (; i <= se; ++i)
+      if (blk[kNatural[i]] != 0) refine_nonzero(d, blk + kNatural[i], p1);
+    --d->eobrun;
+  }
+}
+
 /* The end of a restart interval or scan: no bit read past the segment,
  * then the bit buffer's padding dropped. */
 static void end_interval(dec_t* d) {
@@ -373,6 +486,30 @@ static void end_interval(dec_t* d) {
   d->at_marker = 0;
 }
 
+/* A progressive scan's spectral selection and approximation, checked as
+ * jdphuff.c start_pass_phuff_decoder checks them, and its components'
+ * progression (what libjpeg only warns of fails here) */
+static void check_progression(dec_t* d, comp_t** sc, int ns, int ss, int se, int ah,
+                              int al) {
+  const int dc = ss == 0;
+  if ((dc && se != 0) || (!dc && (ss > se || se > 63 || ns != 1)) ||
+      (ah != 0 && al != ah - 1) || al > 13)
+    fail(d, "corrupt progressive scan header (spectral selection %d..%d, approximation "
+            "%d/%d, %d components)", ss, se, ah, al, ns);
+  for (int i = 0; i < ns; ++i) {
+    comp_t* k = sc[i];
+    if (!dc && k->coef_bits[0] < 0)
+      fail(d, "corrupt progression (an AC scan of component %d before its DC)", k->id);
+    for (int c = ss; c <= se; ++c) {
+      const int expected = k->coef_bits[c] < 0 ? 0 : k->coef_bits[c];
+      if (ah != expected)
+        fail(d, "corrupt progression (coefficient %d of component %d refined from bit %d, "
+                "its last scan sent down to bit %d)", c, k->id, ah, k->coef_bits[c]);
+      k->coef_bits[c] = al;
+    }
+  }
+}
+
 static void parse_sos(dec_t* d) {
   int len;
   const uint8_t* s = segment(d, &len);
@@ -380,7 +517,9 @@ static void parse_sos(dec_t* d) {
   if (len < 1) fail(d, "truncated scan header");
   const int ns = s[0];
   if (ns < 1 || ns > d->ncomp || len < 4 + 2 * ns) fail(d, "corrupt scan header");
-  comp_t* sc[3];
+  const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
+            al = s[3 + 2 * ns] & 15;
+  comp_t* sc[4];
   for (int i = 0; i < ns; ++i) {
     const int id = s[1 + 2 * i], tabs = s[2 + 2 * i];
     comp_t* k = NULL;
@@ -391,10 +530,16 @@ static void parse_sos(dec_t* d) {
       if (sc[j] == k) fail(d, "corrupt scan header (component %d twice)", id);
     k->td = tabs >> 4;
     k->ta = tabs & 15;
-    if (k->td > 3 || k->ta > 3 || !d->dc[k->td].present || !d->ac[k->ta].present)
+    /* the tables the scan decodes with: both in a sequential scan; a DC
+     * first scan's DC table, an AC scan's AC table, none to refine a DC */
+    const int need_dc = !d->progressive || (ss == 0 && ah == 0);
+    const int need_ac = !d->progressive || ss != 0;
+    if (k->td > 3 || k->ta > 3 || (need_dc && !d->dc[k->td].present) ||
+        (need_ac && !d->ac[k->ta].present))
       fail(d, "corrupt scan header (Huffman tables %d/%d of component %d not defined)",
            k->td, k->ta, id);
-    if (k->coded) fail(d, "component %d in two scans (not a sequential JPEG)", id);
+    if (k->coded && !d->progressive)
+      fail(d, "component %d in two scans (not a sequential JPEG)", id);
     if (!k->latched) {
       if (!d->qt_present[k->tq])
         fail(d, "corrupt file (quantisation table %d not defined)", k->tq);
@@ -405,9 +550,9 @@ static void parse_sos(dec_t* d) {
     k->coded = 1;
     sc[i] = k;
   }
-  const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4,
-            al = s[3 + 2 * ns] & 15;
-  if (ss != 0 || se != 63 || ah != 0 || al != 0)
+  if (d->progressive)
+    check_progression(d, sc, ns, ss, se, ah, al);
+  else if (ss != 0 || se != 63 || ah != 0 || al != 0)
     fail(d, "corrupt scan header (spectral selection %d..%d, approximation %d/%d)", ss, se,
          ah, al);
 
@@ -425,6 +570,7 @@ static void parse_sos(dec_t* d) {
   d->nbits = 0;
   d->fake = 0;
   d->at_marker = 0;
+  d->eobrun = 0;
   for (long m = 0; m < total; ++m) {
     if (d->restart_interval && m > 0 && m % d->restart_interval == 0) {
       end_interval(d);
@@ -434,6 +580,7 @@ static void parse_sos(dec_t* d) {
              rst, mk);
       rst = (rst + 1) & 7;
       for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+      d->eobrun = 0;
     }
     const int mx = (int)(m % nx), my = (int)(m / nx);
     for (int i = 0; i < ns; ++i) {
@@ -441,8 +588,15 @@ static void parse_sos(dec_t* d) {
       const int bx0 = ns == 1 ? mx : mx * k->h, by0 = ns == 1 ? my : my * k->v;
       const int hh = ns == 1 ? 1 : k->h, vv = ns == 1 ? 1 : k->v;
       for (int by = 0; by < vv; ++by)
-        for (int bx = 0; bx < hh; ++bx)
-          decode_block(d, k, k->coef + ((size_t)(by0 + by) * k->bw + bx0 + bx) * 64);
+        for (int bx = 0; bx < hh; ++bx) {
+          int16_t* blk = k->coef + ((size_t)(by0 + by) * k->bw + bx0 + bx) * 64;
+          if (!d->progressive)
+            decode_block(d, k, blk);
+          else if (ss == 0)
+            ah ? decode_dc_refine(d, blk, al) : decode_dc_first(d, k, blk, al);
+          else
+            ah ? decode_ac_refine(d, k, blk, ss, se, al) : decode_ac_first(d, k, blk, ss, se, al);
+        }
     }
   }
   end_interval(d);
@@ -648,15 +802,19 @@ static void upsample_row(const dec_t* d, const comp_t* k, int y, uint8_t* out) {
 static uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
 
 static void convert(dec_t* d, uint8_t* out) {
-  const int W = d->W, H = d->H;
-  if (d->ncomp == 1) {
+  const int W = d->W, H = d->H, nc = d->ncomp;
+  if (nc == 1) {
     const comp_t* k = &d->comp[0];
     for (int y = 0; y < H; ++y) memcpy(out + (size_t)y * W, k->plane + (size_t)y * k->bw * 8,
                                        (size_t)W);
     return;
   }
+  /* 3 components: RGB, or YCbCr to convert; 4: CMYK, or YCCK whose first
+   * three convert (default_decompress_parms) */
   int rgb;
-  if (d->jfif) {
+  if (nc == 4) {
+    rgb = !(d->adobe && d->adobe_transform != 0);
+  } else if (d->jfif) {
     rgb = 0;
   } else if (d->adobe) {
     rgb = d->adobe_transform == 0;
@@ -677,14 +835,33 @@ static void convert(dec_t* d, uint8_t* out) {
     cb_g[i] = -f_gb * x + one_half;
   }
   const size_t rowlen = (size_t)2 * d->W + 64;
-  uint8_t* rows = alloc(d, 3 * rowlen);
+  uint8_t* rows = alloc(d, (size_t)nc * rowlen);
   for (int y = 0; y < H; ++y) {
-    uint8_t* r[3];
-    for (int c = 0; c < 3; ++c) {
+    uint8_t* r[4];
+    for (int c = 0; c < nc; ++c) {
       r[c] = rows + c * rowlen;
       upsample_row(d, &d->comp[c], y, r[c]);
     }
-    uint8_t* o = out + (size_t)y * W * 3;
+    uint8_t* o = out + (size_t)y * W * nc;
+    if (nc == 4) {
+      /* CMYK, or YCCK -> CMYK (jdcolor.c ycck_cmyk_convert: the YCbCr
+       * conversion of the first three subtracted from 255, K as it is),
+       * then PIL's CMYK;I inversion of all four */
+      for (int x = 0; x < W; ++x) {
+        uint8_t* q = o + 4 * x;
+        if (rgb) {
+          q[0] = r[0][x], q[1] = r[1][x], q[2] = r[2][x];
+        } else {
+          const int yy = r[0][x], cb = r[1][x], cr = r[2][x];
+          q[0] = clamp255(255 - (yy + cr_r[cr]));
+          q[1] = clamp255(255 - (yy + (int)((cb_g[cb] + cr_g[cr]) >> 16)));
+          q[2] = clamp255(255 - (yy + cb_b[cb]));
+        }
+        q[3] = r[3][x];
+        for (int c = 0; c < 4; ++c) q[c] = (uint8_t)(255 - q[c]);
+      }
+      continue;
+    }
     if (rgb) {
       for (int x = 0; x < W; ++x) o[3 * x] = r[0][x], o[3 * x + 1] = r[1][x], o[3 * x + 2] = r[2][x];
       continue;
@@ -709,15 +886,13 @@ static void run(dec_t* d, int header_only) {
   d->p += 2;
   for (;;) {
     const int m = next_marker(d);
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       parse_sof(d, m);
-    } else if (m == 0xC2 || m == 0xCA) {
-      fail(d, "progressive JPEG (SOF%d) is not supported", m - 0xC0);
     } else if (m == 0xC3 || m == 0xCB) {
       fail(d, "lossless JPEG (SOF%d) is not supported", m - 0xC0);
     } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCD || m == 0xCE || m == 0xCF) {
       fail(d, "hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
-    } else if (m == 0xC9 || m == 0xCC) {
+    } else if (m == 0xC9 || m == 0xCA || m == 0xCC) {
       fail(d, "arithmetic-coded JPEG (marker 0x%02X) is not supported", m);
     } else if (m == 0xC4) {
       parse_dht(d);
@@ -760,8 +935,15 @@ static void run(dec_t* d, int header_only) {
     }
   }
   if (!d->sof) fail(d, "corrupt file (no frame header before EOI)");
-  for (int c = 0; c < d->ncomp; ++c)
-    if (!d->comp[c].coded) fail(d, "corrupt file (component %d has no scan)", d->comp[c].id);
+  for (int c = 0; c < d->ncomp; ++c) {
+    const comp_t* k = &d->comp[c];
+    if (!k->coded) fail(d, "corrupt file (component %d has no scan)", k->id);
+    for (int i = 0; d->progressive && i < 64; ++i)
+      if (k->coef_bits[i] != 0)
+        fail(d, "progressive JPEG whose scans leave coefficient %d of component %d %s: "
+                "libjpeg would smooth its blocks (not supported)", i, k->id,
+             k->coef_bits[i] < 0 ? "never sent" : "without its last bits");
+  }
 }
 
 static void init(dec_t* d, const uint8_t* data, size_t size, char* err, int errlen) {

@@ -58,16 +58,25 @@ class SceneInfo:
 
 
 def load_image_rgb(path: str | Path) -> np.ndarray:
-    """Decode an image to float32 in [0,1], with the channels the file has
-    (what the JAX package's PIL path gives: (H,W) grayscale, (H,W,3) RGB,
-    (H,W,4) RGBA, which the camera later puts over its background)."""
+    """Decode an image to float32, PIL's array / 255 with the channels the
+    file has: what the JAX package's PIL path gives. PNG (io/png.py): every
+    bit depth and colour type, interlaced or not; (H,W) grayscale, (H,W,2)
+    LA, (H,W,3) RGB, (H,W,4) RGBA (and 16-bit LA), which the camera later
+    puts over its background; as PIL's array divides, a 16-bit grayscale
+    file's values reach 257 and a 1-bit one's are 0 and 1/255. JPEG
+    (io/jpeg.py): baseline, extended-sequential and progressive Huffman
+    files, (H,W) grayscale, (H,W,3) colour, (H,W,4) CMYK and YCCK (which
+    the camera treats as RGBA, as the JAX package does). Any other image
+    type (TIFF, BMP, WebP, ...), and the PNG and JPEG kinds those modules
+    refuse, raise an error that names the file."""
     name = str(path)
     if name.lower().endswith(".png"):
         arr = png.read_png(path)
     elif name.lower().endswith((".jpg", ".jpeg")):
         arr = jpeg.read_jpeg(path)
     else:
-        raise ValueError(f"{name}: no decoder for this image type (PNG and JPEG only)")
+        raise ValueError(f"{name}: no decoder for this image type (PNG and JPEG only; not "
+                         "TIFF, BMP, WebP or any other type PIL opens)")
     return np.asarray(arr, dtype=np.float32) / 255.0
 
 

@@ -3,15 +3,19 @@ JPEG images of real captures, where the JAX package decodes with PIL (the
 machine with the GPU has no Pillow).
 
 `decode_jpeg` and `read_jpeg` return what `np.asarray(PIL.Image.open(path))`
-returns for a baseline or extended-sequential Huffman JPEG of 8-bit
-samples: uint8 (H, W, 3) for a colour file, (H, W) for a grayscale one,
-the same bits as PIL on libjpeg-turbo (its integer IDCT, fancy upsampling,
-table-driven colour conversion; EXIF orientation is not applied). The
-decoder is C (csrc/jpeg_decode.c), built with the host's C compiler at
-first use (_build.load_host). Progressive, lossless, hierarchical and
-arithmetic-coded files, 12-bit samples, CMYK and YCCK, sampling other than
-4:4:4, 4:2:2, 4:2:0 and 4:4:0, and a truncated or corrupt stream raise
-`JPEGError` with the file's name and the reason: no image is made up.
+returns for a baseline, extended-sequential or progressive Huffman JPEG of
+8-bit samples: uint8 (H, W, 3) for a colour file, (H, W) for a grayscale
+one, (H, W, 4) for CMYK and YCCK (PIL's CMYK, its channels inverted as
+PIL's "CMYK;I" inverts them), the same bits as PIL on libjpeg-turbo (its
+integer IDCT, fancy upsampling, table-driven colour conversion; EXIF
+orientation is not applied). The decoder is C (csrc/jpeg_decode.c), built
+with the host's C compiler at first use (_build.load_host). Lossless,
+hierarchical and arithmetic-coded files, 12-bit samples (which PIL does not
+open either), 2 components, sampling other than 4:4:4, 4:2:2, 4:2:0 and
+4:4:0, a progressive file whose scans leave a coefficient incomplete (which
+libjpeg would smooth) or break the progression's rules, and a truncated or
+corrupt stream raise `JPEGError` with the file's name and the reason: no
+image is made up.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> uint8 (H, W, 3) or (H, W); `name` goes into errors."""
+    """JPEG bytes -> uint8 (H, W, 3), (H, W, 4) or (H, W); `name` goes into
+    errors."""
     lib = _lib()
     err = ctypes.create_string_buffer(_ERRLEN)
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

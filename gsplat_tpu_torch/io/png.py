@@ -1,15 +1,21 @@
 """A PNG codec with zlib and struct only: the port's image path where the
 JAX package uses PIL (the machine with the GPU has no Pillow).
 
-`read_png` returns what `np.asarray(PIL.Image.open(path))` returns for a
-non-interlaced PNG of 8 bits a sample: uint8 (H, W) for grayscale (L) and
-for palette images (P: the palette indices, as PIL gives them; palettes of
-1, 2 and 4 bits too), (H, W, 2) for LA, (H, W, 3) for RGB, (H, W, 4) for
-RGBA. A tRNS chunk leaves the channels as they are, as PIL leaves them.
-Any other bit depth (grayscale of 1, 2 or 4 bits, 16 bits), an
-Adam7-interlaced file, a bad chunk CRC, a truncated file or a bad zlib
-stream raises `PNGError` with the file's name and the kind: no image is
-made up.
+`read_png` returns what `np.asarray(PIL.Image.open(path))` returns, dtype
+included, for every bit depth and colour type of the format, interlaced
+(Adam7) or not:
+  - grayscale: uint8 (H, W) at 8 bits; at 2 and 4 bits the samples scaled
+    to 0-255 (x 85, x 17: PIL's L); at 1 bit a bool array (PIL's mode 1);
+    at 16 bits uint16 (PIL's I;16, so values reach 65535);
+  - palette (P) of 1, 2, 4 or 8 bits: uint8 (H, W) palette indices;
+  - LA: uint8 (H, W, 2) at 8 bits; at 16 bits (H, W, 4) uint8 (L, L, L, A)
+    high bytes (PIL opens it as RGBA);
+  - RGB, RGBA: uint8 (H, W, 3) and (H, W, 4); at 16 bits their high bytes.
+A tRNS chunk leaves the channels as they are, as PIL leaves them. A bit
+depth the format does not allow for the colour type, an unknown colour
+type, filter or interlace method, a bad chunk CRC, a truncated file or a
+bad zlib stream raises `PNGError` with the file's name and the kind: no
+image is made up.
 
 `write_png` encodes an 8-bit RGB image; each row's filter type is chosen by
 the caller (Up by default). Decoding a file written here, by PIL or by
@@ -21,7 +27,9 @@ a few whole-array steps (Sub a cumsum mod 256 along the row, Up a cumsum
 down each run of Up rows). Average and Paeth take the decoded left
 neighbour: byte (r, j) depends on (r, j-1), (r-1, j) and (r-1, j-1) only,
 so an image that uses them decodes along anti-diagonals r + j = k, each a
-strided view of the padded image, in H + W - 1 numpy steps.
+strided view of the padded image, in H + W - 1 numpy steps. An interlaced
+image is seven such reduced images (the Adam7 passes), each unfiltered on
+its own and put in place with one strided assignment.
 """
 
 from __future__ import annotations
@@ -34,10 +42,15 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> (channels, the kind as an error message names it)
-COLOR_TYPES = {0: (1, "grayscale (L)"), 2: (3, "RGB"), 3: (1, "palette (P)"),
-               4: (2, "grayscale with alpha (LA)"), 6: (4, "RGBA")}
+# colour type -> (channels, the kind as an error message names it, the bit
+# depths the format allows for it)
+COLOR_TYPES = {0: (1, "grayscale (L)", (1, 2, 4, 8, 16)), 2: (3, "RGB", (8, 16)),
+               3: (1, "palette (P)", (1, 2, 4, 8)),
+               4: (2, "grayscale with alpha (LA)", (8, 16)), 6: (4, "RGBA", (8, 16))}
 NONE, SUB, UP, AVERAGE, PAETH = range(5)
+# the Adam7 passes: (x0, y0, dx, dy) of the pixels each one holds
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 class PNGError(ValueError):
@@ -113,8 +126,40 @@ def _unfilter(ftype: np.ndarray, filt: np.ndarray, width: int, bpp: int) -> np.n
     return out.astype(np.uint8).reshape(height, width * bpp)
 
 
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows (h, stride) uint8 -> (h, width, channels) samples:
+    uint8, or uint16 at 16 bits (big-endian in the file)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return np.ascontiguousarray(rows).view(">u2").astype(np.uint16).reshape(
+            h, width, channels)
+    if depth < 8:
+        # packed high bits first, rows padded to a byte
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :width, None]
+    return rows.reshape(h, width, channels)
+
+
+def _as_pil(img: np.ndarray, ctype: int, depth: int) -> np.ndarray:
+    """(H, W, channels) samples -> the array PIL gives (module docstring)."""
+    if ctype == 3:
+        return img[..., 0]
+    if ctype == 0:
+        if depth == 1:
+            return img[..., 0].astype(bool)
+        if depth < 8:
+            return img[..., 0] * np.uint8(255 // ((1 << depth) - 1))
+        return img[..., 0]
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:
+            return img[..., [0, 0, 0, 1]]
+    return img
+
+
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG file bytes -> the uint8 array PIL gives for them (see the module
+    """PNG file bytes -> the array PIL gives for them (see the module
     docstring); `name` is the file named in errors."""
     header, idat = None, []
     for kind, body in _chunks(data, name):
@@ -127,34 +172,40 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     width, height, depth, ctype, _, _, interlace = header
     if ctype not in COLOR_TYPES:
         raise PNGError(f"{name}: unknown PNG colour type {ctype}")
-    channels, kind = COLOR_TYPES[ctype]
-    if depth != 8 and not (ctype == 3 and depth in (1, 2, 4)):
-        raise PNGError(f"{name}: {depth}-bit {kind} PNG is not supported (8-bit, and "
-                       "palettes of 1, 2 and 4 bits, only)")
-    if interlace:
-        raise PNGError(f"{name}: Adam7-interlaced {kind} PNG is not supported")
+    channels, kind, depths = COLOR_TYPES[ctype]
+    if depth not in depths:
+        raise PNGError(f"{name}: {depth}-bit {kind} PNG is not a valid PNG (depths "
+                       f"{', '.join(map(str, depths))} only)")
+    if interlace not in (0, 1):
+        raise PNGError(f"{name}: unknown PNG interlace method {interlace}")
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise PNGError(f"{name}: bad zlib stream in its IDAT chunks ({e})") from e
-    stride = (width * channels * depth + 7) // 8
-    if len(raw) != height * (stride + 1):
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(width - x0) // dx) if width > x0 else 0,
+              -(-(height - y0) // dy) if height > y0 else 0) for x0, y0, dx, dy in passes]
+    strides = [(pw * channels * depth + 7) // 8 for pw, _ in sizes]
+    want = sum(ph * (st + 1) for (pw, ph), st in zip(sizes, strides) if pw and ph)
+    if len(raw) != want:
         raise PNGError(f"{name}: {len(raw)} bytes of image data for a {width}x{height} "
-                       f"{depth}-bit {kind} image (want {height * (stride + 1)})")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    ftype = rows[:, 0]
-    if (ftype > PAETH).any():
-        raise PNGError(f"{name}: unknown row filter type {int(ftype.max())}")
+                       f"{depth}-bit {kind} image{' (Adam7)' if interlace else ''} "
+                       f"(want {want})")
+    img = np.empty((height, width, channels), np.uint16 if depth == 16 else np.uint8)
     # filters work on whole bytes: a pixel's, or one byte below 8 bits
     unit = max(channels * depth // 8, 1)
-    data = _unfilter(ftype, rows[:, 1:], stride // unit, unit)
-    if depth < 8:
-        # palette indices packed high bits first, rows padded to a byte
-        bits = np.unpackbits(data, axis=1).reshape(height, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :width]
-    img = data.reshape(height, width, channels)
-    return img[..., 0] if channels == 1 else img
+    off = 0
+    for (x0, y0, dx, dy), (pw, ph), stride in zip(passes, sizes, strides):
+        if not pw or not ph:
+            continue
+        rows = np.frombuffer(raw, np.uint8, ph * (stride + 1), off).reshape(ph, stride + 1)
+        off += ph * (stride + 1)
+        ftype = rows[:, 0]
+        if (ftype > PAETH).any():
+            raise PNGError(f"{name}: unknown row filter type {int(ftype.max())}")
+        img[y0::dy, x0::dx] = _samples(_unfilter(ftype, rows[:, 1:], stride // unit, unit),
+                                       pw, channels, depth)
+    return _as_pil(img, ctype, depth)
 
 
 def read_png(path: Union[str, Path]) -> np.ndarray:

@@ -53,9 +53,10 @@ SKIP_MARGIN = 1e-3
 # tiles per step of the plain compositor at tiles up to 32 (fewer above):
 # bounds its (tiles, chunk, pixels) temporaries to a few hundred MB at chunk 128
 _PLAIN_TILE_BATCH = 256
-# the kernels' largest tile: 256 threads, each a 2x2 pixel block in each of
-# up to four pixel passes
-MAX_TILE = 64
+# the kernels run a tile up to WINDOW in pixel passes (256 threads, each a
+# 2x2 pixel block in each of up to four passes), a larger one in windows of
+# at most WINDOW x WINDOW pixels (tile_windows)
+WINDOW = 64
 # the packed pair table's width and its gid column
 PACKED_IN_DIM = 8
 PACKED_GID_COL = 7
@@ -95,13 +96,6 @@ packed_bwd_count = LaunchCount()
 
 def _plain_tile_batch(npix: int) -> int:
     return max(1, _PLAIN_TILE_BATCH * 1024 // max(npix, 1024))
-
-
-def _check_tile(tile_size: int) -> None:
-    if not 1 <= tile_size <= MAX_TILE:
-        raise ValueError(
-            f"tile_size {tile_size}: the compositing kernels run 256 threads of 2x2 "
-            f"pixel blocks in at most four pixel passes, tiles up to {MAX_TILE}x{MAX_TILE}")
 
 
 def pack_attrs(mean2d, conic, rgb, opacity) -> torch.Tensor:
@@ -237,30 +231,54 @@ def skip_threshold(op: torch.Tensor) -> torch.Tensor:
     return torch.where(op > 0, thr - SKIP_MARGIN, torch.inf)
 
 
-def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
-    """composite_fwd's and composite_bwd's launch geometry: (threads, 4)
-    int64, the tile pixels (y * tile_size + x) of each map thread's 2x2
-    block in the order (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 +
-    1); -1 where a block passes the tile or a thread rounds the block count
-    up to whole warps. Tiles whose side is a multiple of 16 give each warp a
-    16x8-pixel rectangle, others go row-major over blocks
-    (csrc/composite_fwd.cu::block_origin). Map thread t's warp is t // 32.
-    The kernels launch min(threads, 256) threads and run map thread t as
-    thread t % 256 in pixel pass t // 256 (one pass up to tile 32, four at
-    tile 64)."""
-    nbx = (tile_size + 1) // 2
-    threads = -(-nbx * nbx // 32) * 32
+def tile_windows(tile_size: int):
+    """The windows the kernels cut a tile into: [(x, y, w, h)] in pixels,
+    row-major; the whole tile up to WINDOW, else windows of WINDOW x WINDOW
+    and narrower ones at the right and bottom (tile 96: 64 + 32 each way)."""
+    if tile_size <= WINDOW:
+        return [(0, 0, tile_size, tile_size)]
+    return [(x, y, min(WINDOW, tile_size - x), min(WINDOW, tile_size - y))
+            for y in range(0, tile_size, WINDOW) for x in range(0, tile_size, WINDOW)]
+
+
+def _block_map(w: int, h: int) -> torch.Tensor:
+    """The map of a w x h rectangle (a tile, or a window): (threads, 4)
+    int64 pixels (y * w + x) of each map thread's 2x2 block, -1 past the
+    rectangle or the block count (rounded up to whole warps)."""
+    nbx, nby = (w + 1) // 2, (h + 1) // 2
+    threads = -(-nbx * nby // 32) * 32
     tid = torch.arange(threads)
-    if tile_size % 16 == 0:
-        warp, lane, wpr = tid // 32, tid % 32, tile_size // 16
+    if w % 16 == 0 and h % 8 == 0:
+        warp, lane, wpr = tid // 32, tid % 32, w // 16
         x0 = (warp % wpr) * 16 + (lane % 8) * 2
         y0 = (warp // wpr) * 8 + (lane // 8) * 2
     else:
         x0, y0 = (tid % nbx) * 2, (tid // nbx) * 2
     x = x0[:, None] + torch.tensor([0, 1, 0, 1])
     y = y0[:, None] + torch.tensor([0, 0, 1, 1])
-    ok = (tid[:, None] < nbx * nbx) & (x < tile_size) & (y < tile_size)
-    return torch.where(ok, y * tile_size + x, -1)
+    ok = (tid[:, None] < nbx * nby) & (x < w) & (y < h)
+    return torch.where(ok, y * w + x, -1)
+
+
+def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
+    """composite_fwd's and composite_bwd's launch geometry: (threads, 4)
+    int64, the tile pixels (y * tile_size + x) of each map thread's 2x2
+    block in the order (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 +
+    1); -1 where a block passes the tile or a thread rounds the block count
+    up to whole warps. Each window of tile_windows is mapped as a tile of
+    its size: a width that is a multiple of 16 and a height that is a
+    multiple of 8 give each warp a 16x8-pixel rectangle, others go
+    row-major over blocks (csrc/composite_fwd.cu::block_origin); the
+    windows' maps follow one another. Map thread t's warp is t // 32. Up to
+    tile 64 the kernels launch min(threads, 256) threads and run map thread
+    t as thread t % 256 in pixel pass t // 256 (one pass up to tile 32,
+    four at tile 64); above it 256 threads run each window's map threads in
+    units of 256, window after window."""
+    maps = []
+    for x, y, w, h in tile_windows(tile_size):
+        m = _block_map(w, h)
+        maps.append(torch.where(m >= 0, (m // w + y) * tile_size + m % w + x, -1))
+    return torch.cat(maps)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
@@ -286,7 +304,6 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
     if P % chunk:
         raise ValueError(f"pair table rows {P} are not a multiple of chunk {chunk}")
     npix = tile_size * tile_size
-    _check_tile(tile_size)
     for tab in (tile_start, tile_count):
         if tab.dtype != torch.int32 or not tab.is_contiguous() or tab.device != attrs.device:
             raise ValueError("tile tables must be contiguous int32 on the table's device")
@@ -319,6 +336,19 @@ def d_table_prefilled(p_out: int, device) -> torch.Tensor:
     return d
 
 
+def _conic_mean_grads(dU, mxl, myl, ca, cb, cc):
+    """The basis sums dU (..., 6) about an origin, and the pair's mean
+    relative to it -> [d mean x, d mean y, d conic a, b, c]: the
+    reference's algebra."""
+    du0, du1, du2, du3, du4, du5 = dU.unbind(-1)
+    d_a = -0.5 * du0 + mxl * du3 - 0.5 * mxl * mxl * du5
+    d_c = -0.5 * du1 + myl * du4 - 0.5 * myl * myl * du5
+    d_b = -du2 + myl * du3 + mxl * du4 - mxl * myl * du5
+    d_mx = ca * du3 + cb * du4 - (ca * mxl + cb * myl) * du5
+    d_my = cb * du3 + cc * du4 - (cc * myl + cb * mxl) * du5
+    return [d_mx, d_my, d_a, d_b, d_c]
+
+
 def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
                         g_tiles, *, tw, tile_size, chunk, p_out):
     """Plain PyTorch version of the composite_bwd kernel (same signature),
@@ -326,7 +356,11 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     backward (raster_pallas.py::_bwd_kernel) with exact-f32 sums over the
     pixels. Association: t_i = t_exc * t_run with t_exc the in-chunk
     exclusive cumprod; pref = in-chunk inclusive cumsum of w*cg + the carried
-    prefix; total_cg from the forward's saved tile colour. A packed (P, 8)
+    prefix; total_cg from the forward's saved tile colour. The six basis
+    sums of d conic and d mean are taken about the tile's centre, above
+    WINDOW about each window's (tile_windows), whose d-values are then
+    added window by window: the kernel's basis (csrc/composite_bwd.cu),
+    which keeps the algebra's cancellation at tile 64's. A packed (P, 8)
     table replays its unpacked values (the d-table is the same)."""
     if attrs.shape[1] == PACKED_IN_DIM:
         attrs = unpack_rows(attrs)
@@ -338,8 +372,19 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     pix = torch.arange(npix, device=dev)
     px = (pix % tile_size - h).to(torch.float32)
     py = (pix // tile_size - h).to(torch.float32)
-    # pixel basis of the power's gradient: [px^2, py^2, px*py, px, py, 1]
-    V = torch.stack([px * px, py * py, px * py, px, py, torch.ones_like(px)])
+    # pixel basis of the power's gradient about each window's centre (the
+    # tile's up to WINDOW): [bx^2, by^2, bx*by, bx, by, 1], bx = px - cx
+    bases = []
+    for x, y, w, wh in tile_windows(tile_size):
+        cx, cy = float(x + w // 2 - h), float(y + wh // 2 - h)
+        idx = None
+        if tile_size > WINDOW:
+            idx = torch.nonzero((pix % tile_size >= x) & (pix % tile_size < x + w)
+                                & (pix // tile_size >= y)
+                                & (pix // tile_size < y + wh)).squeeze(1)
+        bx, by = (px if idx is None else px[idx]) - cx, (py if idx is None else py[idx]) - cy
+        bases.append((idx, torch.stack([bx * bx, by * by, bx * by, bx, by,
+                                        torch.ones_like(bx)]), cx, cy))
     lane = torch.arange(chunk, device=dev)
     batch = _plain_tile_batch(npix)
     for b0 in range(0, num_tiles, batch):
@@ -394,13 +439,13 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
             gda = G * dalpha
             d_op = gda.sum(-1)
             dpow = op[..., None] * gda
-            dU = torch.einsum("vp,rkp->rkv", V, dpow)      # (R, chunk, 6)
-            du0, du1, du2, du3, du4, du5 = dU.unbind(-1)
-            d_a = -0.5 * du0 + mxl * du3 - 0.5 * mxl * mxl * du5
-            d_c = -0.5 * du1 + myl * du4 - 0.5 * myl * myl * du5
-            d_b = -du2 + myl * du3 + mxl * du4 - mxl * myl * du5
-            d_mx = ca * du3 + cb * du4 - (ca * mxl + cb * myl) * du5
-            d_my = cb * du3 + cc * du4 - (cc * myl + cb * mxl) * du5
+            geo = None
+            for idx, V, cx, cy in bases:
+                dU = torch.einsum("vp,rkp->rkv", V,
+                                  dpow if idx is None else dpow[..., idx])  # (R, chunk, 6)
+                part = _conic_mean_grads(dU, mxl - cx, myl - cy, ca, cb, cc)
+                geo = part if geo is None else [a + b for a, b in zip(geo, part)]
+            d_mx, d_my, d_a, d_b, d_c = geo
             key = torch.where(ok, a[..., KEY_COL], KEY_INVALID)
             rows = torch.stack([d_mx, d_my, d_a, d_b, d_c, d_rgb[..., 0], d_rgb[..., 1],
                                 d_rgb[..., 2], d_op, key], dim=-1)
@@ -428,8 +473,8 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     outside the segment); every other row is inert (zeros, KEY_INVALID).
     The kernel runs composite_fwd's launch geometry (fwd_pixel_blocks: one
     thread per 2x2 pixel block, a warp a 16x8 rectangle where the tile is a
-    multiple of 16, pixel passes above tile 32) and its warp skip
-    (skip_threshold)."""
+    multiple of 16, pixel passes above tile 32, windows above 64) and its
+    warp skip (skip_threshold)."""
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc,
                                    tiles, g_tiles, tw=tw, tile_size=tile_size,
@@ -441,7 +486,6 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
         raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
                          f"be multiples of chunk {chunk}")
     npix = tile_size * tile_size
-    _check_tile(tile_size)
     num_tiles = tile_start.shape[0]
     for tab in (tile_start, tile_count, comp_start, nproc):
         if tab.dtype != torch.int32 or not tab.is_contiguous() \

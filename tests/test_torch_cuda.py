@@ -135,7 +135,7 @@ def assert_composite_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64, 65, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_composite_fwd_kernel_crafted_tiles(cuda_device, tile, chunk):
     """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
@@ -147,7 +147,7 @@ def test_composite_fwd_kernel_crafted_tiles(cuda_device, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64, 65, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 32])
 def test_composite_fwd_kernel_skip_edges(cuda_device, tile, chunk):
     """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
@@ -245,7 +245,7 @@ def assert_bwd_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64, 65, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_composite_bwd_kernel_crafted_tiles(cuda_device, tile, chunk):
     """Empty tiles, segments starting mid-chunk, tiles that exit at a chunk
@@ -256,7 +256,7 @@ def test_composite_bwd_kernel_crafted_tiles(cuda_device, tile, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32, 48, 64])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64, 65, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 32])
 def test_composite_bwd_kernel_skip_edges(cuda_device, tile, chunk):
     """The warp skip's edge cases: op 0, op < 1/255, op 1, power > 0, and
@@ -316,7 +316,7 @@ def test_composite_kernels_packed_match_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("tile", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 128])
 def test_composite_kernels_packed_crafted_tiles(cuda_device, tile, chunk):
     """The packed table of torch_port_fixtures.crafted_tiles (empty tiles,
@@ -352,20 +352,19 @@ def test_packed_render_on_gpu_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [48, 64])
+@pytest.mark.parametrize("tile", [48, 64, 96, 128])
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_composite_kernels_banded_tile(cuda_device, tile, chunk):
-    """A tile whose bands (at tile 64 the kernels' pixel passes) saturate
-    at different chunks: the whole-tile exit waits for the last band, both
-    kernels against their plain versions, the backward's same bits twice;
-    and a tile above 64 is refused with the limit in the message."""
-    attrs, ts, tc, _ = banded_tile(tile, chunk)
-    nproc = assert_composite_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
-    assert 0 < int(nproc[0]) < (3 + int(tc[0]) + chunk - 1) // chunk
-    assert_bwd_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
-    tables = [torch.from_numpy(a).to(cuda_device) for a in (attrs, ts, tc)]
-    with pytest.raises(ValueError, match="tiles up to 64x64"):
-        traster.composite_fwd(*tables, tw=1, tile_size=66, chunk=chunk)
+    """A tile whose bands (at tile 64 the kernels' pixel passes; above 64
+    the rows of its windows) or columns saturate at different chunks: the
+    whole-tile exit waits for the last band and the windows that saturate
+    first go on compositing to it; both kernels against their plain
+    versions, the backward's same bits twice."""
+    for axis in (0, 1):
+        attrs, ts, tc, _ = banded_tile(tile, chunk, axis)
+        nproc = assert_composite_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
+        assert 0 < int(nproc[0]) < (3 + int(tc[0]) + chunk - 1) // chunk
+        assert_bwd_matches_plain(cuda_device, attrs, ts, tc, 1, tile, chunk)
 
 
 @pytest.mark.cuda

@@ -2,10 +2,11 @@
 COLMAP readers and writers, dataset readers and synthetic writer against the
 JAX package's, on numpy inputs from a seed at tiny sizes.
 
-The PNG codec decodes what PIL writes (L, LA, RGB, RGBA, P; PIL's own
-filter choices, and files whose rows use every filter type) to
-`np.asarray(Image.open(...))`, and PIL decodes what the codec writes to the
-same uint8 array. Readers give equal arrays, and the synthetic writer equal
+The PNG codec decodes what PIL writes (L, LA, RGB, RGBA, P, 16-bit
+grayscale; PIL's own filter choices, and files whose rows use every filter
+type) and files written here at every bit depth and colour type, Adam7
+interlaced or not, to `np.asarray(Image.open(...))`, dtype included, and
+PIL decodes what the codec writes to the same uint8 array. Readers give equal arrays, and the synthetic writer equal
 sparse files and pixels."""
 
 import io
@@ -46,26 +47,45 @@ def pil_png(im) -> bytes:
     return buf.getvalue()
 
 
-def png_bytes(pixels, ctype, filters, depth=8, interlace=0, palette=None) -> bytes:
-    """A PNG of uint8 `pixels` (H, W[, C]) with the given filter type a row,
-    filtered here pixel by pixel as the PNG specification states it (the
-    reference both decoders are held to)."""
+def pack_samples(s, depth):
+    """(h, w, c) integer samples -> (h, stride) row bytes at `depth` bits:
+    high bits first below 8, rows padded to a byte; big-endian at 16."""
+    h = s.shape[0]
+    flat = s.reshape(h, -1).astype(np.int64)
+    if depth == 16:
+        return np.stack([flat >> 8, flat & 255], -1).reshape(h, -1)
+    if depth == 8:
+        return flat
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1).astype(np.int64)
+
+
+def png_bytes(pixels, ctype, filters, depth=8, interlace=0, palette=None, trns=None) -> bytes:
+    """A PNG of integer samples `pixels` (H, W[, C]) at `depth` bits, in
+    Adam7's seven passes where `interlace`, with the given filter type a row
+    (cycled over each pass's rows), filtered here byte by byte as the PNG
+    specification states it (the reference both decoders are held to)."""
     h, w = pixels.shape[:2]
-    x = pixels.reshape(h, -1).astype(np.int64)
-    bpp = x.shape[1] // w
+    s = pixels.reshape(h, w, -1)
+    bpp = max(1, s.shape[2] * depth // 8)
     body = bytearray()
-    for r in range(h):
-        ft = filters[r % len(filters)]
-        body.append(ft)
-        for i in range(x.shape[1]):
-            a = x[r, i - bpp] if i >= bpp else 0
-            b = x[r - 1, i] if r > 0 else 0
-            c = x[r - 1, i - bpp] if r > 0 and i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            paeth = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            pred = (0, a, b, (a + b) // 2, paeth)[ft]
-            body.append((x[r, i] - pred) & 255)
+    for x0, y0, dx, dy in (png.ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = s[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        x = pack_samples(sub, depth)
+        for r in range(x.shape[0]):
+            ft = filters[r % len(filters)]
+            body.append(ft)
+            for i in range(x.shape[1]):
+                a = x[r, i - bpp] if i >= bpp else 0
+                b = x[r - 1, i] if r > 0 else 0
+                c = x[r - 1, i - bpp] if r > 0 and i >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                paeth = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                pred = (0, a, b, (a + b) // 2, paeth)[ft]
+                body.append((x[r, i] - pred) & 255)
 
     def chunk(kind, data):
         return struct.pack(">I", len(data)) + kind + data + struct.pack(
@@ -75,6 +95,8 @@ def png_bytes(pixels, ctype, filters, depth=8, interlace=0, palette=None) -> byt
                                                        interlace))
     if palette is not None:
         out += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
     return out + chunk(b"IDAT", zlib.compress(bytes(body))) + chunk(b"IEND", b"")
 
 
@@ -132,17 +154,108 @@ def test_encode_decodes_in_pil(filters, tmp_path):
     np.testing.assert_array_equal(png.read_png(tmp_path / "a" / "x.png"), img)
 
 
+# (colour type, bit depth, channels) of every combination the format allows
+VARIANTS = [(0, 1, 1), (0, 2, 1), (0, 4, 1), (0, 8, 1), (0, 16, 1), (2, 8, 3), (2, 16, 3),
+            (3, 1, 1), (3, 2, 1), (3, 4, 1), (3, 8, 1), (4, 8, 2), (4, 16, 2), (6, 8, 4),
+            (6, 16, 4)]
+# Adam7 sizes: passes that are empty (1x1, 2x3), odd sizes, and one larger
+# than a pass's 8x8 period in both directions
+LACE_SIZES = [(1, 1), (2, 3), (5, 7), (8, 8), (9, 17), (13, 31)]
+
+
+def variant_samples(ctype, depth, ch, h, w, seed):
+    """Random samples of a variant; a palette of 40 colours (fewer where the
+    depth holds fewer) for colour type 3."""
+    rng = np.random.default_rng(seed)
+    top = 1 << depth
+    palette = None
+    if ctype == 3:
+        top = min(top, 40)
+        palette = rng.integers(0, 256, (top, 3))
+    return rng.integers(0, top, (h, w, ch)), palette
+
+
+def assert_pil_array(data, tag):
+    with Image.open(io.BytesIO(data)) as im:
+        want = np.asarray(im)
+    got = png.decode_png(data, tag)
+    assert got.dtype == want.dtype and got.shape == want.shape, (tag, got.dtype, want.dtype,
+                                                                 got.shape, want.shape)
+    np.testing.assert_array_equal(got, want, err_msg=tag)
+    return got
+
+
+@pytest.mark.parametrize("ctype,depth,ch", VARIANTS,
+                         ids=[f"type{c}-{d}bit" for c, d, _ in VARIANTS])
+def test_decode_every_depth_and_colour_type(ctype, depth, ch):
+    """Every bit depth of every colour type, plain and Adam7-interlaced at
+    sizes with empty passes and odd ones, rows of None, Sub, Up, Average
+    and Paeth: PIL's array, dtype included (16-bit grayscale uint16, 1-bit
+    bool, 2- and 4-bit grayscale scaled, 16-bit colour as high bytes,
+    16-bit LA as RGBA)."""
+    for i, (h, w) in enumerate(LACE_SIZES):
+        samples, palette = variant_samples(ctype, depth, ch, h, w, 10 * i + depth)
+        for interlace in (0, 1):
+            data = png_bytes(samples, ctype, (0, 1, 2, 3, 4), depth, interlace, palette)
+            got = assert_pil_array(data, f"type {ctype} {depth}-bit {h}x{w} lace {interlace}")
+    want = {(0, 1): np.bool_, (0, 16): np.uint16}.get((ctype, depth), np.uint8)
+    assert got.dtype == want
+    if (ctype, depth) == (4, 16):
+        assert got.shape[-1] == 4 and (got[..., 0] == got[..., 2]).all()
+
+
+def test_transparency_and_pil_written_16_bit(tmp_path):
+    """A tRNS chunk leaves the array as it is (grayscale of 1, 2 and 16 bits,
+    16-bit RGB); PIL's own 16-bit grayscale and 1-bit files; and
+    load_image_rgb equal to the JAX package's on 16-bit, 1-bit and
+    interlaced files (uint16 values over 255 and bools divide as PIL's
+    arrays do)."""
+    rng = np.random.default_rng(5)
+    for ctype, depth, ch, trns in ((0, 1, 1, b"\x00\x01"), (0, 2, 1, b"\x00\x02"),
+                                   (0, 16, 1, b"\x01\x01"),
+                                   (2, 16, 3, b"\x01\x01\x00\x05\x00\x07")):
+        samples = rng.integers(0, 1 << depth, (6, 9, ch))
+        assert_pil_array(png_bytes(samples, ctype, (1,), depth, trns=trns), f"tRNS {ctype}")
+    files = {"gray16.png": Image.fromarray(rng.integers(0, 65536, (7, 5)).astype(np.uint16)),
+             "bits.png": Image.fromarray(rng.integers(0, 2, (7, 5)).astype(bool))}
+    for name, im in files.items():
+        im.save(tmp_path / name)
+    (tmp_path / "rgb16_lace.png").write_bytes(
+        png_bytes(rng.integers(0, 65536, (7, 5, 3)), 2, (4,), 16, 1))
+    (tmp_path / "la16.png").write_bytes(png_bytes(rng.integers(0, 65536, (7, 5, 2)), 4, (2,),
+                                                  16))
+    for path in sorted(tmp_path.glob("*.png")):
+        assert_pil_array(path.read_bytes(), path.name)
+        got, want = dataset.load_image_rgb(path), j_dataset.load_image_rgb(path)
+        assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert dataset.load_image_rgb(tmp_path / "gray16.png").max() > 1.0
+
+
+def bad_header(data, depth, ctype, interlace=0):
+    """A PNG with its IHDR's bit depth, colour type and interlace method
+    replaced (and the chunk's CRC made good)."""
+    ihdr = bytearray(data[12:29])
+    ihdr[12:14] = bytes([depth, ctype])
+    ihdr[16] = interlace
+    return data[:12] + bytes(ihdr) + struct.pack(">I", zlib.crc32(bytes(ihdr))) + data[33:]
+
+
 def test_unsupported_and_damaged_files_raise(tmp_path):
-    """16-bit, interlaced, a bad CRC, a truncated file and a bad zlib stream
-    raise an error naming the file and the kind; nothing decodes to a blank."""
-    p16 = tmp_path / "deep.png"
-    Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 5000).save(p16)
-    with pytest.raises(png.PNGError, match=r"deep\.png: 16-bit grayscale"):
-        png.read_png(p16)
+    """A bit depth the format does not allow for the colour type (16-bit
+    palette, 4-bit RGB), an unknown interlace method, a bad CRC, a truncated
+    file and a bad zlib stream raise an error naming the file and the kind;
+    nothing decodes to a blank."""
     pixels = np.zeros((4, 5, 3), np.uint8)
+    for name, ctype, depth, kind in (("deep.png", 3, 16, "palette"), ("rgb4.png", 2, 4, "RGB")):
+        path = tmp_path / name
+        path.write_bytes(bad_header(png_bytes(pixels, 2, (0,)), depth, ctype))
+        with pytest.raises(png.PNGError,
+                           match=rf"{name.replace('.', '[.]')}: {depth}-bit {kind}.*not a valid"):
+            png.read_png(path)
     lace = tmp_path / "lace.png"
-    lace.write_bytes(png_bytes(pixels, 2, (0,), interlace=1))
-    with pytest.raises(png.PNGError, match=r"lace\.png: Adam7-interlaced RGB"):
+    lace.write_bytes(bad_header(png_bytes(pixels, 2, (0,)), 8, 2, interlace=2))
+    with pytest.raises(png.PNGError, match=r"lace\.png: unknown PNG interlace method 2"):
         png.read_png(lace)
     good = png.encode_png(pixels)
     bad_crc = tmp_path / "crc.png"

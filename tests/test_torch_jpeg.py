@@ -6,10 +6,15 @@ the sha256 of PIL's decode) and on files made here: sizes from 1x1 to
 33x65, 4:4:4, 4:2:2, 4:2:0 (PIL), 4:4:0 (torch_port_fixtures.encode_jpeg:
 PIL does not write it) and grayscale, quality 50, 95 and 100, optimised
 tables, restart intervals of 1 and 7 MCUs, one scan a component, Adobe RGB
-and 'R','G','B' component ids. Unsupported and damaged files raise with
-the file named. Then the dataset side on a JPEG COLMAP source with the
-native library held off in both packages: load_image_rgb and Scene's
-images equal to the JAX package's at --resolution 1 and 2.
+and 'R','G','B' component ids; progressive files (PIL's scan script, every
+layout, restart intervals inside the scans); CMYK (PIL's, baseline and
+progressive) and YCCK (encode_jpeg) as (H, W, 4). Unsupported and damaged
+files raise with the file named: arithmetic coding, 12-bit samples, a
+progressive file whose scans leave coefficients incomplete or break the
+progression. Then the dataset side: load_image_rgb equal to the JAX
+package's on every fixture, and on a JPEG COLMAP source with the native
+library held off in both packages, load_image_rgb and Scene's images equal
+to the JAX package's at --resolution 1 and 2.
 """
 
 import dataclasses
@@ -17,6 +22,7 @@ import hashlib
 import io
 import json
 import shutil
+import struct
 
 import numpy as np
 import pytest
@@ -58,6 +64,7 @@ def assert_pil_bits(data, what):
     if not np.array_equal(got, want):
         d = np.abs(got.astype(np.int32) - want)
         raise AssertionError(f"{what}: {int((d > 0).sum())} samples differ, max {int(d.max())}")
+    return got
 
 
 def images(h, w, seed):
@@ -101,6 +108,51 @@ def test_bit_equal_to_pil(layout, restart):
             assert_pil_bits(pil_encode(img, quality=80, optimize=True, **kw), f"{tag} opt")
 
 
+@pytest.mark.parametrize("layout", ["4:4:4", "4:2:2", "4:2:0", "gray"])
+@pytest.mark.parametrize("restart", [0, 1, 7])
+def test_progressive_bit_equal_to_pil(layout, restart):
+    """PIL's progressive files (libjpeg's default scan script: DC first and
+    refinement, spectral selection, successive approximation, EOB runs),
+    every size, quality 50/95/100 and optimised tables, at a restart interval
+    of `restart` MCUs (0: none)."""
+    for i, (h, w) in enumerate(SIZES):
+        for img in images(h, w, seed=53 * i + restart):
+            kw = dict(progressive=True, **(dict(restart_marker_blocks=restart) if restart else {}))
+            if layout == "gray":
+                img = img[..., 1]
+            else:
+                kw["subsampling"] = layout
+            tag = f"progressive {layout} {h}x{w} rst {restart}"
+            for q in (50, 95, 100):
+                data = pil_encode(img, quality=q, **kw)
+                assert b"\xff\xc2" in data
+                assert_pil_bits(data, f"{tag} q{q}")
+            assert_pil_bits(pil_encode(img, quality=80, optimize=True, **kw), f"{tag} opt")
+
+
+@pytest.mark.parametrize("how", ["pil", "pil progressive", "numpy cmyk", "numpy ycck"])
+def test_four_components_bit_equal_to_pil(how):
+    """CMYK as PIL writes it (an Adobe APP14, transform 0; baseline and
+    progressive) and, from encode_jpeg, CMYK and YCCK (transform 2) at
+    4:4:4, with the K channel subsampled and with chroma subsampled, one
+    scan a component and restart intervals: PIL's (H, W, 4) array, its
+    CMYK;I inversion included."""
+    for i, (h, w) in enumerate(SIZES):
+        rng = np.random.default_rng(97 + i)
+        img = (rng.random((h, w, 4)) * 255).astype(np.uint8)
+        if how.startswith("pil"):
+            buf = io.BytesIO()
+            Image.fromarray(img, "CMYK").save(buf, "JPEG", quality=90,
+                                              progressive=how.endswith("progressive"))
+            assert_pil_bits(buf.getvalue(), f"{how} {h}x{w}")
+            continue
+        for sampling, kw in ((((1, 1),) * 4, {}), (((1, 1),) * 3 + ((2, 2),), dict(restart=2)),
+                             (((2, 2), (1, 1), (1, 1), (2, 2)), dict(interleaved=False))):
+            data = F.encode_jpeg(img, sampling, colour=how.split()[1], **kw)
+            got = assert_pil_bits(data, f"{how} {sampling} {kw} {h}x{w}")
+            assert got.shape == (h, w, 4)
+
+
 @pytest.mark.parametrize("kw", [dict(interleaved=False), dict(colour="adobe-rgb"),
                                 dict(colour="rgb-ids"),
                                 dict(sampling=((2, 2), (1, 2), (1, 2)), restart=2),
@@ -113,14 +165,36 @@ def test_numpy_encoded_bit_equal_to_pil(kw):
             assert_pil_bits(F.encode_jpeg(img, **kw), f"{kw} {h}x{w}")
 
 
+def scans(data):
+    """(start, end) of each scan of a JPEG: its SOS segment and the
+    entropy-coded data after it, up to the next marker that is not a
+    restart marker."""
+    out, i = [], 2
+    while data[i + 1] != 0xD9:
+        j = i + 2 + struct.unpack_from(">H", data, i + 2)[0]
+        if data[i + 1] == 0xDA:
+            while data[j] != 0xFF or data[j + 1] == 0 or 0xD0 <= data[j + 1] <= 0xD7:
+                j += 1
+            out.append((i, j))
+        i = j
+    return out
+
+
 def unsupported(kind):
     img = images(24, 40, 3)[1]
-    if kind == "progressive":
-        return pil_encode(img, quality=90, progressive=True)
-    if kind == "cmyk":
-        buf = io.BytesIO()
-        Image.fromarray(img).convert("CMYK").save(buf, "JPEG")
-        return buf.getvalue()
+    if kind.startswith("progressive"):
+        data = pil_encode(img, quality=90, progressive=True)
+        sc = scans(data)
+        assert len(sc) == 10      # libjpeg's default script for YCbCr
+        if kind == "progressive":
+            # the last scan (luma's last AC bit) dropped
+            return data[:sc[-1][0]] + b"\xff\xd9"
+        # the first (the DC) dropped: AC scans before any DC
+        return data[:sc[0][0]] + data[sc[0][1]:]
+    if kind == "12-bit":
+        data = pil_encode(img, quality=90)
+        sof = data.index(b"\xff\xc0")
+        return data[:sof + 4] + bytes([12]) + data[sof + 5:]
     if kind == "411":
         return F.encode_jpeg(img, ((4, 1), (1, 1), (1, 1)))
     data = pil_encode(img, quality=90)
@@ -135,7 +209,9 @@ def unsupported(kind):
 
 
 @pytest.mark.parametrize("kind,reason", [
-    ("progressive", "progressive"), ("cmyk", "CMYK"), ("411", "sampling factors"),
+    ("progressive", "progressive JPEG whose scans leave coefficient .* without its last bits"),
+    ("progressive without DC", "corrupt progression .* before its DC"),
+    ("12-bit", "12-bit samples"), ("411", "sampling factors"),
     ("arithmetic", "arithmetic"), ("lossless", "lossless"), ("truncated", "truncated"),
     ("no EOI", "truncated"), ("not a JPEG", "not a JPEG")])
 def test_unsupported_and_damaged_files_raise_with_the_name(tmp_path, kind, reason):
@@ -143,6 +219,17 @@ def test_unsupported_and_damaged_files_raise_with_the_name(tmp_path, kind, reaso
     path.write_bytes(unsupported(kind))
     with pytest.raises(JPEGError, match=rf"{path.name}: .*{reason}"):
         read_jpeg(path)
+
+
+def test_load_image_rgb_on_every_fixture():
+    """load_image_rgb equal to the JAX package's (PIL's array / 255) on
+    every fixture: grayscale (H, W), colour (H, W, 3), CMYK and YCCK (H, W,
+    4), progressive or not."""
+    for name in sorted(F.JPEG_FIXTURES):
+        got, want = (dataset.load_image_rgb(F.JPEG_DIR / name),
+                     j_dataset.load_image_rgb(F.JPEG_DIR / name))
+        assert got.dtype == want.dtype == np.float32 and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 @pytest.fixture(scope="module")

@@ -98,11 +98,17 @@ def test_composite_fwd_crafted_tiles_match_reference(tile, chunk):
 
 @pytest.mark.parametrize("tile,chunk,table", [(48, 8, "crafted"), (64, 32, "crafted"),
                                               (48, 8, "banded"), (64, 32, "banded"),
-                                              (64, 8, "skip_edges")])
+                                              (64, 8, "skip_edges"), (96, 8, "crafted"),
+                                              (128, 32, "crafted"), (96, 32, "banded"),
+                                              (128, 8, "banded"), (96, 8, "columns"),
+                                              (128, 32, "columns"), (128, 8, "skip_edges")])
 def test_composite_fwd_large_tiles_match_reference(tile, chunk, table):
-    """Tiles above 32, which the kernel runs in pixel passes: crafted tiles,
-    skip edges, and a tile whose bands (at tile 64 the passes) saturate at
-    different chunks, where the whole-tile exit waits for the last band."""
+    """Tiles above 32, which the kernel runs in pixel passes (above 64 in
+    windows of at most 64x64): crafted tiles, skip edges, and a tile whose
+    bands (at tile 64 the passes) or columns saturate at different chunks,
+    where the whole-tile exit waits for the last band; above 64 the windows
+    the first bands cover saturate chunks before the tile's exit and go on
+    compositing to it."""
     if table == "crafted":
         attrs, ts, tc = map(torch.from_numpy, crafted_tiles(3, 2, tile, chunk))
         _, nproc = both(attrs, ts, tc, 3, tile, chunk)
@@ -110,15 +116,17 @@ def test_composite_fwd_large_tiles_match_reference(tile, chunk, table):
     elif table == "skip_edges":
         both(*map(torch.from_numpy, skip_edge_tile(tile, chunk)), 1, tile, chunk)
     else:
-        attrs, ts, tc, m = banded_tile(tile, chunk)
+        axis = int(table == "columns")
+        attrs, ts, tc, m = banded_tile(tile, chunk, axis)
         attrs, ts, tc = map(torch.from_numpy, (attrs, ts, tc))
         tiles, nproc = both(attrs, ts, tc, 1, tile, chunk)
         assert 0 < int(nproc[0]) < (int(ts[0]) % chunk + int(tc[0]) + chunk - 1) // chunk
         assert float(tiles[0, 3].max()) < traster.T_EPS
-        # the first group alone saturates the top band and leaves the others
+        # the first group alone saturates the first band and leaves the others
         part, _ = traster.composite_fwd(attrs, ts, torch.tensor([m], dtype=torch.int32),
                                         tw=1, tile_size=tile, chunk=chunk)
-        T = part[0, 3].reshape(4, tile // 4, tile).amax((1, 2))
+        T = part[0, 3].reshape(tile, tile)
+        T = (T.T if axis else T).reshape(4, tile // 4, tile).amax((1, 2))
         assert float(T[0]) < traster.T_EPS < float(T[1:].min())
 
 
@@ -177,17 +185,33 @@ def test_skip_threshold_keeps_alpha_at_zero():
     assert (raw < traster.ALPHA_MIN).all()
 
 
-@pytest.mark.parametrize("tile", [1, 5, 8, 12, 15, 16, 24, 32, 33, 48, 63, 64])
+@pytest.mark.parametrize("tile", [1, 5, 8, 12, 15, 16, 24, 32, 33, 48, 63, 64, 65, 96, 128,
+                                  256])
 def test_fwd_pixel_blocks_cover_the_tile(tile):
     """Every pixel of the tile in exactly one map thread's 2x2 block, whole
     warps; at tiles that are multiples of 16 each warp's pixels form a 16x8
     rectangle, and at tile 64 pixel pass p (map threads 256 p .. 256 p +
-    255) covers rows 16 p .. 16 p + 15."""
+    255) covers rows 16 p .. 16 p + 15. Above 64 each window of at most
+    64x64 is mapped as a tile of its size, windows row-major, and no warp
+    crosses a window."""
     blocks = traster.fwd_pixel_blocks(tile)
+    wins = traster.tile_windows(tile)
     assert blocks.shape[1] == 4 and blocks.shape[0] % 32 == 0
-    assert blocks.shape[0] == -(-((tile + 1) // 2) ** 2 // 32) * 32
+    assert blocks.shape[0] == sum(-(-((w + 1) // 2) * ((h + 1) // 2) // 32) * 32
+                                  for _, _, w, h in wins)
     got = blocks[blocks >= 0]
     assert sorted(got.tolist()) == list(range(tile * tile))
+    if tile > 64:
+        assert len(wins) == (-(-tile // 64)) ** 2 and max(max(w, h) for *_, w, h in wins) == 64
+        assert wins[-1][2:] == (tile % 64 or 64,) * 2
+        t0 = 0
+        for x, y, w, h in wins:
+            n = -(-((w + 1) // 2) * ((h + 1) // 2) // 32) * 32
+            p = blocks[t0:t0 + n]
+            p = p[p >= 0]
+            assert (p % tile >= x).all() and (p % tile < x + w).all()
+            assert (p // tile >= y).all() and (p // tile < y + h).all()
+            t0 += n
     if tile % 16 == 0:
         for w in range(blocks.shape[0] // 32):
             p = blocks[32 * w:32 * (w + 1)].reshape(-1)

@@ -162,18 +162,21 @@ def test_composite_bwd_skip_edges_match_reference(chunk):
 
 
 @pytest.mark.parametrize("tile,chunk,table", [(48, 8, "crafted"), (64, 32, "crafted"),
-                                              (64, 8, "banded")])
+                                              (64, 8, "banded"), (96, 8, "crafted"),
+                                              (128, 32, "crafted"), (96, 32, "banded"),
+                                              (128, 8, "banded"), (128, 8, "columns")])
 def test_composite_bwd_large_tiles_match_reference(tile, chunk, table):
-    """Tiles above 32, which the kernel replays in pixel passes, against the
-    JAX kernel: crafted tiles, and a tile whose bands (at tile 64 the
-    passes) saturate at different chunks, so the rows of every replayed
-    chunk take pixels of some passes that are still open and some that are
-    saturated."""
+    """Tiles above 32, which the kernel replays in pixel passes (above 64
+    window by window), against the JAX kernel: crafted tiles, and a tile
+    whose bands (at tile 64 the passes) or columns saturate at different
+    chunks, so the rows of every replayed chunk take pixels of some passes
+    or windows that are still open and some that are saturated."""
     if table == "crafted":
         attrs, ts, tc = map(torch.from_numpy, crafted_tiles(3, 2, tile, chunk))
         tw = 3
     else:
-        attrs, ts, tc = map(torch.from_numpy, banded_tile(tile, chunk)[:3])
+        attrs, ts, tc = map(torch.from_numpy,
+                            banded_tile(tile, chunk, int(table == "columns"))[:3])
         tw = 1
     tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=tw, tile_size=tile, chunk=chunk)
     p_out = out_budget(attrs.shape[0], ts.shape[0], chunk)

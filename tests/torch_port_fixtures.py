@@ -218,16 +218,18 @@ def skip_edge_tile(tile, chunk):
     return attrs, np.array([3], np.int32), np.array([n + 1], np.int32)
 
 
-def banded_tile(tile, chunk):
+def banded_tile(tile, chunk, axis=0):
     """One tile (tw 1) whose horizontal bands saturate at different chunks:
     four groups of whole chunks, at least 16 pairs each, of opaque splats
     wide in x and tile / 8 px tall, group b centred on band b of four (rows
     [b * tile / 4, (b + 1) * tile / 4)), so the top band's pixels fall below
     T_EPS after the first group and the bottom band's after the last; then a
     chunk of faint splats over the whole tile, past the whole-tile exit. At
-    tile 64 the bands are the kernels' pixel passes. The segment starts at
-    row 3 -> (attrs, tile_start, tile_count, pairs per group) with the
-    arrays in numpy."""
+    tile 64 the bands are the kernels' pixel passes; above 64 the windows
+    of the top half saturate before those below. `axis` 1 turns the bands
+    into columns (x and y swapped), so that the left windows saturate
+    first. The segment starts at row 3 -> (attrs, tile_start, tile_count,
+    pairs per group) with the arrays in numpy."""
     rng = np.random.default_rng(tile + chunk)
     m = -(-16 // chunk) * chunk
     n = 4 * m + chunk
@@ -243,6 +245,8 @@ def banded_tile(tile, chunk):
     r[band == 4, 1] = tile / 2
     r[band == 4, 4] = 1 / (3.0 * tile) ** 2
     r[:, 9] = np.arange(n)
+    if axis:
+        r[:, [0, 1, 2, 4]] = r[:, [1, 0, 4, 2]]
     return attrs, np.array([3], np.int32), np.array([n], np.int32), m
 
 
@@ -451,12 +455,15 @@ def _jpeg_pack(bits):
 
 def encode_jpeg(img, sampling=((1, 1), (1, 1), (1, 1)), restart=0, interleaved=True,
                 colour="jfif") -> bytes:
-    """A baseline JPEG of uint8 (H, W, 3) or (H, W) `img`, written in numpy
-    for the layouts PIL does not write: any sampling factors (4:4:0 is
-    ((1, 2), (1, 1), (1, 1))), one scan a component (interleaved=False),
-    restart intervals of `restart` MCUs, and colour "jfif" (YCbCr, a JFIF
-    APP0), "adobe-rgb" (RGB under an Adobe APP14, transform 0) or
-    "rgb-ids" (RGB named by component ids 'R', 'G', 'B', no APPn). A float
+    """A baseline JPEG of uint8 (H, W, 3), (H, W, 4) or (H, W) `img`, written
+    in numpy for the layouts PIL does not write: any sampling factors (4:4:0
+    is ((1, 2), (1, 1), (1, 1)); a fourth component samples 1x1 unless
+    named), one scan a component (interleaved=False), restart intervals of
+    `restart` MCUs, and colour "jfif" (YCbCr, a JFIF APP0), "adobe-rgb" (RGB
+    under an Adobe APP14, transform 0) or "rgb-ids" (RGB named by component
+    ids 'R', 'G', 'B', no APPn); for 4 channels "cmyk" (an Adobe APP14,
+    transform 0, the channels stored inverted as Adobe's CMYK is) or "ycck"
+    (transform 2: YCbCr of the first three, the fourth inverted). A float
     DCT and fixed-length Huffman codes (any valid stream will do: PIL's
     decode of it is the reference)."""
     import struct
@@ -465,13 +472,23 @@ def encode_jpeg(img, sampling=((1, 1), (1, 1), (1, 1)), restart=0, interleaved=T
     gray = img.ndim == 2
     h_img, w_img = img.shape[:2]
     x = img.astype(np.float64)
+
+    def ycc(r, g, b):
+        return [0.299 * r + 0.587 * g + 0.114 * b,
+                -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+
     if gray:
         planes, sampling, ids = [x], sampling[:1], [1]
+    elif img.shape[2] == 4:
+        if colour == "ycck":
+            planes = ycc(x[..., 0], x[..., 1], x[..., 2]) + [255 - x[..., 3]]
+        else:
+            planes = [255 - x[..., c] for c in range(4)]
+        sampling = tuple(sampling) + ((1, 1),) * (4 - len(sampling))
+        ids = [1, 2, 3, 4]
     elif colour == "jfif":
-        r, g, b = x[..., 0], x[..., 1], x[..., 2]
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        planes = ycc(x[..., 0], x[..., 1], x[..., 2])
         ids = [1, 2, 3]
     else:
         planes = [x[..., 0], x[..., 1], x[..., 2]]
@@ -512,8 +529,8 @@ def encode_jpeg(img, sampling=((1, 1), (1, 1), (1, 1)), restart=0, interleaved=T
     out = bytearray(b"\xff\xd8")
     if colour == "jfif" or gray:
         out += seg(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    elif colour == "adobe-rgb":
-        out += seg(0xFFEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00")
+    elif colour in ("adobe-rgb", "cmyk", "ycck"):
+        out += seg(0xFFEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([2 * (colour == "ycck")]))
     for t in range(2):
         out += seg(0xFFDB, bytes([t]) + bytes(int(v) for v in qt[t].reshape(64)[zz]))
     out += seg(0xFFC0, struct.pack(">BHHB", 8, h_img, w_img, len(comps)) + b"".join(
@@ -558,7 +575,9 @@ def encode_jpeg(img, sampling=((1, 1), (1, 1), (1, 1)), restart=0, interleaved=T
 
 def jpeg_fixture_image(height, width, seed, channels=3, noise=2.0):
     """A seeded uint8 image of waves and gradients plus Gaussian noise of
-    std `noise` (smooth, as a capture is, at the default)."""
+    std `noise` (smooth, as a capture is, at the default): (H, W) for one
+    channel, (H, W, 3), or (H, W, 4) with a fourth wave drawn after the
+    others (so the first three are the 3-channel image's)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
     ph = rng.uniform(0, 2 * np.pi, 3)
@@ -566,11 +585,17 @@ def jpeg_fixture_image(height, width, seed, channels=3, noise=2.0):
                     128 + 90 * np.cos(xx / 41 - yy / 77 + ph[1]),
                     128 + 80 * np.sin((xx + yy) / 150 + ph[2])], axis=-1)
     img = np.clip(img + rng.normal(0, noise, img.shape), 0, 255).astype(np.uint8)
+    if channels == 4:
+        k = 128 + 60 * np.cos(xx / 67 + yy / 31 + rng.uniform(0, 2 * np.pi))
+        k = np.clip(k + rng.normal(0, noise, k.shape), 0, 255).astype(np.uint8)
+        return np.concatenate([img, k[..., None]], axis=-1)
     return img[..., 0] if channels == 1 else img
 
 
 # name -> (height, width, seed, how it is written): "pil" with PIL's save
-# options, "numpy" with encode_jpeg's (PIL does not write 4:4:0)
+# options, "numpy" with encode_jpeg's (PIL writes neither 4:4:0 nor YCCK).
+# Names starting "gray" hold one channel, "cmyk" and "ycck" four (PIL's
+# CMYK), the others three.
 JPEG_FIXTURES = {
     "rgb444.jpg": (48, 64, 1, "pil", dict(quality=90, subsampling=0)),
     "rgb422.jpg": (48, 64, 2, "pil", dict(quality=90, subsampling=1)),
@@ -581,7 +606,22 @@ JPEG_FIXTURES = {
                                             restart_marker_blocks=3)),
     "odd_23x37.jpg": (23, 37, 7, "pil", dict(quality=95, subsampling=2)),
     "smooth_1080p_420.jpg": (1080, 1920, 8, "pil", dict(quality=85, subsampling=2)),
+    "prog420.jpg": (48, 64, 9, "pil", dict(quality=90, subsampling=2, progressive=True)),
+    "prog444.jpg": (48, 64, 10, "pil", dict(quality=90, subsampling=0, progressive=True)),
+    "gray_prog.jpg": (48, 64, 11, "pil", dict(quality=90, progressive=True)),
+    "prog_restart.jpg": (40, 72, 12, "pil", dict(quality=85, subsampling=2, progressive=True,
+                                                  restart_marker_blocks=3)),
+    "smooth_1080p_prog420.jpg": (1080, 1920, 13, "pil", dict(quality=90, subsampling=2,
+                                                             progressive=True)),
+    "cmyk.jpg": (40, 56, 14, "pil", dict(quality=90)),
+    "ycck.jpg": (40, 56, 15, "numpy", dict(sampling=((2, 2), (1, 1), (1, 1), (2, 2)),
+                                           colour="ycck")),
 }
+
+
+def jpeg_fixture_channels(name):
+    """The channels of fixture `name`'s image (see JPEG_FIXTURES)."""
+    return 1 if name.startswith("gray") else 4 if name.startswith(("cmyk", "ycck")) else 3
 
 
 def write_jpeg_fixtures(root=JPEG_DIR):
@@ -599,11 +639,12 @@ def write_jpeg_fixtures(root=JPEG_DIR):
     root.mkdir(parents=True, exist_ok=True)
     manifest = {}
     for name, (h, w, seed, how, kw) in JPEG_FIXTURES.items():
-        img = jpeg_fixture_image(h, w, seed, 1 if name.startswith("gray") else 3,
+        img = jpeg_fixture_image(h, w, seed, jpeg_fixture_channels(name),
                                  noise=2.0 if h * w > 1 << 20 else 24.0)
         if how == "pil":
             buf = io.BytesIO()
-            Image.fromarray(img).save(buf, "JPEG", **kw)
+            Image.fromarray(img, "CMYK" if img.ndim == 3 and img.shape[2] == 4 else None).save(
+                buf, "JPEG", **kw)
             data = buf.getvalue()
         else:
             data = encode_jpeg(img, **kw)
