@@ -5,7 +5,8 @@ at tile 32, at tile 64 and at tile 128, on the f32 and the packed pair table
 (attr_pack), serving_bench, the render CLI over a dataset on disk, the
 training CLI over a JPEG dataset, the
 training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
-repo's quality-proxy scene held to the JAX package's record), the live
+repo's quality-proxy scene held to the JAX package's record), a 200-view
+COLMAP capture loaded through the port's IO runtime and trained on, the live
 viewer (the SIBR network GUI serving the 1M model, and inside the training
 loop), full_eval (train, render, metrics with LPIPS), the training
 self-check, and multi-GPU training on meshes of ranks (one NCCL rank; four
@@ -16,10 +17,11 @@ gloo ranks sharing the card as a 2x2 mesh, its steps and its train CLI).
 Phases (any failure exits nonzero, and the final ok line is not printed):
   env      card name + power limit (nvidia-smi), torch / CUDA / nvcc versions
   build    nvcc builds gsplat_tpu_torch/csrc/*.cu into build/kernels/, the C
-           compiler csrc/jpeg_decode.c into build/host/ (all started
-           together); the registers and spills of every kernel (ptxas -v;
-           each pixel-pass count and table layout of composite_fwd and
-           composite_bwd): no spills
+           compiler the IO runtime (csrc/io_runtime.c with jpeg_decode.c)
+           into build/host/ (all started together; the runtime's build
+           seconds printed); the registers and spills of every kernel
+           (ptxas -v; each pixel-pass count and table layout of
+           composite_fwd and composite_bwd): no spills
   oracle   a tiny scene rendered on the GPU against the port's per-pixel
            oracle and its CPU render (plain kernel versions), 2e-5 abs
   then, for each of two cells, bench.py's scene re-made in numpy
@@ -149,13 +151,17 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            camera) n_pairs within 0.1% of the JAX package's 2,105,855; the
            default budget of 2^20 regrown until n_dropped is 0; K1 against
            its plain version on the bench view at each budget the CLI
-           rendered it at (2^20 and 2^21 truncate), bit-equal. Printed: a
+           rendered it at (2^20 and 2^21 truncate), bit-equal; the port's
+           IO runtime loaded (no fallback line). Printed: a
            frame's render device ms, its copy to the host and PNG encode,
-           the regrowth renders, the decode ms of a 1080p PNG, whether the
-           native library loaded. Then render_cli at the default
+           the regrowth renders, the decode ms of a 1080p PNG. Then
+           render_cli at the default
            --resolution -1: 1600x900 frames (the 1.6K cap), each equal to
            the render at that camera; K1 there as at 1080p, and K2 against
-           its plain version at the bench view's final budget. Then
+           its plain version at the bench view's final budget; each Scene
+           camera's 1600x900 image (the runtime's bilinear resize) bit-equal
+           to the plain version's decode (native_loader.decode_image_plain).
+           Then
            render_cli --tile_size 128 --skip_train at --resolution 1: the
            test frame's PNG bit-equal to the quantised render at tile 128
            (its largest difference from the tile-32 render printed). Then a
@@ -191,6 +197,18 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            with those fixtures in turns as the views' .jpg, and cli.main 10
            iterations over it from start.npz (--pair_budget 2^22): losses
            finite, n_dropped 0, every camera's image its file's decode / 255
+  capture load  a COLMAP source of CAPTURE_VIEWS (200) views at 1920x1080
+           (Mip-NeRF 360's garden holds 185), the 1080p fixtures in turns as
+           their .jpg, render_cli's points3D.bin: Scene at --resolution 2
+           through the IO runtime (4 C workers, bilinear), then the
+           per-camera path (the runtime held off: io/jpeg.py and the port's
+           LANCZOS on this thread) on 20 of the views; each path's seconds
+           and views/s, its decode share of the set-up, the images' bytes on
+           the card, beside the card's name and power limit; the runtime's
+           images 960x540, each fixture's views the same bits, the first of
+           each equal to the plain version's decode; then cli.main
+           CAPTURE_ITERS (10) iterations over the capture from start.npz
+           (sat probes every 5): losses finite, n_dropped 0
   viewer serve (sparse, full width)  after the train cli phase: a
            NetworkGUIServer on a free local port over the 1M sparse model at
            one pair budget (the largest fitted one of the requests, 1.2x); a
@@ -286,7 +304,8 @@ table under keys of their own ("composite_fwd packed", "composite_bwd
 packed"), are zeroed just before each serve, each train, the packed serve
 and step phases, the tile-64 and tile-128 serve-and-train phases, each
 render_cli run (the tile-128 one too),
-each train CLI run (the JPEG one too), the viewer's requests, full_eval,
+each train CLI run (the JPEG and capture ones too), the viewer's requests,
+full_eval,
 each serving_bench run, the self-check and, in each rank of the mesh
 phases, before its steps (the main paths), and must cover every render
 and step run there (K5 and K6 in the sat phases and the loop's probes;
@@ -299,7 +318,8 @@ the cull), the other view's beside them (`other_view`), the largest error
 of the two cells and the checks of the train, quality, viewer, full_eval,
 self-check and 2x2 mesh phases, the launches of each cell's main path, of
 render_cli, of the train, quality, viewer, train-with-viewer, full_eval,
-self-check and mesh phases beside their total (`launches_by_view`), and
+self-check, mesh and capture phases beside their total
+(`launches_by_view`), and
 for K2 and K3 their times and bounds at tile 64 (`tile_64`) and at tile 128
 (`tile_128`).
 Numbers are printed with the card they ran on; TF32 is switched off for
@@ -1959,7 +1979,7 @@ def phase_jpeg(s, tmp, counts):
     Scene camera's image its file's decode / 255 -> launches."""
     import hashlib
 
-    from gsplat_tpu_torch.io import colmap, jpeg
+    from gsplat_tpu_torch.io import colmap, jpeg, native_loader
 
     s.phase("jpeg")
     manifest = json.loads((JPEG_DIR / "manifest.json").read_text())
@@ -1979,9 +1999,15 @@ def phase_jpeg(s, tmp, counts):
             t0 = time.perf_counter()
             decoded[name] = jpeg.decode_jpeg(data[name], name)
             ms.append((time.perf_counter() - t0) * 1e3)
+        rt = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            native_loader.decode_image(JPEG_DIR / name, W, H)
+            rt.append((time.perf_counter() - t0) * 1e3)
         print(f"  {name} ({len(data[name])} bytes, {decoded[name].shape}): decode ms median "
               f"{statistics.median(ms):.3f} min {min(ms):.3f} max {max(ms):.3f} (host clock, "
-              "10)", flush=True)
+              f"10); the IO runtime's decode to float32 at its own size {statistics.median(rt):.3f} "
+              "ms (median of 10)", flush=True)
 
     src, jsrc = Path(tmp) / "cli_source", Path(tmp) / "cli_source_jpg"
     shutil.copytree(src / "sparse", jsrc / "sparse")
@@ -2017,6 +2043,162 @@ def phase_jpeg(s, tmp, counts):
     return launches
 
 
+# ---- capture load: a COLMAP capture of a real size through Scene ----
+
+CAPTURE_VIEWS = 200          # Mip-NeRF 360's garden capture holds 185 views
+CAPTURE_SLOW_VIEWS = 20      # the per-camera path's views (its LANCZOS is slow)
+CAPTURE_RES = 2              # --resolution 2: 960x540 from 1920x1080
+CAPTURE_ITERS = 10
+
+
+def write_capture_source(root, cam_args, n_views, data, points):
+    """A COLMAP source of n_views views at W x H: one PINHOLE camera (the
+    bench camera's focal lengths), the bench camera turned from -5 to +5
+    degrees of yaw and moved along world x from -CLI_SHIFT to +CLI_SHIFT,
+    the 1080p JPEG fixtures (`data`) in turns as the views' .jpg, and the
+    points3D.bin at `points` -> {image name: fixture}."""
+    from gsplat_tpu_torch.io import colmap
+
+    R, T, fovx, fovy = cam_args
+    sparse = Path(root) / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    (Path(root) / "images").mkdir()
+    colmap.write_intrinsics_binary({1: colmap.Camera(
+        id=1, model="PINHOLE", width=W, height=H,
+        params=np.array([W / (2 * math.tan(fovx / 2)), H / (2 * math.tan(fovy / 2)),
+                         W / 2, H / 2]))}, sparse / "cameras.bin")
+    images, kinds = {}, {}
+    for i in range(n_views):
+        t = i / max(n_views - 1, 1)
+        Ri, Ti = shifted_view(cam_args, 10.0 * t - 5.0, CLI_SHIFT * (2.0 * t - 1.0))[:2]
+        kind = JPEG_1080P[i % 2]
+        images[i + 1] = colmap.Image(id=i + 1, qvec=colmap.rotmat2qvec(Ri.T), tvec=Ti,
+                                     camera_id=1, name=f"{i:05d}.jpg")
+        kinds[f"{i:05d}"] = kind
+        (Path(root) / "images" / f"{i:05d}.jpg").write_bytes(data[kind])
+    colmap.write_extrinsics_binary(images, sparse / "images.bin")
+    shutil.copyfile(points, sparse / "points3D.bin")
+    return kinds
+
+
+def load_capture(source, model, native):
+    """Scene over `source` at --resolution CAPTURE_RES (its images on the
+    card), through the IO runtime or, with `native` False, the per-camera
+    path (the runtime held off) -> (Scene, wall seconds, {part: seconds}:
+    the runtime's predecode, and the per-camera decodes and resizes)."""
+    import gsplat_tpu_torch.scene as scene_mod
+    from gsplat_tpu_torch.config import ModelParams
+    from gsplat_tpu_torch.core import camera as camera_mod
+    from gsplat_tpu_torch.io import dataset, native_loader
+
+    clock = {"predecode": 0.0, "decode": 0.0, "resize": 0.0}
+    patched = [(scene_mod, "_predecode_images_native", "predecode"),
+               (dataset, "load_image_rgb", "decode"), (camera_mod, "_resize_image", "resize")]
+    real = {(m, n): getattr(m, n) for m, n, _ in patched}
+    real_available = native_loader.available
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                clock[key] += time.perf_counter() - t
+        return wrapper
+
+    for m, n, key in patched:
+        setattr(m, n, timed(real[(m, n)], key))
+    if not native:
+        native_loader.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        scene = scene_mod.Scene(ModelParams(source_path=str(source), model_path=str(model),
+                                            resolution=CAPTURE_RES, eval=True), shuffle=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+        native_loader.available = real_available
+    return scene, wall, clock
+
+
+def phase_capture_load(s, tmp, cam_args, counts, card):
+    """A capture of CAPTURE_VIEWS 1080p JPEG views: Scene through the IO
+    runtime and through the per-camera path (CAPTURE_SLOW_VIEWS views), then
+    cli.main CAPTURE_ITERS iterations over it from start.npz -> launches."""
+    from gsplat_tpu_torch.io import native_loader
+
+    s.phase("capture load")
+    data = {name: (JPEG_DIR / name).read_bytes() for name in JPEG_1080P}
+    points = Path(tmp) / "cli_source" / "sparse" / "0" / "points3D.bin"
+    src, few = Path(tmp) / "capture_source", Path(tmp) / "capture_source_slow"
+    t0 = time.perf_counter()
+    kinds = write_capture_source(src, cam_args, CAPTURE_VIEWS, data, points)
+    t_write = time.perf_counter() - t0
+    write_capture_source(few, cam_args, CAPTURE_SLOW_VIEWS, data, points)
+
+    runs = {}
+    for label, source, native in (("runtime", src, True), ("per-camera", few, False)):
+        scene, wall, clock = load_capture(source, Path(tmp) / f"capture_{label}", native)
+        cams = scene.get_train_cameras() + scene.get_test_cameras()
+        decode = clock["predecode"] if native else clock["decode"] + clock["resize"]
+        nbytes = sum(c.image.numel() * c.image.element_size() for c in cams)
+        runs[label] = dict(scene=scene, cams=cams, wall=wall, decode=decode)
+        print(f"  capture load, {label} path: {len(cams)} views of {W}x{H} JPEG at "
+              f"--resolution {CAPTURE_RES}: Scene {wall:.3f} s wall ({len(cams) / wall:.2f} "
+              f"views/s); decode{' and resize' if native else ' (io/jpeg.py) and resize'} "
+              f"{decode:.3f} s = {decode / wall:.1%} of the set-up"
+              + ("" if native else f" (decode {clock['decode']:.3f} s, LANCZOS "
+                 f"{clock['resize']:.3f} s)")
+              + f"; images on the card {nbytes} bytes ({nbytes / 2**20:.1f} MiB); {card}",
+              flush=True)
+    rt, slow = runs["runtime"], runs["per-camera"]
+    first = {}
+    for c in rt["cams"]:
+        first.setdefault(kinds[c.image_name], c)
+    same_kind = all(torch.equal(c.image, first[kinds[c.image_name]].image) for c in rt["cams"])
+    plain = {k: np.array_equal(c.image.cpu().numpy(), native_loader.decode_image_plain(
+        src / "images" / f"{c.image_name}.jpg", c.width, c.height)) for k, c in first.items()}
+    shapes = {(c.height, c.width, c.image.device.type) for c in rt["cams"] + slow["cams"]}
+    by_name = {c.image_name: c for c in rt["cams"]}
+    diff = max(float((c.image - by_name[c.image_name].image).abs().max()) for c in slow["cams"])
+    s.check(len(rt["cams"]) == CAPTURE_VIEWS and len(slow["cams"]) == CAPTURE_SLOW_VIEWS
+            and shapes == {(H // CAPTURE_RES, W // CAPTURE_RES, "cuda")} and same_kind
+            and all(plain.values()) and set(plain) == set(JPEG_1080P),
+            f"capture load: {len(rt['cams'])} + {len(slow['cams'])} cameras, images "
+            f"{sorted(shapes)}; the runtime's views of one fixture the same bits "
+            f"{same_kind}; the first of each bit-equal to the plain version's decode "
+            f"{plain}; per-camera (LANCZOS) against the runtime (bilinear): largest "
+            f"difference {diff:.4f} on the same views (two ground truths); the source "
+            f"written in {t_write:.3f} s")
+    print(f"  capture load: the runtime path {rt['wall'] / len(rt['cams']) * 1e3:.2f} ms a view, "
+          f"the per-camera path {slow['wall'] / len(slow['cams']) * 1e3:.2f} ms a view "
+          f"({slow['wall'] / len(slow['cams']) / (rt['wall'] / len(rt['cams'])):.2f}x); "
+          f"{card}", flush=True)
+    del runs, rt, slow, first, by_name
+    torch.cuda.empty_cache()
+
+    argv = ["-s", str(src), "-m", str(Path(tmp) / "capture_train"), "--resolution",
+            str(CAPTURE_RES), "--eval", "--iterations", str(CAPTURE_ITERS), "--quiet",
+            "--pair_budget", str(1 << 22), "--sat_probe_interval", "5",
+            "--start_checkpoint", str(Path(tmp) / "start.npz")]
+    spy, launches, wall = run_train_cli(s, "capture cli", argv, counts)
+    g_end, scene = spy.result
+    cams = scene.get_train_cameras() + scene.get_test_cameras()
+    losses = [st["loss"] for st in spy.steps]
+    s.check(len(spy.steps) == CAPTURE_ITERS and all(math.isfinite(x) for x in losses)
+            and all(st["n_dropped"] == 0 for st in spy.steps) and len(cams) == CAPTURE_VIEWS
+            and spy.probes and all(launches[k] > 0 for k in TRAIN_KERNELS + SAT_KERNELS),
+            f"capture cli over {len(cams)} views at --resolution {CAPTURE_RES}: "
+            f"{len(spy.steps)} steps, losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}), "
+            f"n_dropped {[st['n_dropped'] for st in spy.steps]}, {len(spy.probes)} sat "
+            f"probes; launches {launches}; {wall:.1f} s wall: {spy.wall_split(wall)}")
+    del g_end, scene, cams
+    torch.cuda.empty_cache()
+    return launches
+
+
 CLI_ITERATION = 30_000
 CLI_POINTS = 1 << 18     # the source's sparse cloud: a real scene's holds 10^5-10^6
 CLI_BUDGET = 1 << 20     # render_cli's default pair budget, below the bench view's pairs
@@ -2032,9 +2214,13 @@ CLI_VIEWS = ((0.0, 0.0), (2.0, CLI_SHIFT), (-3.0, -CLI_SHIFT), (5.0, 0.0))
 
 
 def cli_view(cam_args, i):
-    """View i of the CLI source (CLI_VIEWS): the bench camera turned by its
-    yaw and its centre shifted along world x -> (R, T, fovx, fovy)."""
-    deg, shift = CLI_VIEWS[i]
+    """View i of the CLI source (CLI_VIEWS) -> (R, T, fovx, fovy)."""
+    return shifted_view(cam_args, *CLI_VIEWS[i])
+
+
+def shifted_view(cam_args, deg, shift):
+    """The bench camera turned by `deg` of yaw and its centre shifted along
+    world x by `shift` -> (R, T, fovx, fovy)."""
     R, T, fovx, fovy = yaw_camera(cam_args, deg)
     center = -R @ T + np.array([shift, 0.0, 0.0])
     return R, -R.T @ center, fovx, fovy
@@ -2234,12 +2420,14 @@ def phase_render_cli(s, g, cam_args, target, tmp):
             f.launches = 0
 
     t0 = time.perf_counter()
-    native = native_loader.available()
-    t_native = time.perf_counter() - t0
-    print(f"  native library (native/libgsplat_io.so): "
-          + (f"loaded ({t_native:.1f} s, make included)" if native else
-             f"not available ({native_loader.build_error}); images decode through "
-             "io/png.py and resize with the port's LANCZOS"), flush=True)
+    try:
+        native = native_loader.available()
+    except RuntimeError as e:
+        native = False
+        print(f"  the IO runtime did not build: {e}", flush=True)
+    s.check(native, f"the port's IO runtime (csrc/io_runtime.c) loaded in "
+            f"{time.perf_counter() - t0:.3f} s (built in the build phase): Scene's images "
+            "predecode in its worker pool (bilinear), no fallback")
 
     s.phase("render_cli (sparse)")
     timer, launches, wall = run_cli(s, "render_cli --resolution 1", model, 1, zero, counts)
@@ -2294,9 +2482,17 @@ def phase_render_cli(s, g, cam_args, target, tmp):
     t0 = time.perf_counter()
     png.read_png(paeth)
     t_paeth = (time.perf_counter() - t0) * 1e3
+    runtime_ms = {}
+    for name, path in (("Up", src / "images" / "00000.png"), ("Paeth", paeth)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            native_loader.decode_image(path, W, H)
+        runtime_ms[name] = (time.perf_counter() - t0) / reps * 1e3
     print(f"  PNG {W}x{H}: decode {t_dec:.1f} ms (Up rows, as the port writes them), "
           f"{t_paeth:.1f} ms (Paeth rows: the wavefront); encode of the target "
-          f"{part['encode'] * 1e3:.1f} ms", flush=True)
+          f"{part['encode'] * 1e3:.1f} ms; the IO runtime's decode to float32 at its own "
+          f"size {runtime_ms['Up']:.1f} ms (Up), {runtime_ms['Paeth']:.1f} ms (Paeth; "
+          f"host clock, one thread)", flush=True)
 
     s.phase("render_cli (sparse, --resolution -1)")
     timer2, launches2, wall2 = run_cli(s, "render_cli --resolution -1", model, -1, zero,
@@ -2317,10 +2513,21 @@ def phase_render_cli(s, g, cam_args, target, tmp):
     t_scene = time.perf_counter() - t0
     check_cli_pngs(s, "render_cli --resolution -1", model, scene, frames2, split_of2)
     cli_kernel_checks(s, "render_cli --resolution -1", scene, split_of2, composite=True)
-    del scene
+    cams = scene.get_train_cameras() + scene.get_test_cameras()
+    t0 = time.perf_counter()
+    plain = {c.image_name: native_loader.decode_image_plain(
+        src / "images" / f"{c.image_name}.png", c.width, c.height) for c in cams}
+    t_plain = time.perf_counter() - t0
+    same = [np.array_equal(c.image.cpu().numpy(), plain[c.image_name]) for c in cams]
+    s.check(len(cams) == 4 and all(same)
+            and all((c.width, c.height) == (1600, 900) for c in cams),
+            f"Scene at --resolution -1: each camera's 1600x900 ground truth (the runtime's "
+            f"bilinear resize) bit-equal to the plain version's decode: {same} (the plain "
+            f"version {t_plain:.3f} s on the host for the {len(cams)})")
+    del scene, cams, plain
     print(f"  render_cli --resolution -1: {wall2:.3f} s wall for {len(frames2)} frames; its "
-          f"ground truth resized by the {'native bilinear' if native else 'LANCZOS'} path "
-          f"(a Scene at -1: {t_scene:.3f} s)", flush=True)
+          f"ground truth resized bilinearly by the IO runtime (a Scene at -1: "
+          f"{t_scene:.3f} s)", flush=True)
 
     s.phase(f"render_cli (sparse, --tile_size {TILE_WINDOWED})")
     launches3 = cli_tile_frame(s, model, src, zero, counts)
@@ -4337,8 +4544,11 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     for name in _build.HOST_SOURCES:
         _build.load_host(name)
-    print(f"  host sources {list(_build.HOST_SOURCES)} built and loaded ({cc_v}, "
-          f"{' '.join(_build.HOST_CFLAGS)})", flush=True)
+    print(f"  host libraries {list(_build.HOST_SOURCES)} built and loaded ({cc_v}, "
+          f"{' '.join(_build.HOST_CFLAGS)}); the IO runtime (csrc/io_runtime.c, "
+          f"jpeg_decode.c) built in " + (f"{built['io_runtime']:.2f} s" if "io_runtime" in built
+                                         else "an earlier run (loaded from build/host/)"),
+          flush=True)
 
     s.phase("oracle")
     phase_oracle(s)
@@ -4372,6 +4582,7 @@ def main() -> int:
         l_cli = phase_render_cli(s, g, cam_args, target, tmp)
         l_train, e_train = phase_train_cli(s, g, cam_args, target, tmp, kernel_counts())
         l_jpeg = phase_jpeg(s, tmp, kernel_counts())
+        l_capture = phase_capture_load(s, tmp, sparse_cam_args, kernel_counts(), card)
         l_viewer, e_viewer = phase_viewer_serve(s, g, cam_args, tmp, kernel_counts())
         l_train_viewer = phase_train_viewer(s, cam_args, tmp, kernel_counts())
         l_full_eval, e_full_eval = phase_full_eval(s, tmp, kernel_counts())
@@ -4405,7 +4616,8 @@ def main() -> int:
                "train_cli": l_train, "train_quality": l_quality, "viewer": l_viewer,
                "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
                "selfcheck": l_selfcheck, "mesh_nccl_1x1": l_mesh_nccl, "mesh_2x2": l_mesh,
-               "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench}
+               "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench,
+               "capture_cli": l_capture}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at each of tiles {WIDE_TILES}, {TRAIN_STEPS['sparse']} + "
@@ -4424,8 +4636,9 @@ def main() -> int:
           f"table's serve and step phases (K2 packed {l_sparse['composite_fwd packed']} "
           f"sparse, {l_dense['composite_fwd packed']} dense; K3 packed "
           f"{l_sparse['composite_bwd packed']}), serving_bench (K2 {l_bench['composite_fwd']}, "
-          f"K2 packed {l_bench['composite_fwd packed']}) and the JPEG train CLI (K1 "
-          f"{l_jpeg['expand_pairs']})")
+          f"K2 packed {l_bench['composite_fwd packed']}), the JPEG train CLI (K1 "
+          f"{l_jpeg['expand_pairs']}) and the capture's (K1 {l_capture['expand_pairs']}, K5 "
+          f"{l_capture['prefix_sum_small']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")

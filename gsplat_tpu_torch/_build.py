@@ -16,11 +16,14 @@ version, and flip composite_fwd's and composite_bwd's alpha >= 1/255
 decisions on a few pixels (each flip is a ~1e-3 image difference). No
 `--use_fast_math`: `expf` and division stay IEEE-accurate, as in PyTorch.
 
-Host sources. `csrc/<name>.c` (plain C, no CUDA: the JPEG decoder) builds
-with the C compiler named by `CC`, else `cc` or `gcc`, at `-O2 -fPIC
--shared` (no `-ffast-math`), into `build/host/<name>-<hash>.so` by the same
-hash rule, at first use. A failed build raises with the compiler's output;
-nothing falls back.
+Host libraries. `io_runtime` (plain C and pthreads, no CUDA: the IO
+runtime, csrc/io_runtime.c, with the JPEG decoder csrc/jpeg_decode.c
+compiled into it) builds with the C compiler named by `CC`, else `cc` or
+`gcc`, at `-O2 -fPIC -shared -pthread -ffp-contract=off` (no
+`-ffast-math`; no fused multiply-adds, so the resize rounds once an
+operation on every host), into `build/host/<name>-<hash>.so` by the same
+hash rule over every source it compiles, at first use. A failed build
+raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -44,8 +47,10 @@ NVCC_FLAGS = [
 SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
            "segment_sum", "prefix_sum_small", "compact_runs")
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
-HOST_CFLAGS = ["-O2", "-fPIC", "-shared"]
-HOST_SOURCES = ("jpeg_decode",)
+HOST_CFLAGS = ["-O2", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
+HOST_SOURCES = ("io_runtime",)
+# the sources each host library compiles
+HOST_UNITS = {"io_runtime": ("io_runtime", "jpeg_decode")}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # the compiler's output of each verbose build, by source name
@@ -86,11 +91,15 @@ def _lib_path(name: str, nvcc: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _host_sources(name: str) -> List[Path]:
+    return [CSRC / f"{unit}.c" for unit in HOST_UNITS[name]]
+
+
 def _host_path(name: str, cc: str) -> Path:
     h = hashlib.sha256()
-    src = CSRC / f"{name}.c"
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for src in _host_sources(name):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(HOST_CFLAGS + [cc]).encode())
     return HOST_BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -110,22 +119,23 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False,
         for name in names:
             jobs.append((name, _lib_path(name, nvcc),
                          [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])],
-                         CSRC / f"{name}.cu", "nvcc"))
+                         [CSRC / f"{name}.cu"], "nvcc"))
     if host:
         cc = _cc()
         HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
         for name in host:
-            jobs.append((name, _host_path(name, cc), [cc, *HOST_CFLAGS], CSRC / f"{name}.c",
-                         Path(cc).name))
+            jobs.append((name, _host_path(name, cc), [cc, *HOST_CFLAGS],
+                         _host_sources(name), Path(cc).name))
     procs = {}
-    for name, out, cmd, src, tool in jobs:
+    for name, out, cmd, srcs, tool in jobs:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen([*cmd, "-o", str(tmp), str(src)],
+        procs[name] = (subprocess.Popen([*cmd, "-o", str(tmp), *map(str, srcs)],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True),
-                       tmp, out, time.perf_counter(), f"{tool} failed for {src.name}")
+                       tmp, out, time.perf_counter(),
+                       f"{tool} failed for {', '.join(s.name for s in srcs)}")
     seconds = {}
     errors = []
     for name, (proc, tmp, out, t0, what) in procs.items():
@@ -177,8 +187,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    """The loaded library of the host source csrc/<name>.c, built first if
-    needed."""
+    """The loaded host library `name` (HOST_UNITS: the sources it compiles),
+    built first if needed."""
     key = f"host:{name}"
     lib = _libs.get(key)
     if lib is None:

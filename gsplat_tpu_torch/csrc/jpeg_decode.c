@@ -2,8 +2,9 @@
  * decoder in plain C, the port's JPEG path where the JAX package decodes
  * with PIL.
  *
- * Host code (no CUDA), built by _build.py's host route with the system C
- * compiler into build/host/ and loaded with ctypes (io/jpeg.py). It returns
+ * Host code (no CUDA), compiled with io_runtime.c into the IO runtime's
+ * library by _build.py's host route (the system C compiler, build/host/) and
+ * loaded with ctypes (io/jpeg.py, io/native_loader.py). It returns
  * the bytes `np.asarray(PIL.Image.open(path))` gives, PIL being built on
  * libjpeg-turbo at its defaults: each step follows libjpeg-turbo's C code,
  * whose SIMD paths give the same bits.

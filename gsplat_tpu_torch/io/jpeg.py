@@ -9,7 +9,8 @@ one, (H, W, 4) for CMYK and YCCK (PIL's CMYK, its channels inverted as
 PIL's "CMYK;I" inverts them), the same bits as PIL on libjpeg-turbo (its
 integer IDCT, fancy upsampling, table-driven colour conversion; EXIF
 orientation is not applied). The decoder is C (csrc/jpeg_decode.c), built
-with the host's C compiler at first use (_build.load_host). Lossless,
+into the IO runtime's library with the host's C compiler at first use
+(_build.load_host). Lossless,
 hierarchical and arithmetic-coded files, 12-bit samples (which PIL does not
 open either), 2 components, sampling other than 4:4:4, 4:2:2, 4:2:0 and
 4:4:0, a progressive file whose scans leave a coefficient incomplete (which
@@ -36,7 +37,7 @@ class JPEGError(ValueError):
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load_host("jpeg_decode")
+    lib = _build.load_host("io_runtime")
     if not getattr(lib, "_typed", False):
         lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),

@@ -6,10 +6,12 @@ directory, shuffles, loads each camera at its resolution scales (target
 images on `ModelParams.data_device`), and either loads a trained model
 (`point_cloud/iteration_*/point_cloud.ply`, through `gaussians_from_raw`) or
 initialises one from the source's point cloud (`create_from_pcd`). Images
-predecode through the native library where it loads (bilinear resize), as
-the JAX package's do; elsewhere each camera decodes with the port's own
-codecs (LANCZOS resize). Loaded models start at full SH degree, as
-upstream's load_ply does.
+predecode through the port's native IO runtime (csrc/io_runtime.c: a pool
+of C worker threads, bilinear resize), as the JAX package's do through its
+library; a camera the runtime cannot decode (a CMYK JPEG, say) decodes with
+the port's own codecs in load_camera (LANCZOS resize), as the reference's
+fall to PIL. Loaded models start at full SH degree, as upstream's load_ply
+does.
 """
 
 from __future__ import annotations
@@ -84,8 +86,8 @@ class Scene:
         scene_type = detect_scene_type(model.source_path)
         if scene_type == "colmap":
             # images load lazily: _predecode_images_native fills them through the
-            # native worker pool (at target resolution) when the C library
-            # loads; load_camera decodes any camera left unfilled
+            # native runtime's worker pool (at target resolution);
+            # load_camera decodes any camera left unfilled
             info: SceneInfo = read_colmap_scene_info(
                 model.source_path, images=model.images, eval_split=model.eval,
                 load_images=False,
@@ -162,14 +164,16 @@ class Scene:
 
 
 def _predecode_images_native(infos, resolution, resolution_scale, white_background):
-    """Fill lazy CameraInfo.image slots via the native IO runtime: libjpeg/libpng
+    """Fill lazy CameraInfo.image slots via the native IO runtime: PNG/JPEG
     decode + bilinear resize to the target resolution + RGBA-over-bg compositing
-    in a C worker pool (native/gsplat_io.cpp), grouped by target size. Cameras it
-    cannot decode (unsupported format, corrupt file) stay lazy and take the
-    port's own decoders in load_camera. No-op when the library does not load."""
+    in a pool of 4 C worker threads (csrc/io_runtime.c), grouped by target size.
+    Cameras it cannot decode (unsupported format, corrupt file) stay lazy and
+    take the port's own decoders in load_camera. The runtime builds on first
+    use, and a failed build raises; a caller that holds it off (available()
+    False) gets each camera decoded by load_camera, said once."""
     if not native_loader.available():
-        native_loader.say_fallback("images decode through io/png.py and resize with the "
-                                   "port's LANCZOS")
+        native_loader.say_fallback("each camera decodes on this thread through io/png.py "
+                                   "or io/jpeg.py and resizes with the port's LANCZOS")
         return
     bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
     groups: Dict[tuple, list] = {}

@@ -1,7 +1,9 @@
 """The port stands alone: gsplat_tpu_torch, chip_smoke.py and the mesh
 tests' rank worker import no jax, no gsplat_tpu module and no PIL (the
 machine with the GPU has none of them), and they import in a process where
-jax cannot be imported."""
+jax cannot be imported. No file of the port names the JAX package's native
+IO library or its build, and the port's own runtime builds and decodes
+where jax, PIL and gsplat_tpu cannot be imported."""
 
 import re
 import subprocess
@@ -24,6 +26,38 @@ FORBIDDEN = re.compile(
 def test_no_reference_or_pil_imports(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path.name} imports {hits}"
+
+
+NATIVE_NAMES = re.compile(r"native/|libgsplat_io|make -C")
+
+
+@pytest.mark.parametrize("path", sorted(p for p in (REPO / "gsplat_tpu_torch").rglob("*")
+                                        if p.suffix in (".py", ".c", ".cu", ".cuh")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_native_library(path):
+    hits = NATIVE_NAMES.findall(path.read_text())
+    assert not hits, f"{path.name} names {hits}"
+
+
+def test_native_runtime_with_jax_blocked(tmp_path):
+    """io/native_loader.py imports, builds the runtime from csrc/ and
+    decodes a PNG it wrote itself, with jax, PIL and gsplat_tpu blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'PIL', 'gsplat_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from gsplat_tpu_torch.io import native_loader, png\n"
+        "img = np.arange(5 * 7 * 3, dtype=np.uint8).reshape(5, 7, 3)\n"
+        f"png.write_png({str(tmp_path / 'a.png')!r}, img)\n"
+        "assert native_loader.available()\n"
+        f"out = native_loader.decode_image({str(tmp_path / 'a.png')!r}, 7, 5)\n"
+        "assert np.array_equal(out, img.astype(np.float32) / np.float32(255))\n"
+        "print('ok')\n"
+    )
+    p = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr[-3000:]
 
 
 def test_package_imports_with_jax_blocked():
