@@ -248,6 +248,22 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            the CPU); K1-K6 and segment_sum on the final state. Printed:
            LPIPS ms a 1080p pair against its fp32 bound, SSIM, PNG decode,
            render_cli's parts and the wall by part
+  bench    after the dense cell: bench_torch.py's measurement in process
+           (tools/bench.py's main: both densities, the plain, kept and sat
+           passes, each timed synced and pipelined): its JSON line printed
+           (not as the last line); the metric, the card's name and power
+           limit; every pass that ran has n_dropped 0 and its synced,
+           pipelined and _device_ms times, and the kept and sat passes ran
+           where the counts say they must; pairs, culled, contrib and
+           sat_kept of each density equal to the cell's own counts on the
+           same scene (the bench view rendered at the cell's pair budget,
+           its fit probe's culled pairs, its sat probe's survivors), loss
+           bit-equal to the sparse cell's train step 1; no host sync in one
+           step of each pass (torch's sync debug mode); then K1 (at the
+           plain pass's budget and the fitted one), K2-K4, segment_sum, K5
+           and K6 against their plain versions at the budgets the bench
+           fits (bench.fit_budgets, fit_sat) on each density's scene.
+           Printed: the phase's wall time and launches
   serving_bench  after the dense cell: tools/serving_bench.py in process,
            without and with --pack (1M Gaussians, 1080p, both scenes, its
            budgets fitted by the reference's probes): its JSON line printed,
@@ -306,8 +322,8 @@ and step phases, the tile-64 and tile-128 serve-and-train phases, each
 render_cli run (the tile-128 one too),
 each train CLI run (the JPEG and capture ones too), the viewer's requests,
 full_eval,
-each serving_bench run, the self-check and, in each rank of the mesh
-phases, before its steps (the main paths), and must cover every render
+each serving_bench run, the bench phase, the self-check and, in each rank
+of the mesh phases, before its steps (the main paths), and must cover every render
 and step run there (K5 and K6 in the sat phases and the loop's probes;
 K1 and K2 in render_cli; the packed K2 and K3 in the packed phases); the
 kernels line sums them
@@ -316,9 +332,9 @@ kernels JSON rows hold the sparse bench view's times and bound for K1-K4
 and segment_sum, the dense view's for K5 and K6 (the cell whose users run
 the cull), the other view's beside them (`other_view`), the largest error
 of the two cells and the checks of the train, quality, viewer, full_eval,
-self-check and 2x2 mesh phases, the launches of each cell's main path, of
-render_cli, of the train, quality, viewer, train-with-viewer, full_eval,
-self-check, mesh and capture phases beside their total
+self-check, bench and 2x2 mesh phases, the launches of each cell's main
+path, of render_cli, of the train, quality, viewer, train-with-viewer,
+full_eval, self-check, mesh, capture and bench phases beside their total
 (`launches_by_view`), and
 for K2 and K3 their times and bounds at tile 64 (`tile_64`) and at tile 128
 (`tile_128`).
@@ -1452,12 +1468,20 @@ def run_cell(s, label, g, cam_args, views, budget, target):
     budgets, then the serve and train phases, with and without the
     saturation cull, each with the launch counts from zero -> ({kernel name:
     row}, launches of the main path, renders run, view results, train
-    results)."""
+    results, the counts bench.py reports for the cell's scene: pairs and
+    contrib of the bench view at the cell's pair budget, culled of its fit
+    probe, sat_kept of its sat probe)."""
     from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.render.render import render
 
     R, T, fovx, fovy = cam_args
     cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
-    pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
+    pair_fit, kept, _, n_culled = fit_budgets(g, cam, budget)
+    plain = render(cam, g, torch.zeros(3, device=g.device), tile_size=TILE, chunk=CHUNK,
+                   pair_budget=budget)
+    bench_counts = dict(pairs=int(plain.n_pairs), contrib=int(plain.n_contrib),
+                        culled=n_culled)
+    del plain
     s.phase(f"kernel expand_pairs ({label})")
     k1 = phase_expand(s, label, g, cam, pair_fit, kept)
     if label == "dense":
@@ -1515,11 +1539,13 @@ def run_cell(s, label, g, cam_args, views, budget, target):
     zero()
     if label == "sparse":
         s.phase("serve sparse sat probe")
-        n_renders, n_sat_renders = serve_sat_probe(s, g, cam_args, label)
+        n_renders, n_sat_renders, bench_counts["sat_kept"] = serve_sat_probe(s, g, cam_args,
+                                                                             label)
     else:
         s.phase(f"serve {label} sat")
         n_renders, n_sat_renders, sat_result = serve_sat(s, g, cam_args, budget, label)
         results.append(dict(view="sat", **sat_result))
+        bench_counts["sat_kept"] = sat_result["n_sat"]
     renders += n_renders
     sat_launches = read(f"{label} sat serve", n_renders, n_sat_renders)
     s.phase(f"serve {label} packed")
@@ -1548,7 +1574,7 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         rows[f"composite_fwd tile {tile}"], rows[f"composite_bwd tile {tile}"] = k2w, k3w
     for more in phases:
         launches = {k: launches[k] + more[k] for k in launches}
-    return rows, launches, renders, results, trained
+    return rows, launches, renders, results, trained, bench_counts
 
 
 def wide_tile(s, label, g, cam_args, target, budget, loss1, zero, counts, tile):
@@ -1662,7 +1688,7 @@ def serve(s, g, cam_args, views, budget, label):
 def serve_sat_probe(s, g, cam_args, label):
     """One render of the bench view at pair and sat budget SPARSE_BUDGET
     against the render without the cull -> (renders run, of them with the
-    cull)."""
+    cull, n_sat)."""
     from gsplat_tpu_torch.core.camera import make_camera
     from gsplat_tpu_torch.render.render import render
 
@@ -1682,7 +1708,7 @@ def serve_sat_probe(s, g, cam_args, label):
             f"package {REF_SPARSE_SAT} (diff {n_sat - REF_SPARSE_SAT:+d}, tol 0.1%), "
             f"n_dropped {int(out.n_dropped)}, image bit-equal to the render without the "
             f"cull {same}; {kept} kept pairs (the regions outnumber them)")
-    return 2, 1
+    return 2, 1, n_sat
 
 
 def serve_sat(s, g, cam_args, budget, label):
@@ -1961,6 +1987,148 @@ def phase_serving_bench(s, counts):
         total = {k: total[k] + launches[k] for k in total}
         torch.cuda.empty_cache()
     return total
+
+
+def sync_census(fn):
+    """The synchronising CUDA calls one call of fn() makes, as torch's sync
+    debug mode reports them (a prototype that, in its own words, does not
+    detect all of them; the kernels' C wrappers make none) -> ["file:line"]
+    of each, with the port's innermost frame above it ("from file:line")."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # not the mode's one-time notice that it is a prototype
+        if "called a synchronizing" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "gsplat_tpu_torch" in f.filename]
+            found.append(f"{Path(filename).name}:{lineno}" + (
+                f" from {Path(ours[-1].filename).name}:{ours[-1].lineno}" if ours else ""))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found
+
+
+def phase_bench(s, card, cells, loss1, counts):
+    """bench_torch.py's measurement in process (tools/bench.py's main at its
+    card defaults: both densities, every pass), the launch counts from
+    zero: its JSON line printed; the counts of each density equal to its
+    cell's (`cells`: {"sparse", "dense"} -> run_cell's bench counts), loss
+    the sparse cell's train step 1 (`loss1`) bit for bit; every pass that
+    ran with n_dropped 0 and its times; then, on each density's scene, no
+    host sync in one step of each pass (sync_census) and the kernels
+    against their plain versions at the budgets the bench fits ->
+    (launches, {kernel: max |err|})."""
+    import contextlib
+    import io
+
+    from gsplat_tpu_torch.tools import bench
+    from gsplat_tpu_torch.tools.bench_scene import fwd_bwd, scene_on_device
+
+    s.phase("bench")
+    for f in counts.values():
+        f.launches = 0
+    buf = io.StringIO()
+    t_phase = t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counts.items()}
+    line = buf.getvalue().strip().splitlines()[-1]
+    print("  " + line, flush=True)
+    got = json.loads(line)
+    name, limit = (part.strip() for part in card.split(",", 1))
+    s.check(rc == 0 and got["metric"] == bench.METRIC and got["backend"] == "cuda"
+            and got["device"] == torch.cuda.get_device_name(0) == name
+            and got["power_limit"] == limit,
+            f"bench: exit {rc}, metric {got['metric']}, device {got['device']!r}, power limit "
+            f"{got['power_limit']!r} (the card: {card!r}); {wall:.1f} s wall")
+
+    passes = {"plain": ("plain_step_ms", "pipelined_step_ms"),
+              "kept": ("kept_step_ms", "kept_pipelined_ms"),
+              "sat": ("sat_step_ms", "sat_pipelined_ms")}
+    steps, sat_steps, fits = 0, 0, {}
+    for label, _, budget, iters in bench.CARD_CONFIGS:
+        pre, cell = "" if label == "sparse" else "dense_", cells[label]
+        same = {"pairs_per_pixel": got[pre + "pairs_per_pixel"] == cell["pairs"] / (W * H)}
+        same.update({k: got[pre + k] == cell[k] for k in ("culled", "contrib", "sat_kept")})
+        s.check(all(same.values()) and (pre or got["pairs"] == cell["pairs"]),
+                f"bench {label}: pairs per pixel {got[pre + 'pairs_per_pixel']!r}, culled "
+                f"{got[pre + 'culled']}, contrib {got[pre + 'contrib']}, sat_kept "
+                f"{got[pre + 'sat_kept']} vs the {label} cell's {cell}: equal {same}")
+        # the passes bench.py's fits run: kept where the probe culled, sat
+        # where the survivors fall a chunk short of the kept budget
+        pair_fit, kept, contrib = bench.fit_budgets(cell["pairs"], cell["culled"],
+                                                    cell["contrib"], budget, CHUNK)
+        sat = bench.fit_sat(cell["sat_kept"], 0, kept, CHUNK) if cell["culled"] else None
+        fitted = dict(pair_budget=pair_fit, kept_budget=kept, contrib_budget=contrib)
+        runs = {"plain": dict(pair_budget=budget)}      # each pass's render budgets
+        if cell["culled"]:
+            runs["kept"] = fitted
+        if sat is not None:
+            runs["sat"] = dict(fitted, sat_budget=sat)
+        fits[label] = budget, pair_fit, kept, sat, runs
+        ran = {p: p in runs for p in passes}
+        good = got[pre + "n_dropped"] == 0
+        for p, keys in passes.items():
+            for k in keys:
+                t = (got[pre + k], got[pre + bench.device_key(k)])
+                good &= all(v is not None and math.isfinite(v) and v > 0 for v in t) \
+                    if ran[p] else t == (None, None)
+        s.check(good, f"bench {label}: plain pass n_dropped {got[pre + 'n_dropped']} (the "
+                f"fitted passes raise on a drop); passes run {ran}, each with its synced, "
+                f"pipelined and device ms: " + ", ".join(
+                    f"{k} {got[pre + k]} ({got[pre + bench.device_key(k)]} device)"
+                    for keys in passes.values() for k in keys)
+                + f"; peak memory {got[pre + 'peak_memory_bytes']} bytes")
+        per_pass = 1 + iters + bench.PIPELINE
+        steps += per_pass * sum(ran.values())
+        sat_steps += per_pass * ran["sat"]
+    s.check(got["loss"] == loss1,
+            f"bench loss {got['loss']!r} vs the sparse cell's train step 1 {loss1!r}: "
+            f"bit-equal {got['loss'] == loss1}")
+    need = {**{k: steps for k in TRAIN_KERNELS}, **{k: sat_steps for k in SAT_KERNELS}}
+    s.check(all(launches[k] >= n for k, n in need.items()),
+            f"bench kernel launches {launches} cover its {steps} steps "
+            f"({', '.join(TRAIN_KERNELS)}), {sat_steps} with the sat cull "
+            f"({', '.join(SAT_KERNELS)}); {wall:.1f} s wall")
+
+    errs = {}
+    for label, ppg, _, _ in bench.CARD_CONFIGS:
+        budget, pair_fit, kept, sat, runs = fits[label]
+        g, cam = scene_on_device(N, W, H, target_pairs_per_gaussian=ppg,
+                                 tile_size=bench.SCENE_TILE, device="cuda")
+        bg = torch.zeros(3, device="cuda")
+        for name, kw in runs.items():
+            syncs = sync_census(lambda: fwd_bwd(g, cam, bg, tile_size=TILE, chunk=CHUNK, **kw))
+            s.check(not syncs, f"bench {label} {name} pass: {len(syncs)} host syncs in one "
+                    f"step (torch's sync debug mode; want 0, or its pipelined time is not "
+                    f"pipelined){': ' + ', '.join(syncs) if syncs else ''}")
+        # K5 and K6 on the sat pass's inputs; where it is skipped, on the
+        # probe's kept prefix at the plain pass's budget, which holds its regions
+        sat_inputs = (pair_fit, kept, sat) if sat is not None else (budget, kept, budget)
+        print(f"  bench {label}: the kernels at pair budget {budget} and {pair_fit}, kept "
+              f"{kept}, sat inputs {sat_inputs}", flush=True)
+        e, _, _ = loop_kernel_checks(s, f"bench {label}", g, cam, cam.image, (budget, pair_fit),
+                                     kept=kept, sat_inputs=sat_inputs)
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in e.items()}
+        del g, cam
+        torch.cuda.empty_cache()
+    print(f"  bench phase: {time.perf_counter() - t_phase:.1f} s wall, the kernel checks "
+          "included", flush=True)
+    return launches, errs
 
 
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
@@ -2974,37 +3142,43 @@ def densify_card_vs_cpu(s, label, stash):
     return max(rel.values())
 
 
-def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None):
+def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None,
+                       kept=None, sat_inputs=None):
     """K1-K6 and segment_sum against their plain versions on a state of the
-    loop, at its tile size and frame size: K1 at each of `budgets`, K2-K4
-    and segment_sum at the last, K5 and K6 in one _sat_probe's inputs ->
-    ({kernel: max |err|}, K1's live slots at each budget, the pairs whose
-    gid is a live row at or above 2^20)."""
+    loop, at its tile size and frame size: K1 at each of `budgets` (the
+    last with the kept budget `kept`, if given), K2-K4 and segment_sum at
+    the last and `kept`, K5 and K6 in one _sat_probe's inputs (or those of
+    a render at `sat_inputs`: pair, kept and sat budgets) -> ({kernel: max
+    |err|}, K1's live slots at each budget, the pairs whose gid is a live
+    row at or above 2^20)."""
     from gsplat_tpu_torch.render import raster
 
     errs = {}
     totals = []
-    for S in budgets:
-        _, total, _, err = expand_check(s, f"{label} K1 at budget {S}", g, cam, S, S, size,
-                                        tile)
+    S = budgets[-1]
+    for B in budgets:
+        k = kept if kept is not None and B == S else B
+        _, total, _, err = expand_check(s, f"{label} K1 at budget {B}" + (
+            f", kept {k}" if k != B else ""), g, cam, B, k, size, tile)
         totals.append(int(total))
         errs["expand_pairs"] = max(errs.get("expand_pairs", 0.0), float(err))
-    S = budgets[-1]
-    res = composite_check(s, label, g, cam, S, S, tile, size)
+    k = S if kept is None else kept
+    res = composite_check(s, label, g, cam, S, k, tile, size)
     gid = res[0][:, raster.KEY_COL]
     high = int(((gid >= (1 << 20)) & (gid < g.capacity)).sum())    # the null gid is capacity
     errs["composite_fwd"] = res[-1]
     del res, gid
-    k3, d = phase_backward(s, label, g, cam, target, S, S, tile, size)
+    k3, d = phase_backward(s, label, g, cam, target, S, k, tile, size)
     errs["composite_bwd"] = k3["max_abs_err"]
     errs["segment_ends"] = phase_ends(s, label, d, g.capacity)["max_abs_err"]
     errs["segment_sum"] = phase_reduce(s, label, d, g.capacity + 1)["max_abs_err"]
     del d
-    seen, b = sat_kernel_inputs(g, cam, S, None, S, tile, size)   # what _sat_probe renders
+    sat_pairs, sat_kept, sat = sat_inputs or (S, None, S)    # what _sat_probe renders
+    seen, b = sat_kernel_inputs(g, cam, sat_pairs, sat_kept, sat, tile, size)
     del b
     k5, C = phase_scan(s, label, seen)
     errs["prefix_sum_small"] = k5["max_abs_err"]
-    errs["compact_runs"] = phase_compact(s, label, seen, C, S)["max_abs_err"]
+    errs["compact_runs"] = phase_compact(s, label, seen, C, sat)["max_abs_err"]
     del seen, C
     torch.cuda.empty_cache()
     return errs, totals, high
@@ -4564,7 +4738,7 @@ def main() -> int:
         del raw
         print(f"  sparse scene: {N} Gaussians, capacity {g.capacity}, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        k_sparse, l_sparse, n_sparse, sparse, t_sparse = run_cell(
+        k_sparse, l_sparse, n_sparse, sparse, t_sparse, c_sparse = run_cell(
             s, "sparse", g, cam_args, (0.0, 2.0, -3.0, 5.0), SPARSE_BUDGET, target)
         bench = sparse[0]
         for what, got, ref in (("n_pairs", int(bench["out"].n_pairs), REF_SPARSE_PAIRS),
@@ -4594,7 +4768,7 @@ def main() -> int:
                                             tile_size=32)
         g = load_scene(raw, tmp, "dense")
         del raw
-        k_dense, l_dense, n_dense, dense, t_dense = run_cell(
+        k_dense, l_dense, n_dense, dense, t_dense, c_dense = run_cell(
             s, "dense", g, cam_args, (0.0,), DENSE_BUDGET, target)
         got = int(dense[0]["out"].n_culled)
         s.check(abs(got - REF_DENSE_CULLED) <= 1e-3 * REF_DENSE_CULLED,
@@ -4603,6 +4777,8 @@ def main() -> int:
                 f"({(got - REF_DENSE_CULLED) / REF_DENSE_CULLED:+.5%}, tol 0.1%)")
         del g, target, dense
         torch.cuda.empty_cache()
+        l_headline, e_headline = phase_bench(s, card, {"sparse": c_sparse, "dense": c_dense},
+                                             loss1, kernel_counts())
         l_bench = phase_serving_bench(s, kernel_counts())
         l_quality, e_quality = phase_train_quality(s, tmp, kernel_counts())
         l_selfcheck, e_selfcheck = phase_selfcheck(s, kernel_counts())
@@ -4617,7 +4793,7 @@ def main() -> int:
                "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
                "selfcheck": l_selfcheck, "mesh_nccl_1x1": l_mesh_nccl, "mesh_2x2": l_mesh,
                "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench,
-               "capture_cli": l_capture}
+               "capture_cli": l_capture, "bench": l_headline}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at each of tiles {WIDE_TILES}, {TRAIN_STEPS['sparse']} + "
@@ -4638,7 +4814,9 @@ def main() -> int:
           f"{l_sparse['composite_bwd packed']}), serving_bench (K2 {l_bench['composite_fwd']}, "
           f"K2 packed {l_bench['composite_fwd packed']}), the JPEG train CLI (K1 "
           f"{l_jpeg['expand_pairs']}) and the capture's (K1 {l_capture['expand_pairs']}, K5 "
-          f"{l_capture['prefix_sum_small']})")
+          f"{l_capture['prefix_sum_small']}); the bench phase's passes (K1 "
+          f"{l_headline['expand_pairs']}, K3 {l_headline['composite_bwd']}, K5 "
+          f"{l_headline['prefix_sum_small']})")
     print("kernels " + json.dumps(launches))
     s.check(all(v > 0 for v in launches.values()),
             f"every kernel launched on the main path: {launches}")
@@ -4669,6 +4847,7 @@ def main() -> int:
                                          e_viewer.get(name, 0.0),
                                          e_full_eval.get(name, 0.0),
                                          e_selfcheck.get(name, 0.0),
+                                         e_headline.get(name, 0.0),
                                          e_mesh.get(name, 0.0)),
                          other_view=dict(view=other, **{k: o[k] for k in (
                              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})))

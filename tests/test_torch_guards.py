@@ -1,7 +1,7 @@
-"""The port stands alone: gsplat_tpu_torch, chip_smoke.py and the mesh
-tests' rank worker import no jax, no gsplat_tpu module and no PIL (the
-machine with the GPU has none of them), and they import in a process where
-jax cannot be imported. No file of the port names the JAX package's native
+"""The port stands alone: gsplat_tpu_torch, chip_smoke.py, bench_torch.py
+and the mesh tests' rank worker import no jax, no gsplat_tpu module and no
+PIL (the machine with the GPU has none of them), and they import in a
+process where jax cannot be imported. No file of the port names the JAX package's native
 IO library or its build, and the port's own runtime builds and decodes
 where jax, PIL and gsplat_tpu cannot be imported."""
 
@@ -14,7 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "gsplat_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
+    REPO / "chip_smoke.py", REPO / "bench_torch.py", REPO / "tests" / "torch_dist_worker.py"]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|flax|PIL)\b|from\s+(jax|flax|PIL)\b"
     r"|import\s+gsplat_tpu(\.|\s|$)|from\s+gsplat_tpu(\.|\s))",
@@ -88,10 +88,12 @@ def test_package_imports_with_jax_blocked():
         "import gsplat_tpu_torch.dist, gsplat_tpu_torch.dist.mesh, gsplat_tpu_torch.dist.data\n"
         "import gsplat_tpu_torch.dist.spmd, gsplat_tpu_torch.dist.collectives\n"
         "import gsplat_tpu_torch.dist.launch, gsplat_tpu_torch.tools.multihost_smoke\n"
-        "import gsplat_tpu_torch.tools.sharded_scale_demo\n"
+        "import gsplat_tpu_torch.tools.sharded_scale_demo, gsplat_tpu_torch.tools.bench\n"
 
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "spec = importlib.util.spec_from_file_location('bench_torch', 'bench_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "spec = importlib.util.spec_from_file_location('w', 'tests/torch_dist_worker.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
