@@ -44,7 +44,9 @@ Each step takes `on_stage(name)` (called after "render", "band_gather",
 "loss", "backward", "grad_all_reduce", "adam", "densify_stats"; the sharded
 step also after "project" and "all_to_all") and `grads_out`, a dict the
 step fills with the reduced parameter gradients (the shard's in the
-sharded step) and the per-view screen-space gradients ("mean2d").
+sharded step) and the per-view screen-space gradients ("mean2d"). Each
+stage is a span of gsplat_tpu_torch.spans under the step's root ("step");
+the replicated step's "render" is render's own span, its stage end a mark.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.config import (MeshParams, OptimizationParams, contrib_budget0,
                                      kept_budget0, sat_budget0)
 from gsplat_tpu_torch.core.camera import Camera
@@ -112,11 +115,6 @@ def _band_lead(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
     return lead
 
 
-def _stage(on_stage, name: str) -> None:
-    if on_stage is not None:
-        on_stage(name)
-
-
 def _budgets(mp: MeshParams, pair_budget, contrib_budget, sat_budget, kept_budget):
     budget = pair_budget if pair_budget is not None else mp.pair_budget
     kept = kept_budget if kept_budget is not None else kept_budget0(mp, budget)
@@ -158,14 +156,14 @@ def _finish(g_new, opt_state, params, pgrads, offs, radii, lr_fns, step, ema, me
             counts, n_data, width, height, on_stage, grads_out):
     """Adam, each view's densification statistics, the EMA -> the step's
     nine outputs."""
-    lrs = current_lrs(lr_fns, step)
-    new_params, new_opt_state = adam_update(params, pgrads, opt_state, lrs)
-    _stage(on_stage, "adam")
-    g_new = g_new.replace(**new_params)
-    for i in range(n_data):
-        g_new = add_densification_stats(g_new, offs[i] * float(n_data), radii[i], width,
-                                        height)
-    _stage(on_stage, "densify_stats")
+    with spans.span("adam", on_stage):
+        lrs = current_lrs(lr_fns, step)
+        new_params, new_opt_state = adam_update(params, pgrads, opt_state, lrs)
+    with spans.span("densify_stats", on_stage):
+        g_new = g_new.replace(**new_params)
+        for i in range(n_data):
+            g_new = add_densification_stats(g_new, offs[i] * float(n_data), radii[i], width,
+                                            height)
     if grads_out is not None:
         grads_out.update(pgrads)
         grads_out["mean2d"] = offs
@@ -202,40 +200,43 @@ def make_spmd_train_step(
     def train_step(g: Gaussians, opt_state: AdamState, cams: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None,
                    grads_out: Optional[Dict[str, torch.Tensor]] = None):
-        step = int(step)
-        cap = g.capacity
-        params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
-        offset = torch.zeros((cap, 2), dtype=torch.float32, device=g.device,
-                             requires_grad=True)
-        with torch.enable_grad():
-            out = render(_unbatch(cams, mesh.d), g.replace(**params), bg, region=region,
-                         band_lead=_band_lead(mesh), mean2d_offset=offset,
-                         on_stage=on_stage, **kw)
-            _stage(on_stage, "render")
-            full = C.BandGather.apply(out.image, mesh.tile_group, mesh.t,
-                                      1.0 / n_data)[:height]
-            _stage(on_stage, "band_gather")
-            loss = photometric_loss(full, own_image(cams, mesh), opt.lambda_dssim)
-            _stage(on_stage, "loss")
-            grads = torch.autograd.grad(loss, list(params.values()) + [offset])
-            _stage(on_stage, "backward")
-        # the parameter gradients summed over the world; this view's
-        # screen-space gradient summed over its tile row, then gathered over
-        # data beside its radii (the projection's, alike on every band)
-        flat = C.reduce_sum_fixed(torch.cat([x.reshape(-1) for x in grads[:-1]]),
-                                  mesh.world_group, _world_fold(mesh), "grad_all_reduce")
-        pgrads, o = {}, 0
-        for k, v in params.items():
-            pgrads[k] = flat[o:o + v.numel()].view(v.shape)
-            o += v.numel()
-        off = C.reduce_sum_fixed(grads[-1], mesh.tile_group, name="grad_all_reduce")
-        view = C.all_gather_rows(torch.cat([off, out.radii[:, None]], 1)[None],
-                                 mesh.data_group, "view_gather")
-        mean_loss, *counts = _reduce_counts(mesh, loss, out)
-        _stage(on_stage, "grad_all_reduce")
-        return _finish(g, opt_state, {k: v.detach() for k, v in params.items()}, pgrads,
-                       view[:, :, :2], view[:, :, 2], lr_fns, step, ema, mean_loss,
-                       counts, n_data, width, height, on_stage, grads_out)
+        with spans.span("step", root=True):
+            step = int(step)
+            cap = g.capacity
+            params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
+            offset = torch.zeros((cap, 2), dtype=torch.float32, device=g.device,
+                                 requires_grad=True)
+            with torch.enable_grad():
+                out = render(_unbatch(cams, mesh.d), g.replace(**params), bg, region=region,
+                             band_lead=_band_lead(mesh), mean2d_offset=offset,
+                             on_stage=on_stage, **kw)
+                spans.stage(on_stage, "render")
+                with spans.span("band_gather", on_stage):
+                    full = C.BandGather.apply(out.image, mesh.tile_group, mesh.t,
+                                              1.0 / n_data)[:height]
+                with spans.span("loss", on_stage):
+                    loss = photometric_loss(full, own_image(cams, mesh), opt.lambda_dssim)
+                with spans.span("backward", on_stage, adopt=True):
+                    grads = torch.autograd.grad(loss, list(params.values()) + [offset])
+            with spans.span("grad_all_reduce", on_stage):
+                # the parameter gradients summed over the world; this view's
+                # screen-space gradient summed over its tile row, then gathered
+                # over data beside its radii (the projection's, alike on every
+                # band)
+                flat = C.reduce_sum_fixed(torch.cat([x.reshape(-1) for x in grads[:-1]]),
+                                          mesh.world_group, _world_fold(mesh),
+                                          "grad_all_reduce")
+                pgrads, o = {}, 0
+                for k, v in params.items():
+                    pgrads[k] = flat[o:o + v.numel()].view(v.shape)
+                    o += v.numel()
+                off = C.reduce_sum_fixed(grads[-1], mesh.tile_group, name="grad_all_reduce")
+                view = C.all_gather_rows(torch.cat([off, out.radii[:, None]], 1)[None],
+                                         mesh.data_group, "view_gather")
+                mean_loss, *counts = _reduce_counts(mesh, loss, out)
+            return _finish(g, opt_state, {k: v.detach() for k, v in params.items()},
+                           pgrads, view[:, :, :2], view[:, :, 2], lr_fns, step, ema,
+                           mean_loss, counts, n_data, width, height, on_stage, grads_out)
 
     return train_step
 
@@ -265,73 +266,77 @@ def make_sharded_spmd_train_step(
     def train_step(g: Gaussians, opt_state: AdamState, cams: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None,
                    grads_out: Optional[Dict[str, torch.Tensor]] = None):
-        step = int(step)
-        rows = g.capacity                      # this shard's rows
-        live = torch.clamp(g.n_live - mesh.d * rows, 0, rows).to(g.n_live.dtype)
-        params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
-        offsets = [torch.zeros((rows, 2), dtype=torch.float32, device=g.device,
-                               requires_grad=True) for _ in range(n_data)]
-        with torch.enable_grad():
-            mine, radii = [], []
-            for c in range(n_data):
-                pr = project_gaussians(g.replace(**params, n_live=live), _unbatch(cams, c),
-                                       mean2d_offset=offsets[c])
-                mine.append(torch.cat([pr.mean2d, pr.conic, pr.depth[:, None],
-                                       pr.radius[:, None], pr.rgb, pr.opacity[:, None]], 1))
-                radii.append(pr.radius)
-            _stage(on_stage, "project")
-            # row c of `mine` goes to data rank c; the received blocks, in
-            # shard order, are the full table of this rank's camera
-            stacked = torch.stack(mine)
-            full = C.AllToAll.apply(stacked, mesh.data_group)
-            _stage(on_stage, "all_to_all")
-            radius = full[:, 6].detach()
-            proj = Projection(mean2d=full[:, 0:2], conic=full[:, 2:5], depth=full[:, 5],
-                              radius=radius, rgb=full[:, 7:10], opacity=full[:, 10],
-                              visible=radius > 0.0)
-            out = render_projected(proj, width, height, bg, region=region,
-                                   band_lead=_band_lead(mesh), on_stage=on_stage, **kw)
-            _stage(on_stage, "render")
-            img = C.BandGather.apply(out.image, mesh.tile_group, mesh.t,
-                                     1.0 / n_data)[:height]
-            _stage(on_stage, "band_gather")
-            loss = photometric_loss(img, own_image(cams, mesh), opt.lambda_dssim)
-            _stage(on_stage, "loss")
-            # the render's and the exchange's backward, then each camera's
-            # projection in turn: its gradients added into one buffer a
-            # parameter in camera order (the order the replicated step adds
-            # them in), the screen-space gradients kept a view each. The
-            # scalar root sum(rows * g) hands the projection g bit for bit
-            # (its backward multiplies g by ones); passing g as grad_outputs
-            # instead costs ~3 s on the first call (torch imports sympy for
-            # that path).
-            (g_rows,) = torch.autograd.grad(loss, [stacked])
-            summed, views = None, []
-            for c in range(n_data):
-                *gc, g_off = torch.autograd.grad((mine[c] * g_rows[c]).sum(),
-                                                 list(params.values()) + [offsets[c]])
-                views.append(g_off)
-                if summed is None:
-                    summed = gc
-                else:
-                    for acc, x in zip(summed, gc):
-                        acc += x
-                del gc
-            _stage(on_stage, "backward")
-        # the shard's gradients and its views' screen-space gradients, summed
-        # over the tile row (each band's share); no reduction over data
-        flat = torch.cat([x.reshape(-1) for x in summed + views])
-        flat = C.reduce_sum_fixed(flat, mesh.tile_group, name="grad_all_reduce")
-        pgrads, o = {}, 0
-        for k, v in params.items():
-            pgrads[k] = flat[o:o + v.numel()].view(v.shape)
-            o += v.numel()
-        offs = flat[o:].view(n_data, rows, 2)
-        mean_loss, *counts = _reduce_counts(mesh, loss, out)
-        _stage(on_stage, "grad_all_reduce")
-        return _finish(g, opt_state, {k: v.detach() for k, v in params.items()}, pgrads,
-                       offs, radii, lr_fns, step, ema, mean_loss, counts, n_data, width,
-                       height, on_stage, grads_out)
+        with spans.span("step", root=True):
+            step = int(step)
+            rows = g.capacity                      # this shard's rows
+            live = torch.clamp(g.n_live - mesh.d * rows, 0, rows).to(g.n_live.dtype)
+            params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
+            offsets = [torch.zeros((rows, 2), dtype=torch.float32, device=g.device,
+                                   requires_grad=True) for _ in range(n_data)]
+            with torch.enable_grad():
+                with spans.span("project", on_stage):
+                    mine, radii = [], []
+                    for c in range(n_data):
+                        pr = project_gaussians(g.replace(**params, n_live=live),
+                                               _unbatch(cams, c), mean2d_offset=offsets[c])
+                        mine.append(torch.cat([pr.mean2d, pr.conic, pr.depth[:, None],
+                                               pr.radius[:, None], pr.rgb,
+                                               pr.opacity[:, None]], 1))
+                        radii.append(pr.radius)
+                with spans.span("all_to_all", on_stage):
+                    # row c of `mine` goes to data rank c; the received blocks,
+                    # in shard order, are the full table of this rank's camera
+                    stacked = torch.stack(mine)
+                    full = C.AllToAll.apply(stacked, mesh.data_group)
+                with spans.span("render", on_stage):
+                    radius = full[:, 6].detach()
+                    proj = Projection(mean2d=full[:, 0:2], conic=full[:, 2:5],
+                                      depth=full[:, 5], radius=radius, rgb=full[:, 7:10],
+                                      opacity=full[:, 10], visible=radius > 0.0)
+                    out = render_projected(proj, width, height, bg, region=region,
+                                           band_lead=_band_lead(mesh), on_stage=on_stage,
+                                           **kw)
+                with spans.span("band_gather", on_stage):
+                    img = C.BandGather.apply(out.image, mesh.tile_group, mesh.t,
+                                             1.0 / n_data)[:height]
+                with spans.span("loss", on_stage):
+                    loss = photometric_loss(img, own_image(cams, mesh), opt.lambda_dssim)
+                # the render's and the exchange's backward, then each camera's
+                # projection in turn: its gradients added into one buffer a
+                # parameter in camera order (the order the replicated step adds
+                # them in), the screen-space gradients kept a view each. The
+                # scalar root sum(rows * g) hands the projection g bit for bit
+                # (its backward multiplies g by ones); passing g as grad_outputs
+                # instead costs ~3 s on the first call (torch imports sympy for
+                # that path).
+                with spans.span("backward", on_stage, adopt=True):
+                    (g_rows,) = torch.autograd.grad(loss, [stacked])
+                    summed, views = None, []
+                    for c in range(n_data):
+                        *gc, g_off = torch.autograd.grad((mine[c] * g_rows[c]).sum(),
+                                                         list(params.values()) + [offsets[c]])
+                        views.append(g_off)
+                        if summed is None:
+                            summed = gc
+                        else:
+                            for acc, x in zip(summed, gc):
+                                acc += x
+                        del gc
+            with spans.span("grad_all_reduce", on_stage):
+                # the shard's gradients and its views' screen-space gradients,
+                # summed over the tile row (each band's share); no reduction
+                # over data
+                flat = torch.cat([x.reshape(-1) for x in summed + views])
+                flat = C.reduce_sum_fixed(flat, mesh.tile_group, name="grad_all_reduce")
+                pgrads, o = {}, 0
+                for k, v in params.items():
+                    pgrads[k] = flat[o:o + v.numel()].view(v.shape)
+                    o += v.numel()
+                offs = flat[o:].view(n_data, rows, 2)
+                mean_loss, *counts = _reduce_counts(mesh, loss, out)
+            return _finish(g, opt_state, {k: v.detach() for k, v in params.items()},
+                           pgrads, offs, radii, lr_fns, step, ema, mean_loss, counts, n_data,
+                           width, height, on_stage, grads_out)
 
     return train_step
 

@@ -31,7 +31,10 @@ Where the port differs: `camera_from_request` builds the port's Camera on a
 given device; `image_to_bytes` also takes a torch tensor, which it
 quantises on its own device before one copy of the bytes to the host (the
 same float32 arithmetic as the numpy path, so the same bytes), returned as
-a memoryview.
+a memoryview. Under a profiler the three are spans of
+gsplat_tpu_torch.spans ("gui.parse", "gui.camera", "gui.to_bytes" with its
+"gui.to_bytes.quantize" and "gui.to_bytes.copy"), and a queued request
+carries its receipt time (`received_ns`) for the loop's "gui.request".
 """
 
 
@@ -49,6 +52,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.viewer import _Handler, write_preview
 
@@ -69,6 +73,7 @@ class GuiRequest:
     fovy: float
     shs_python: bool = False
     rot_scale_python: bool = False
+    received_ns: int = 0                  # perf_counter_ns when queued; 0 if never
     _done: threading.Event = field(default_factory=threading.Event)
     _image: Optional[bytes] = None
 
@@ -78,21 +83,23 @@ class GuiRequest:
 
 
 def parse_message(msg: dict) -> GuiRequest:
-    w, h = int(msg["resolution_x"]), int(msg["resolution_y"])
-    wv = fp = None
-    if w > 0 and h > 0:
-        wv = np.asarray(msg["view_matrix"], np.float32).reshape(4, 4)
-        fp = np.asarray(msg["view_projection_matrix"], np.float32).reshape(4, 4)
-    return GuiRequest(
-        width=w, height=h,
-        do_training=bool(msg.get("train", True)),
-        keep_alive=bool(msg.get("keep_alive", True)),
-        scaling_modifier=float(msg.get("scaling_modifier", 1.0)),
-        world_view=wv, full_proj=fp,
-        fovx=float(msg.get("fov_x", 1.0)), fovy=float(msg.get("fov_y", 1.0)),
-        shs_python=bool(msg.get("shs_python", False)),
-        rot_scale_python=bool(msg.get("rot_scale_python", False)),
-    )
+    # a root span: connection threads parse while the training thread runs
+    with spans.span("gui.parse", root=True):
+        w, h = int(msg["resolution_x"]), int(msg["resolution_y"])
+        wv = fp = None
+        if w > 0 and h > 0:
+            wv = np.asarray(msg["view_matrix"], np.float32).reshape(4, 4)
+            fp = np.asarray(msg["view_projection_matrix"], np.float32).reshape(4, 4)
+        return GuiRequest(
+            width=w, height=h,
+            do_training=bool(msg.get("train", True)),
+            keep_alive=bool(msg.get("keep_alive", True)),
+            scaling_modifier=float(msg.get("scaling_modifier", 1.0)),
+            world_view=wv, full_proj=fp,
+            fovx=float(msg.get("fov_x", 1.0)), fovy=float(msg.get("fov_y", 1.0)),
+            shs_python=bool(msg.get("shs_python", False)),
+            rot_scale_python=bool(msg.get("rot_scale_python", False)),
+        )
 
 
 def _recv_exact(conn: socket.socket, n: int) -> bytes:
@@ -178,6 +185,7 @@ class NetworkGUIServer:
             try:
                 while True:
                     req = parse_message(read_message(conn))
+                    req.received_ns = time.perf_counter_ns()
                     with self._lock:
                         self._pending.append(req)
                     if not req._done.wait(timeout=600.0):
@@ -228,24 +236,24 @@ def camera_from_request(req: GuiRequest, device: Union[str, torch.device]) -> Ca
     """Build a render-ready Camera on `device` from the viewer's matrices (no
     GT image): cam_center = inv(world_view)[3, :3] and tan(fov / 2) in
     float32 numpy, as the JAX package computes them."""
-    wv = np.asarray(req.world_view, np.float32)
-    cam_center = np.linalg.inv(wv)[3, :3]
-
     def f32(a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
-    return Camera(
-        world_view=f32(wv),
-        full_proj=f32(req.full_proj),
-        cam_center=f32(cam_center),
-        tan_fovx=f32(math.tan(req.fovx * 0.5)),
-        tan_fovy=f32(math.tan(req.fovy * 0.5)),
-        image=None,
-        width=req.width,
-        height=req.height,
-        image_name="network_gui",
-        uid=-1,
-    )
+    with spans.span("gui.camera"):
+        wv = np.asarray(req.world_view, np.float32)
+        cam_center = np.linalg.inv(wv)[3, :3]
+        return Camera(
+            world_view=f32(wv),
+            full_proj=f32(req.full_proj),
+            cam_center=f32(cam_center),
+            tan_fovx=f32(math.tan(req.fovx * 0.5)),
+            tan_fovy=f32(math.tan(req.fovy * 0.5)),
+            image=None,
+            width=req.width,
+            height=req.height,
+            image_name="network_gui",
+            uid=-1,
+        )
 
 
 def image_to_bytes(image: Union[np.ndarray, torch.Tensor]) -> Union[bytes, memoryview]:
@@ -254,8 +262,11 @@ def image_to_bytes(image: Union[np.ndarray, torch.Tensor]) -> Union[bytes, memor
     render CLI's PNGs). A tensor comes back as a flat memoryview of its one
     host copy (sendall takes it as it is: a 1080p frame's 6.2 MB are not
     copied again)."""
-    if isinstance(image, torch.Tensor):
-        q = (torch.clamp(image.detach(), 0.0, 1.0) * 255).to(torch.uint8)
-        return memoryview(q.cpu().numpy().reshape(-1))
-    arr = (np.clip(np.asarray(image), 0.0, 1.0) * 255).astype(np.uint8)
-    return arr.tobytes()
+    with spans.span("gui.to_bytes"):
+        if isinstance(image, torch.Tensor):
+            with spans.span("gui.to_bytes.quantize"):
+                q = (torch.clamp(image.detach(), 0.0, 1.0) * 255).to(torch.uint8)
+            with spans.span("gui.to_bytes.copy"):
+                return memoryview(q.cpu().numpy().reshape(-1))
+        arr = (np.clip(np.asarray(image), 0.0, 1.0) * 255).astype(np.uint8)
+        return arr.tobytes()

@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.render import compact, expand, scan
 
 
@@ -269,22 +270,20 @@ def bin_gaussians(
         pair_budget < 8 * n or kept_budget < pair_budget or do_sat
     )
 
-    table, total = expansion_table(mean2d, radius, depth, cull_conic, cull_opacity,
-                                   tw=tw, th=th, tile_size=tile_size, db=db,
-                                   do_cull=do_cull)
-    key, pair_gid = expand.expand_pairs(
-        table, total, pair_budget, tw=tw, tile_size=tile_size, db=db,
-        num_tiles=num_tiles, n_orig=n, do_cull=do_cull, sat_pack=do_sat,
-    )
-    if on_stage is not None:
-        on_stage("bin")
+    with spans.span("bin", on_stage):
+        table, total = expansion_table(mean2d, radius, depth, cull_conic, cull_opacity,
+                                       tw=tw, th=th, tile_size=tile_size, db=db,
+                                       do_cull=do_cull)
+        key, pair_gid = expand.expand_pairs(
+            table, total, pair_budget, tw=tw, tile_size=tile_size, db=db,
+            num_tiles=num_tiles, n_orig=n, do_cull=do_cull, sat_pack=do_sat,
+        )
 
-    # two-key sort as one int64 key: both halves are non-negative int32
-    packed, _ = torch.sort((key.to(torch.int64) << 32) | pair_gid.to(torch.int64))
-    key_s = (packed >> 32).to(torch.int32)
-    gid_s = (packed & 0xFFFFFFFF).to(torch.int32)
-    if on_stage is not None:
-        on_stage("sort")
+    with spans.span("sort", on_stage):
+        # two-key sort as one int64 key: both halves are non-negative int32
+        packed, _ = torch.sort((key.to(torch.int64) << 32) | pair_gid.to(torch.int64))
+        key_s = (packed >> 32).to(torch.int32)
+        gid_s = (packed & 0xFFFFFFFF).to(torch.int32)
 
     gid_null = n << expand.SAT_Q_BITS if do_sat else n
     if do_cull:
@@ -315,13 +314,12 @@ def bin_gaussians(
     grad_ok = kept_total + pad <= kept_budget
     n_sat = torch.zeros((), dtype=torch.int32, device=dev)
     if do_sat:
-        gid_s, starts, tile_count, n_sat = saturation_cull(
-            gid_s, starts, tile_count, chunk=chunk, kept_budget=kept_budget,
-            sat_budget=sat_budget, gid_null=gid_null)
-        n_dropped = n_dropped + torch.clamp(n_sat - sat_budget, min=0)
-        grad_ok = grad_ok & (n_sat <= sat_budget)
-        if on_stage is not None:
-            on_stage("sat")
+        with spans.span("sat", on_stage):
+            gid_s, starts, tile_count, n_sat = saturation_cull(
+                gid_s, starts, tile_count, chunk=chunk, kept_budget=kept_budget,
+                sat_budget=sat_budget, gid_null=gid_null)
+            n_dropped = n_dropped + torch.clamp(n_sat - sat_budget, min=0)
+            grad_ok = grad_ok & (n_sat <= sat_budget)
     return Binning(
         gid_s=gid_s,
         tile_start=starts,

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
 from gsplat_tpu_torch.render.binning import Binning, bin_gaussians, out_budget, tile_grid
@@ -123,11 +124,14 @@ class _Rasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, gid_s, tile_start, tile_count, grad_ok, static, on_stage):
         tw, tile_size, chunk, _, attr_pack = static
-        gathered = _gather_with_gid(attrs, gid_s, attr_pack)
-        if on_stage is not None:
-            on_stage("gather")
-        tiles, nproc = composite_fwd(gathered, tile_start, tile_count, tw=tw,
-                                     tile_size=tile_size, chunk=chunk)
+        with spans.span("gather", on_stage) as sp:
+            gathered = _gather_with_gid(attrs, gid_s, attr_pack)
+            if sp is not None:
+                # the rows the gather reads, and those that are a tile's pairs
+                sp.count(rows=gid_s.shape[0], live=tile_count.sum())
+        with spans.span("composite", on_stage):
+            tiles, nproc = composite_fwd(gathered, tile_start, tile_count, tw=tw,
+                                         tile_size=tile_size, chunk=chunk)
         ctx.save_for_backward(gathered, tile_start, tile_count, nproc, grad_ok, tiles)
         ctx.static = static
         ctx.n_rows = attrs.shape[0]
@@ -136,18 +140,20 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_tiles, _g_nproc):
-        gathered, tile_start, tile_count, nproc, grad_ok, tiles = ctx.saved_tensors
-        tw, tile_size, chunk, c_budget, _ = ctx.static
-        if g_tiles is None:
-            g_tiles = torch.zeros_like(tiles)
-        np_c, comp_start, overflow = contrib_regions(nproc, chunk, c_budget)
-        d = composite_bwd(gathered, tile_start, tile_count, comp_start, np_c, tiles,
-                          g_tiles.contiguous(), tw=tw, tile_size=tile_size,
-                          chunk=chunk, p_out=c_budget)
-        d_attrs = reduce_by_gid(d, ctx.n_rows)
-        # either overflow (kept pairs past the kept budget, or replayed rows
-        # past the contrib budget) zeroes the whole step's gradient
-        d_attrs = d_attrs * (grad_ok & ~overflow).to(d_attrs.dtype)
+        with spans.span("backward.raster"):
+            gathered, tile_start, tile_count, nproc, grad_ok, tiles = ctx.saved_tensors
+            tw, tile_size, chunk, c_budget, _ = ctx.static
+            if g_tiles is None:
+                g_tiles = torch.zeros_like(tiles)
+            np_c, comp_start, overflow = contrib_regions(nproc, chunk, c_budget)
+            d = composite_bwd(gathered, tile_start, tile_count, comp_start, np_c, tiles,
+                              g_tiles.contiguous(), tw=tw, tile_size=tile_size,
+                              chunk=chunk, p_out=c_budget)
+            with spans.span("backward.raster.reduce"):
+                d_attrs = reduce_by_gid(d, ctx.n_rows)
+            # either overflow (kept pairs past the kept budget, or replayed rows
+            # past the contrib budget) zeroes the whole step's gradient
+            d_attrs = d_attrs * (grad_ok & ~overflow).to(d_attrs.dtype)
         return d_attrs, None, None, None, None, None, None
 
 
@@ -183,18 +189,19 @@ def render(
     on the full frame's chunk grid (render_projected).
     on_stage(name), if given, is called after each forward stage ("project",
     "bin", "sort", "sat" with the saturation cull, "gather", "composite",
-    "untile") so a caller can time them."""
-    proj = project_gaussians(g, cam, scaling_modifier=scaling_modifier,
-                             override_color=override_color,
-                             mean2d_offset=mean2d_offset)
-    if on_stage is not None:
-        on_stage("project")
-    return render_projected(
-        proj, cam.width, cam.height, bg, tile_size=tile_size, chunk=chunk,
-        pair_budget=pair_budget, region=region, band_lead=band_lead, tight_cull=tight_cull,
-        kept_budget=kept_budget, contrib_budget=contrib_budget,
-        sat_budget=sat_budget, attr_pack=attr_pack, on_stage=on_stage,
-    )
+    "untile") so a caller can time them: each stage is a span of
+    gsplat_tpu_torch.spans under the render's own ("render")."""
+    with spans.span("render"):
+        with spans.span("project", on_stage):
+            proj = project_gaussians(g, cam, scaling_modifier=scaling_modifier,
+                                     override_color=override_color,
+                                     mean2d_offset=mean2d_offset)
+        return render_projected(
+            proj, cam.width, cam.height, bg, tile_size=tile_size, chunk=chunk,
+            pair_budget=pair_budget, region=region, band_lead=band_lead,
+            tight_cull=tight_cull, kept_budget=kept_budget, contrib_budget=contrib_budget,
+            sat_budget=sat_budget, attr_pack=attr_pack, on_stage=on_stage,
+        )
 
 
 def render_projected(
@@ -304,12 +311,9 @@ def render_projected(
         _attr_rows(proj), gid_post, binning.tile_start,
         binning.tile_count, binning.grad_ok,
         (tw, tile_size, chunk, contrib_budget, attr_pack), on_stage)
-    if on_stage is not None:
-        on_stage("composite")
-    rgb, transmittance = untile_image(tiles, tw, th, tile_size, width, height)
-    image = rgb + transmittance[..., None] * bg.to(rgb.device)[None, None, :]
-    if on_stage is not None:
-        on_stage("untile")
+    with spans.span("untile", on_stage):
+        rgb, transmittance = untile_image(tiles, tw, th, tile_size, width, height)
+        image = rgb + transmittance[..., None] * bg.to(rgb.device)[None, None, :]
     return RenderOutput(
         image=image,
         transmittance=transmittance,

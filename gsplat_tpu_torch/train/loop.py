@@ -23,7 +23,8 @@ Where the port differs from the reference:
   `extra_torch_rng` (the reference's `extra_rng_key`); a checkpoint of the
   JAX package resumes with everything but its key.
 - --profile_dir captures a torch.profiler trace of steps 20 to
-  20 + profile_steps (the reference: jax.profiler).
+  20 + profile_steps (the reference: jax.profiler), the port's spans
+  (gsplat_tpu_torch/spans.py) in it as `gsplat.*` annotations.
 - a mesh (data_axis x tile_axis > 1) runs one process a mesh cell, one
   rank a device (gsplat_tpu_torch/dist/): the world must be exactly
   data_axis x tile_axis ranks, else it raises; data_axis -1 takes the
@@ -56,6 +57,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gsplat_tpu_torch import spans
 from gsplat_tpu_torch._device import resolve_device
 from gsplat_tpu_torch.ckpt import (load_checkpoint, load_checkpoint_extras, save_checkpoint,
                                    save_ply)
@@ -116,11 +118,6 @@ def prepare_output_and_logger(model: ModelParams, all_params) -> Path:
     return out
 
 
-def _stage(on_stage, name: str) -> None:
-    if on_stage is not None:
-        on_stage(name)
-
-
 def make_train_step(
     opt: OptimizationParams,
     mesh: MeshParams,
@@ -143,7 +140,8 @@ def make_train_step(
     LR schedule reads; ema is the previous EMA of the loss (a tensor or a
     float; ignored at step 1). on_stage(name), if given, is called after
     each stage (render's forward stages, then "loss", "backward", "adam",
-    "densify_stats") so a caller can time them."""
+    "densify_stats") so a caller can time them: each stage is a span of
+    gsplat_tpu_torch.spans under the step's root span ("step")."""
     lr_fns = make_lr_fns(opt, spatial_lr_scale)
     budget = pair_budget if pair_budget is not None else mesh.pair_budget
     kept = kept_budget if kept_budget is not None else kept_budget0(mesh, budget)
@@ -154,30 +152,31 @@ def make_train_step(
 
     def train_step(g: Gaussians, opt_state: AdamState, cam: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None):
-        step = int(step)
-        params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
-        offset = torch.zeros((g.capacity, 2), dtype=torch.float32, device=g.device,
-                             requires_grad=True)
-        with torch.enable_grad():
-            out = render(cam, g.replace(**params), bg, tile_size=mesh.tile_size,
-                         chunk=mesh.chunk_size, pair_budget=budget, kept_budget=kept,
-                         contrib_budget=contrib_budget, sat_budget=sat_budget,
-                         mean2d_offset=offset, on_stage=on_stage)
-            loss = photometric_loss(out.image, cam.image, opt.lambda_dssim)
-            _stage(on_stage, "loss")
-            grads = torch.autograd.grad(loss, list(params.values()) + [offset])
-            _stage(on_stage, "backward")
-        pgrads = dict(zip(params, grads[:-1]))
-        loss = loss.detach()
-        lrs = current_lrs(lr_fns, step)
-        new_params, new_opt_state = adam_update(
-            {k: v.detach() for k, v in params.items()}, pgrads, opt_state, lrs)
-        _stage(on_stage, "adam")
-        g_new = add_densification_stats(g.replace(**new_params), grads[-1],
-                                        out.radii, width, height)
-        _stage(on_stage, "densify_stats")
-        # the EMA stays on the device: no host sync per iteration
-        new_ema = loss if step <= 1 else 0.4 * loss + 0.6 * ema
+        with spans.span("step", root=True):
+            step = int(step)
+            params = {k: v.detach().requires_grad_() for k, v in g.params().items()}
+            offset = torch.zeros((g.capacity, 2), dtype=torch.float32, device=g.device,
+                                 requires_grad=True)
+            with torch.enable_grad():
+                out = render(cam, g.replace(**params), bg, tile_size=mesh.tile_size,
+                             chunk=mesh.chunk_size, pair_budget=budget, kept_budget=kept,
+                             contrib_budget=contrib_budget, sat_budget=sat_budget,
+                             mean2d_offset=offset, on_stage=on_stage)
+                with spans.span("loss", on_stage):
+                    loss = photometric_loss(out.image, cam.image, opt.lambda_dssim)
+                with spans.span("backward", on_stage, adopt=True):
+                    grads = torch.autograd.grad(loss, list(params.values()) + [offset])
+            pgrads = dict(zip(params, grads[:-1]))
+            loss = loss.detach()
+            with spans.span("adam", on_stage):
+                lrs = current_lrs(lr_fns, step)
+                new_params, new_opt_state = adam_update(
+                    {k: v.detach() for k, v in params.items()}, pgrads, opt_state, lrs)
+            with spans.span("densify_stats", on_stage):
+                g_new = add_densification_stats(g.replace(**new_params), grads[-1],
+                                                out.radii, width, height)
+            # the EMA stays on the device: no host sync per iteration
+            new_ema = loss if step <= 1 else 0.4 * loss + 0.6 * ema
         return (g_new, new_opt_state, loss, new_ema, out.n_pairs, out.n_dropped,
                 out.n_culled, out.n_contrib, out.n_sat)
 
@@ -212,18 +211,25 @@ def _serve_gui_request(viewer: NetworkGUIServer, req: GuiRequest, g: Gaussians,
     connection. Best-effort, as in the reference: a render that raises gets
     no image, and training goes on; the exception is printed (one line) and
     counted in viewer.render_errors. It draws from no generator and changes
-    no budget, so a served request leaves training as it was."""
+    no budget, so a served request leaves training as it was. Under a
+    profiler the request is a root span ("gui.request") over its camera,
+    render and bytes, which counts its wait in the server's queue
+    (queue_ms: from the connection thread's receipt to this call)."""
     img_bytes = None
-    try:
-        if req.world_view is not None:
-            cam = camera_from_request(req, g.device)
-            img = _gui_render(g, cam, bg, req.scaling_modifier, tile_size=mesh.tile_size,
-                              chunk=mesh.chunk_size, pair_budget=pair_budget)
-            img_bytes = image_to_bytes(img)
-    except Exception as e:  # a bad request must not end training
-        viewer.render_errors += 1
-        print(f"network GUI: render failed ({type(e).__name__}: {e}); no image sent",
-              flush=True)
+    with spans.span("gui.request", root=True) as sp:
+        if sp is not None and req.received_ns:
+            sp.count(queue_ms=(sp.t0 - req.received_ns) * 1e-6)
+        try:
+            if req.world_view is not None:
+                cam = camera_from_request(req, g.device)
+                img = _gui_render(g, cam, bg, req.scaling_modifier,
+                                  tile_size=mesh.tile_size, chunk=mesh.chunk_size,
+                                  pair_budget=pair_budget)
+                img_bytes = image_to_bytes(img)
+        except Exception as e:  # a bad request must not end training
+            viewer.render_errors += 1
+            print(f"network GUI: render failed ({type(e).__name__}: {e}); no image sent",
+                  flush=True)
     req.reply(img_bytes)
 
 

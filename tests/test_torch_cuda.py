@@ -1130,3 +1130,60 @@ def test_network_gui_request_on_gpu(cuda_device, tmp_path):
     assert int(out.n_dropped) == 0
     assert req._image == network_gui.image_to_bytes(out.image)
     assert len(req._image) == 75 * 53 * 3
+
+
+@pytest.mark.cuda
+def test_spans_on_gpu(cuda_device):
+    """A train step under torch.profiler on the card: the autograd engine's
+    device thread runs _Rasterize.backward, whose span takes the step's
+    `backward` as parent; every span has device times from its CUDA events;
+    the backward's three parts tile it; the gather's live counter stays on
+    the card and equals n_pairs - n_culled."""
+    import dataclasses
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsplat_tpu_torch import spans
+    from gsplat_tpu_torch.config import MeshParams, OptimizationParams
+    from gsplat_tpu_torch.interop import camera_from_numpy, gaussians_from_numpy
+    from gsplat_tpu_torch.train.loop import make_train_step
+    from gsplat_tpu_torch.train.optim import init_adam_state
+
+    s = F.make_scene(seed=0)
+    g = gaussians_from_numpy(s.params, s.n_live, s.sh_degree, s.sh_degree, device=cuda_device)
+    cam = camera_from_numpy(s.R, s.T, s.fovx, s.fovy, F.W, F.H, device=cuda_device)
+    cam = dataclasses.replace(cam, image=torch.rand(F.H, F.W, 3, device=cuda_device))
+    step = make_train_step(OptimizationParams(), MeshParams(tile_size=F.TILE, chunk_size=F.CHUNK,
+                                                            pair_budget=F.BUDGET),
+                           1.0, F.W, F.H)
+    bg = torch.zeros(3, device=cuda_device)
+    step(g, init_adam_state(g.params()), cam, bg, 1, 0.0)      # builds the kernels
+    threads = {}
+    real = spans.Span.__enter__
+
+    def enter(self):
+        threads[self.name] = threading.get_ident()
+        return real(self)
+
+    spans.clear()
+    try:
+        spans.Span.__enter__ = enter
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            out = step(g, init_adam_state(g.params()), cam, bg, 1, 0.0)
+            torch.cuda.synchronize()
+    finally:
+        spans.Span.__enter__ = real
+    recs = {r.name: r for r in spans.records()}
+    assert recs["backward.raster"].parent == recs["backward"].id
+    assert recs["backward.raster.reduce"].parent == recs["backward.raster"].id
+    assert threads["backward.raster"] != threads["backward"]   # the engine's thread
+    assert {r.root for r in recs.values()} == {recs["step"].id}
+    assert all(r.device_ms() is not None and r.device_ms() >= 0 for r in recs.values())
+    bwd, raster = recs["backward"], recs["backward.raster"]
+    parts = (spans.elapsed_ms(bwd.ev0, raster.ev0) + raster.device_ms()
+             + spans.elapsed_ms(raster.ev1, bwd.ev1))
+    assert abs(parts - bwd.device_ms()) <= 0.01 * bwd.device_ms() + 1e-3
+    live = recs["gather"].counters["live"]
+    assert live.device.type == "cuda"
+    assert int(live) == int(out[4] - out[6]) > 0

@@ -268,6 +268,45 @@ def test_protocol_roundtrip(tmp_path):
     assert not t.is_alive()
 
 
+def test_gui_request_span_counts_the_queue_wait(tmp_path):
+    """A request the server queues carries its receipt time; under a
+    profiler the loop's serve is a root span, gui.request, over the
+    request's camera, render and bytes, that counts the request's wait in
+    the queue (queue_ms)."""
+    import torch_port_fixtures as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsplat_tpu_torch import spans
+
+    g, _ = F.torch_objects(F.make_scene())
+    mesh = config.MeshParams(tile_size=16, chunk_size=32)
+    srv = tgui.NetworkGUIServer(tmp_path, ip="127.0.0.1", port=0, verify="v")
+    try:
+        conn = socket.create_connection(("127.0.0.1", srv.port), timeout=5)
+        send_msg(conn, camera_request(24, 20))
+        req, deadline = None, time.time() + 10
+        while req is None and time.time() < deadline:
+            req = srv.poll()
+            time.sleep(0.005)
+        assert req is not None and req.received_ns > 0
+        time.sleep(0.05)
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            tloop._serve_gui_request(srv, req, g, torch.zeros(3), mesh, 2048)
+        img, verify = recv_reply(conn, 24, 20)
+        conn.close()
+    finally:
+        srv.close()
+    assert len(img) == 24 * 20 * 3 and verify == "v" and srv.render_errors == 0
+    recs = spans.records()
+    (root,) = [r for r in recs if r.name == "gui.request"]
+    assert root.parent is None and root.counters["queue_ms"] >= 50.0
+    names = {r.name for r in recs if r.root == root.id}
+    assert {"gui.request", "gui.camera", "render", "gather", "gui.to_bytes",
+            "gui.to_bytes.copy"} <= names
+    assert all(r.root == root.id for r in recs)
+
+
 def test_http_on_sibr_port_split_segment_and_probe(tmp_path):
     """HTTP on the SIBR port; a 2-byte first TCP segment must not pass for
     SIBR; a connect-then-close probe must not stop the server."""
