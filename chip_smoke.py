@@ -80,6 +80,17 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            fill; one call enqueues one kernel and no memset
            (a CUDA graph capture); the ms of the reference's src-map gather
            (index_select with the map precomputed)
+  project_fwd, project_bwd  the projection's kernels (through
+           project_gaussians' autograd Function) against project_plain and
+           project_bwd_plain on the cell's scene (SH degree 3): at modifier
+           1 with a mean2d offset, at the GUI's modifier 0.7, and with an
+           override colour (the no-SH branch): mean2d, depth, radius and
+           visible bit-equal, conic, rgb and opacity within 1 ulp; random
+           incoming gradients (mean2d, conic, rgb and opacity on the visible
+           rows, depth on every row): each leaf's gradient within 1e-6 of
+           its max, the offset's the mean2d gradient bit for bit; one launch
+           of each; their ms beside the plain versions' and the bound by
+           bytes (f_rest read backward only where the rgb gradient is not 0)
   serve    render() with per-view and per-stage ms: the sparse cell (2.25
            tile pairs per Gaussian) for 4 views, the bench camera + 3 yaw
            turns; the dense cell (33 tile pairs per Gaussian) for the bench
@@ -315,7 +326,13 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            20; replicated, then --shard_gaussians, each under LoopSpy: every
            rank exits 0, 20 steps with n_dropped 0, rank 0 alone writes; the
            two final PLYs bit-equal; the wall by part
-The launch counts of the seven kernels, and of K2 and K3 on the packed
+Wherever K1-K6 and segment_sum are held on a state of the loop (the
+train CLI, full_eval, quality, self-check and bench phases), the
+projection's two kernels are held too, as in the cells, at that state's SH
+degree and frame; in the 2x2 mesh, ranks 0 and 3 hold them on their shard
+of the rows with its live count (the sharded step's projection), before
+their data rank's camera.
+The launch counts of the nine kernels, and of K2 and K3 on the packed
 table under keys of their own ("composite_fwd packed", "composite_bwd
 packed"), are zeroed just before each serve, each train, the packed serve
 and step phases, the tile-64 and tile-128 serve-and-train phases, each
@@ -324,12 +341,13 @@ each train CLI run (the JPEG and capture ones too), the viewer's requests,
 full_eval,
 each serving_bench run, the bench phase, the self-check and, in each rank
 of the mesh phases, before its steps (the main paths), and must cover every render
-and step run there (K5 and K6 in the sat phases and the loop's probes;
-K1 and K2 in render_cli; the packed K2 and K3 in the packed phases); the
+and step run there (project_fwd in every render, project_bwd in every
+step; K5 and K6 in the sat phases and the loop's probes; K1 and K2 in
+render_cli; the packed K2 and K3 in the packed phases); the
 kernels line sums them
 (the mesh phases' over their ranks) and must show every kernel. The
-kernels JSON rows hold the sparse bench view's times and bound for K1-K4
-and segment_sum, the dense view's for K5 and K6 (the cell whose users run
+kernels JSON rows hold the sparse bench view's times and bound for K1-K4,
+segment_sum and the projection's two kernels, the dense view's for K5 and K6 (the cell whose users run
 the cull), the other view's beside them (`other_view`), the largest error
 of the two cells and the checks of the train, quality, viewer, full_eval,
 self-check, bench and 2x2 mesh phases, the launches of each cell's main
@@ -382,6 +400,12 @@ GRAD_RTOL = 1e-3      # per-Gaussian gradient table vs float64, of each column's
 # segment_sum against its plain version (float64 index_add_, atomics on the
 # card), of each column's max: both round a float64 sum to float32 once
 SUM_RTOL = 1e-6
+# project_bwd against project_bwd_plain (the same closed form as torch
+# ops), of each leaf's max
+PROJ_RTOL = 1e-6
+PROJ_LEAVES = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")
+# the GUI's scaling modifier in the checks (network_gui's slider)
+GUI_MODIFIER = 0.7
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
@@ -1086,6 +1110,125 @@ def phase_expand_sat(s, label, g, cam, pair_fit):
     return max(int((key_k - key_p).abs().max()), int((gid_k - gid_p).abs().max()))
 
 
+def ulps(a, b):
+    """|a - b| in float32 units in the last place (same-sign values)."""
+    ia, ib = a.view(torch.int32).to(torch.int64), b.view(torch.int32).to(torch.int64)
+    return torch.where(a == b, 0, (ia - ib).abs())
+
+
+def project_check(s, label, g, cam, seed, mod=1.0, override=False):
+    """project_fwd and project_bwd, through project_gaussians' autograd
+    Function, against project_plain and project_bwd_plain on all of g's
+    rows (its n_live as given) before cam: mean2d, depth, radius and visible
+    bit-equal, conic, rgb and opacity within 1 ulp; random incoming gradients
+    of mean2d, conic, rgb and opacity on the visible rows (what the
+    rasterizer hands back) and of depth on every row (the mesh's projected
+    table carries it), a mean2d offset given: each leaf's gradient within
+    PROJ_RTOL of its max, the offset's the mean2d gradient bit for bit; one
+    launch of each kernel -> (max |forward diff|, max |leaf gradient diff|)."""
+    from gsplat_tpu_torch.render import project as P
+
+    dev = g.device
+    n = g.capacity
+    params = {k: getattr(g, k).detach().requires_grad_() for k in PROJ_LEAVES}
+    off = torch.zeros((n, 2), device=dev, requires_grad=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    color = torch.rand((n, 3), generator=gen, device=dev) if override else None
+    want = P.project_plain(g, cam, mod, override_color=color)
+    vis = want.visible[:, None].to(torch.float32)
+    gm, gc, grgb = (torch.randn((n, c), generator=gen, device=dev) * vis for c in (2, 3, 3))
+    go = torch.randn(n, generator=gen, device=dev) * vis[:, 0]
+    gd = torch.randn(n, generator=gen, device=dev)
+    f0, b0 = P.project_fwd.launches, P.project_bwd.launches
+    with torch.enable_grad():
+        got = P.project_gaussians(g.replace(**params), cam, scaling_modifier=mod,
+                                  override_color=color, mean2d_offset=off)
+        outs = [got.mean2d, got.conic, got.depth, got.opacity] + ([] if override else [got.rgb])
+        cots = [gm, gc, gd, go] + ([] if override else [grgb])
+        wrt = [v for k, v in params.items() if not (override and k in ("f_dc", "f_rest"))]
+        grads = torch.autograd.grad(outs, wrt + [off], cots)
+    ref = [t for t in P.project_bwd_plain(g, cam, mod, not override, gm, gc, gd, grgb, go)
+           if t is not None]
+    torch.cuda.synchronize()
+    same = {k: torch.equal(getattr(got, k), getattr(want, k))
+            for k in ("mean2d", "depth", "radius", "visible")}
+    ulp = {k: int(ulps(getattr(got, k), getattr(want, k)).max())
+           for k in ("conic", "opacity") + (() if override else ("rgb",))}
+    fwd_err = max(float((getattr(got, k) - getattr(want, k)).detach().abs().max())
+                  for k in ("mean2d", "conic", "depth", "radius", "opacity", "rgb"))
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(grads[:-1], ref)]
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads[:-1], ref))
+    launched = (P.project_fwd.launches - f0, P.project_bwd.launches - b0)
+    what = (f"{label} project (modifier {mod}{', override colour' if override else ''}; "
+            f"{n} rows, {int(g.n_live)} live, {int(want.visible.sum())} visible)")
+    s.check(all(same.values()) and max(ulp.values()) <= 1 and launched == (1, 1),
+            f"{what}: project_fwd vs project_plain bit-equal {same}, ulps {ulp} (want <= 1); "
+            f"launches (fwd, bwd) {launched} (want (1, 1))")
+    s.check(max(rel) <= PROJ_RTOL and torch.equal(grads[-1], gm),
+            f"{what}: project_bwd vs project_bwd_plain, of each leaf's max: "
+            + " ".join(f"{k} {r:.2g}" for k, r in zip(
+                [k for k in PROJ_LEAVES if not (override and k in ("f_dc", "f_rest"))], rel))
+            + f" (tol {PROJ_RTOL}); the offset's gradient the mean2d's bit for bit "
+            f"{torch.equal(grads[-1], gm)}")
+    return fwd_err, bwd_err
+
+
+def phase_project(s, label, g, cam):
+    """The projection's kernels against their plain versions on the cell's
+    scene: the train and render path (modifier 1, an offset), the GUI's
+    scaling modifier and an override colour (the no-SH branch); then their
+    device ms against the plain versions' at the cell's capacity -> the
+    project_fwd and project_bwd rows."""
+    from gsplat_tpu_torch.render import project as P
+
+    s.phase(f"kernel project_fwd, project_bwd ({label})")
+    errs = [project_check(s, label, g, cam, seed=1),
+            project_check(s, label, g, cam, seed=2, mod=GUI_MODIFIER),
+            project_check(s, label, g, cam, seed=3, override=True)]
+    n = g.capacity
+    leaves = tuple(getattr(g, k).contiguous() for k in PROJ_LEAVES)
+    n_live = g.n_live.to(torch.int32)
+    deg = g.active_sh_degree
+    with torch.no_grad():
+        vis = P.project_plain(g, cam).visible[:, None].to(torch.float32)
+    gen = torch.Generator(device=g.device).manual_seed(4)
+    # the incoming gradients as the render hands them back: column slices
+    # of an (N + 1, 16) table, nonzero on the visible rows
+    d = torch.randn((n + 1, 16), generator=gen, device=g.device) \
+        * torch.cat([vis, vis.new_zeros((1, 1))])
+    gin = (d[:n, 0:2], d[:n, 2:5], None, d[:n, 5:8], d[:n, 8])
+    f0, b0 = P.project_fwd.launches, P.project_bwd.launches
+    ms_f = device_ms(lambda: P.project_fwd(leaves, n_live, cam, 1.0, deg), 20)
+    ms_b = device_ms(lambda: P.project_bwd(leaves, n_live, cam, 1.0, deg, *gin, True), 20)
+    plain_f = device_ms(lambda: P.project_plain(g, cam), 5)
+    plain_b = device_ms(lambda: P.project_bwd_plain(g, cam, 1.0, True, *gin), 5)
+    P.project_fwd.launches, P.project_bwd.launches = f0, b0
+    n_vis = int(vis.sum())
+    m3 = 3 * g.f_rest.shape[1]
+    # forward: every row's 59 parameter floats (236 B at SH 3) read, mean2d,
+    # conic, depth, radius, rgb, opacity (44 B) and visible (1 B) written;
+    # backward: every row's leaves but f_rest (56 B) and its incoming
+    # gradients (mean2d, conic, rgb, opacity: 36 B) read, its f_rest (4 * m3
+    # B) only where its rgb gradient is nonzero, every leaf's gradient (236
+    # B) and the offset's (8 B) written; operations benchmark/work.py's 338
+    # a splat, twice for the gradient
+    leaf_b = 4 * (3 + 3 + m3 + 1 + 3 + 4)
+    fwd_bytes = n * (leaf_b + 45)
+    bwd_bytes = n * (leaf_b - 4 * m3 + 36 + leaf_b + 8) + n_vis * 4 * m3
+    print(f"  {label} project_fwd {ms_f:.4f} ms (plain {plain_f:.4f}), project_bwd "
+          f"{ms_b:.4f} ms (plain {plain_b:.4f}); {n} rows, {n_vis} with an incoming "
+          f"gradient; bytes {fwd_bytes / 1e6:.1f} / {bwd_bytes / 1e6:.1f} MB", flush=True)
+    common = dict(route="cuda", source="gsplat_tpu_torch/csrc/project.cu", library_ms=None)
+    return (dict(common, name="project_fwd", replaces="gsplat_tpu/render/project.py:51 (XLA)",
+                 max_abs_err=max(e[0] for e in errs), ms=ms_f, plain_ms=plain_f,
+                 bytes=fwd_bytes, ops=338 * n),
+            dict(common, name="project_bwd",
+                 replaces="gsplat_tpu/render/project.py:51 (XLA's autodiff)",
+                 max_abs_err=max(e[1] for e in errs), ms=ms_b, plain_ms=plain_b,
+                 bytes=bwd_bytes, ops=2 * 338 * n))
+
+
 def sat_kernel_inputs(g, cam, pair_budget, kept, sat, tile=TILE, size=None):
     """The view's real inputs of K5 and K6: bin with the saturation cull and
     capture what binning.saturation_cull receives -> (the sorted packed
@@ -1446,21 +1589,22 @@ def same_cull_check(s, label, loss, step1, ref):
 
 
 def kernel_counts():
-    from gsplat_tpu_torch.render import bounds, compact, expand, raster, reduce, scan
+    from gsplat_tpu_torch.render import bounds, compact, expand, project, raster, reduce, scan
 
     return {"expand_pairs": expand.expand_pairs, "composite_fwd": raster.composite_fwd,
             "composite_bwd": raster.composite_bwd, "segment_ends": bounds.segment_ends,
             "segment_sum": reduce.segment_sum, "prefix_sum_small": scan.prefix_sum_small,
-            "compact_runs": compact.compact_runs,
+            "compact_runs": compact.compact_runs, "project_fwd": project.project_fwd,
+            "project_bwd": project.project_bwd,
             # K2 and K3 on the packed pair table, counted apart from the above
             "composite_fwd packed": raster.packed_fwd_count,
             "composite_bwd packed": raster.packed_bwd_count}
 
 
-FWD_KERNELS = ("expand_pairs", "composite_fwd")
+FWD_KERNELS = ("project_fwd", "expand_pairs", "composite_fwd")
 SAT_KERNELS = ("prefix_sum_small", "compact_runs")
-TRAIN_KERNELS = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
-                 "segment_sum")
+TRAIN_KERNELS = ("project_fwd", "project_bwd", "expand_pairs", "composite_fwd",
+                 "composite_bwd", "segment_ends", "segment_sum")
 
 
 def run_cell(s, label, g, cam_args, views, budget, target):
@@ -1510,6 +1654,7 @@ def run_cell(s, label, g, cam_args, views, budget, target):
     k5, C = phase_scan(s, label, seen)
     k6 = phase_compact(s, label, seen, C, sat)
     del seen, C
+    kp_fwd, kp_bwd = phase_project(s, label, g, cam)
     torch.cuda.empty_cache()
 
     # ---- the main path: counts from zero before each phase ----
@@ -1566,7 +1711,7 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         s.phase(f"step {label} packed")
         phases.append(step_packed(s, label, g, cam_args, target, budget, zero, counts,
                                   trained["losses"][0]))
-    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6, k2p, k3p)}
+    rows = {k["name"]: k for k in (k1, k2, k3, k4, k_sum, k5, k6, k2p, k3p, kp_fwd, kp_bwd)}
     for tile in WIDE_TILES:
         k2w, k3w, w_launches = wide_tile(s, label, g, cam_args, target, budget,
                                          trained["losses"][0], zero, counts, tile)
@@ -3143,17 +3288,21 @@ def densify_card_vs_cpu(s, label, stash):
 
 
 def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None,
-                       kept=None, sat_inputs=None):
+                       kept=None, sat_inputs=None, project=True):
     """K1-K6 and segment_sum against their plain versions on a state of the
     loop, at its tile size and frame size: K1 at each of `budgets` (the
     last with the kept budget `kept`, if given), K2-K4 and segment_sum at
     the last and `kept`, K5 and K6 in one _sat_probe's inputs (or those of
-    a render at `sat_inputs`: pair, kept and sat budgets) -> ({kernel: max
-    |err|}, K1's live slots at each budget, the pairs whose gid is a live
-    row at or above 2^20)."""
+    a render at `sat_inputs`: pair, kept and sat budgets), and with
+    `project` the projection's kernels (project_check, the state's own SH
+    degree) -> ({kernel: max |err|}, K1's live slots at each budget, the
+    pairs whose gid is a live row at or above 2^20)."""
     from gsplat_tpu_torch.render import raster
 
     errs = {}
+    if project:
+        errs["project_fwd"], errs["project_bwd"] = project_check(
+            s, f"{label} (SH degree {g.active_sh_degree})", g, cam, seed=5)
     totals = []
     S = budgets[-1]
     for B in budgets:
@@ -4161,7 +4310,7 @@ def band_kernel_checks(s, label, g, cam, target, job, y0, band_h, lead):
     binning.depth_shift = lambda n: real_ds(max(n, tw * th))
     try:
         errs, totals, _ = loop_kernel_checks(s, label, g, cam, band, [job["pair"]], TILE,
-                                             (job["W"], band_h))
+                                             (job["W"], band_h), project=False)
     finally:
         project.project_gaussians, binning.depth_shift = real, real_ds
         binning.bin_gaussians = real_bin
@@ -4361,6 +4510,16 @@ def mesh_steps_rank(s, job, rank, dev):
         res["kernel_errs"] = band_kernel_checks(
             s, f"mesh {data}x{tile} rank {rank}", g0, cams[mesh.d], cams[mesh.d].image, job,
             mesh.t * band_h, band_h, res["lead"])
+        if dev.type == "cuda":
+            # the sharded step's projection: this rank's rows of the model
+            # and their live count, before its data rank's camera
+            g_sh = shard_gaussians(mesh, g0, opt0)[0]
+            rows = g_sh.capacity
+            live = torch.clamp(g_sh.n_live - mesh.d * rows, 0, rows).to(g_sh.n_live.dtype)
+            res["kernel_errs"]["project_fwd"], res["kernel_errs"]["project_bwd"] = project_check(
+                s, f"mesh {data}x{tile} rank {rank} shard", g_sh.replace(n_live=live),
+                cams[mesh.d], seed=rank)
+            del g_sh
     return res
 
 

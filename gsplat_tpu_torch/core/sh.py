@@ -34,35 +34,41 @@ def num_sh_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
 
 
+def sh_basis(deg: int, x, y, z) -> dict:
+    """{k: the factor eval_sh multiplies coefficient k by} for k in
+    1..(deg+1)^2-1, at direction components x, y, z (coefficients 1 and 3
+    enter the sum with a minus)."""
+    bk = {}
+    if deg > 0:
+        bk[1], bk[2], bk[3] = C1 * y, C1 * z, C1 * x
+    if deg > 1:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        bk[4] = C2[0] * xy
+        bk[5] = C2[1] * yz
+        bk[6] = C2[2] * (2.0 * zz - xx - yy)
+        bk[7] = C2[3] * xz
+        bk[8] = C2[4] * (xx - yy)
+        if deg > 2:
+            bk[9] = C3[0] * y * (3 * xx - yy)
+            bk[10] = C3[1] * xy * z
+            bk[11] = C3[2] * y * (4 * zz - xx - yy)
+            bk[12] = C3[3] * z * (2 * zz - 3 * xx - 3 * yy)
+            bk[13] = C3[4] * x * (4 * zz - xx - yy)
+            bk[14] = C3[5] * z * (xx - yy)
+            bk[15] = C3[6] * x * (xx - 3 * yy)
+    return bk
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """sh (..., K, 3) with K >= (deg+1)^2; dirs (..., 3) unit view directions.
     Returns (..., 3), before the upstream +0.5 offset."""
     result = C0 * sh[..., 0, :]
     if deg > 0:
-        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
-        result = result - C1 * y * sh[..., 1, :] + C1 * z * sh[..., 2, :] - C1 * x * sh[..., 3, :]
-        if deg > 1:
-            xx, yy, zz = x * x, y * y, z * z
-            xy, yz, xz = x * y, y * z, x * z
-            result = (
-                result
-                + C2[0] * xy * sh[..., 4, :]
-                + C2[1] * yz * sh[..., 5, :]
-                + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
-                + C2[3] * xz * sh[..., 7, :]
-                + C2[4] * (xx - yy) * sh[..., 8, :]
-            )
-            if deg > 2:
-                result = (
-                    result
-                    + C3[0] * y * (3 * xx - yy) * sh[..., 9, :]
-                    + C3[1] * xy * z * sh[..., 10, :]
-                    + C3[2] * y * (4 * zz - xx - yy) * sh[..., 11, :]
-                    + C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12, :]
-                    + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13, :]
-                    + C3[5] * z * (xx - yy) * sh[..., 14, :]
-                    + C3[6] * x * (xx - 3 * yy) * sh[..., 15, :]
-                )
+        bk = sh_basis(deg, dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3])
+        result = result - bk[1] * sh[..., 1, :] + bk[2] * sh[..., 2, :] - bk[3] * sh[..., 3, :]
+        for k in range(4, (deg + 1) ** 2):
+            result = result + bk[k] * sh[..., k, :]
     return result
 
 

@@ -1,7 +1,9 @@
 """Differentiable render: project -> bin -> gather -> composite -> image.
 
-Port of gsplat_tpu/render/render.py::render/render_projected. Projection,
-SH and the attribute packing are plain torch, differentiated by autograd;
+Port of gsplat_tpu/render/render.py::render/render_projected. The
+projection (with SH) is, on CUDA, one autograd Function over its kernels
+(`render/project.py::_Project`), elsewhere plain torch; the attribute
+packing is plain torch; both are differentiated by autograd;
 binning is integer-valued and carries no gradient. The gather, compositing
 and per-Gaussian gradient reduction are one `torch.autograd.Function`,
 `_Rasterize` (the reference's `_rasterize` custom VJP): its forward gathers
@@ -27,7 +29,7 @@ from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
 from gsplat_tpu_torch.render.binning import Binning, bin_gaussians, out_budget, tile_grid
 from gsplat_tpu_torch.render.bounds import segment_ends
-from gsplat_tpu_torch.render.project import Projection, project_gaussians
+from gsplat_tpu_torch.render.project import Projection, project_fwd, project_gaussians
 from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, composite_bwd, composite_fwd,
                                             pack_attrs, pack_attrs8, resolve_attr_pack,
                                             untile_image)
@@ -192,10 +194,14 @@ def render(
     "untile") so a caller can time them: each stage is a span of
     gsplat_tpu_torch.spans under the render's own ("render")."""
     with spans.span("render"):
-        with spans.span("project", on_stage):
+        with spans.span("project", on_stage) as sp:
+            launches = project_fwd.launches
             proj = project_gaussians(g, cam, scaling_modifier=scaling_modifier,
                                      override_color=override_color,
                                      mean2d_offset=mean2d_offset)
+            if sp is not None:
+                # the rows projected, and 1 where the CUDA kernel did it
+                sp.count(rows=g.capacity, fused=project_fwd.launches - launches)
         return render_projected(
             proj, cam.width, cam.height, bg, tile_size=tile_size, chunk=chunk,
             pair_budget=pair_budget, region=region, band_lead=band_lead,
