@@ -1589,16 +1589,20 @@ def same_cull_check(s, label, loss, step1, ref):
 
 
 def kernel_counts():
-    from gsplat_tpu_torch.render import bounds, compact, expand, project, raster, reduce, scan
+    from gsplat_tpu_torch.render import (bounds, compact, expand, filter3d, project, raster,
+                                         reduce, scan)
 
     return {"expand_pairs": expand.expand_pairs, "composite_fwd": raster.composite_fwd,
             "composite_bwd": raster.composite_bwd, "segment_ends": bounds.segment_ends,
             "segment_sum": reduce.segment_sum, "prefix_sum_small": scan.prefix_sum_small,
             "compact_runs": compact.compact_runs, "project_fwd": project.project_fwd,
-            "project_bwd": project.project_bwd,
+            "project_bwd": project.project_bwd, "filter3d": filter3d.filter3d,
             # K2 and K3 on the packed pair table, counted apart from the above
             "composite_fwd packed": raster.packed_fwd_count,
-            "composite_bwd packed": raster.packed_bwd_count}
+            "composite_bwd packed": raster.packed_bwd_count,
+            # the projection's Mip-Splatting variants, counted apart too
+            "project_fwd mip": project.mip_fwd_count,
+            "project_bwd mip": project.mip_bwd_count}
 
 
 FWD_KERNELS = ("project_fwd", "expand_pairs", "composite_fwd")
@@ -3521,6 +3525,70 @@ FE_CROP = 512                # the CPU's LPIPS runs on a 512x512 crop of each pa
 METRIC_RTOL, LPIPS_RTOL = 1e-5, 1e-4
 
 
+MIP_ITERS = 20
+
+
+def phase_mip(s, tmp, counts):
+    """The train CLI with --mip_splatting over render_cli's COLMAP source,
+    from the train cli phase's start checkpoint (densify at 5 and 15): the
+    3D filter at the start and after each densify, every step's projection
+    the Mip variant; then the Mip model's kernels against their plain
+    versions on the final state (project_check; filter3d bit for bit, its
+    validity too, over the final centres) and render_cli over the saved model (its PLY's filter: every
+    render the Mip variant) -> launches."""
+    from gsplat_tpu_torch import render_cli
+    from gsplat_tpu_torch.render import filter3d as FL
+    from gsplat_tpu_torch.render import project as P
+
+    s.phase("train cli mip (sparse, full width)")
+    src, tmp = Path(tmp) / "cli_source", Path(tmp)
+    model = tmp / "train_mip"
+    argv = ["-s", str(src), "--resolution", "1", "--eval", "--iterations", str(MIP_ITERS),
+            "--densify_from_iter", "4", "--densification_interval", "5",
+            "--densify_until_iter", "16", "--opacity_reset_interval", "30",
+            "--densify_grad_threshold", str(TRAIN_GRAD_THRESHOLD), "--quiet",
+            "--mip_splatting", "-m", str(model), "--start_checkpoint", str(tmp / "start.npz")]
+    spy, launches, wall = run_train_cli(s, "train cli mip", argv, counts)
+    g_end, scene_end = spy.result
+    n_densify = len(spy.densify)
+    s.check(launches["filter3d"] == 1 + n_densify and n_densify == 3
+            and launches["project_fwd mip"] == launches["project_fwd"] == len(spy.steps)
+            and launches["project_bwd mip"] == launches["project_bwd"] == len(spy.steps)
+            and g_end.mip,
+            f"train cli mip: {len(spy.steps)} steps in {wall:.1f} s, {n_densify} densify "
+            f"passes (want 3: 5, 10, 15); launches filter3d {launches['filter3d']} (want 1 + "
+            f"{n_densify}), project_fwd {launches['project_fwd']} of them Mip "
+            f"{launches['project_fwd mip']}, project_bwd {launches['project_bwd']} of them Mip "
+            f"{launches['project_bwd mip']} (want one each a step)")
+    cams = scene_end.get_train_cameras()
+    table, focal = FL.camera_table(cams, g_end.device)
+    f, v = FL.filter3d(g_end.xyz, g_end.n_live.to(torch.int32), table, focal)
+    fp, vp = FL.filter3d_plain(g_end.xyz, g_end.n_live.to(torch.int32), table, focal)
+    torch.cuda.synchronize()
+    n = int(g_end.n_live)
+    s.check(torch.equal(f, fp) and torch.equal(v, vp),
+            f"train cli mip: filter3d vs filter3d_plain over the final {n} live rows and "
+            f"{len(cams)} cameras bit-equal {torch.equal(f, fp)}, validity equal "
+            f"{torch.equal(v, vp)} ({int(v.sum())} valid); filter {float(f[:n].min()):.3g} to "
+            f"{float(f[:n].max()):.3g}")
+    err = [project_check(s, "train cli mip", g_end, cams[0], seed=5),
+           project_check(s, "train cli mip", g_end, cams[0], seed=6, mod=GUI_MODIFIER)]
+    del g_end, scene_end, spy
+    torch.cuda.empty_cache()
+    before = {k: f.launches for k, f in counts.items()}
+    rc = render_cli.main(["--model_path", str(model), "--iteration", "-1", "--skip_train",
+                          "--resolution", "1"])
+    rendered = {k: f.launches - before[k] for k, f in counts.items()}
+    s.check(rc == 0 and rendered["project_fwd"] > 0
+            and rendered["project_fwd mip"] == rendered["project_fwd"],
+            f"render_cli over the Mip model: exit {rc}, project_fwd {rendered['project_fwd']} "
+            f"launches, of them Mip {rendered['project_fwd mip']} (want all)")
+    # every launch of the phase (run_train_cli set the counts to zero)
+    launches = {k: f.launches for k, f in counts.items()}
+    print(f"  train cli mip: projection errors (fwd, bwd) {err}", flush=True)
+    return launches
+
+
 def viewer_message(cam_args, deg, width, height, scaling_modifier, train=True,
                    keep_alive=True):
     """A SIBR request for the bench camera turned by `deg`, at the window
@@ -4914,6 +4982,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         l_cli = phase_render_cli(s, g, cam_args, target, tmp)
         l_train, e_train = phase_train_cli(s, g, cam_args, target, tmp, kernel_counts())
+        l_mip = phase_mip(s, tmp, kernel_counts())
         l_jpeg = phase_jpeg(s, tmp, kernel_counts())
         l_capture = phase_capture_load(s, tmp, sparse_cam_args, kernel_counts(), card)
         l_viewer, e_viewer = phase_viewer_serve(s, g, cam_args, tmp, kernel_counts())
@@ -4952,7 +5021,7 @@ def main() -> int:
                "train_cli_viewer": l_train_viewer, "full_eval": l_full_eval,
                "selfcheck": l_selfcheck, "mesh_nccl_1x1": l_mesh_nccl, "mesh_2x2": l_mesh,
                "train_cli_mesh_2x2": l_cli_mesh, "jpeg_cli": l_jpeg, "serving_bench": l_bench,
-               "capture_cli": l_capture, "bench": l_headline}
+               "capture_cli": l_capture, "bench": l_headline, "train_cli_mip": l_mip}
     launches = {k: sum(v[k] for v in by_view.values()) for k in l_sparse}
     print(f"  main path: {n_sparse + n_dense} renders at tile {TILE} and "
           f"{2 * (2 + FRAME_REPS)} at each of tiles {WIDE_TILES}, {TRAIN_STEPS['sparse']} + "
@@ -4993,6 +5062,10 @@ def main() -> int:
                   f"{k['library_ms'] if k['library_ms'] is None else round(k['library_ms'], 4)}")
     rows = []
     for name in kernel_counts():
+        if name not in k_sparse:
+            # the Mip-Splatting kernels run on the train cli mip phase alone:
+            # their launches are on the kernels line, their checks in that phase
+            continue
         views = [("sparse", k_sparse), ("dense", k_dense)]
         if name in SAT_KERNELS:
             views.reverse()

@@ -45,7 +45,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 SOURCES = ("expand_pairs", "composite_fwd", "composite_bwd", "segment_ends",
-           "segment_sum", "prefix_sum_small", "compact_runs", "project")
+           "segment_sum", "prefix_sum_small", "compact_runs", "project", "filter3d")
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 HOST_CFLAGS = ["-O2", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
 HOST_SOURCES = ("io_runtime",)

@@ -100,8 +100,10 @@ def load_checkpoint(path: Union[str, Path], capacity: int,
 
 
 def save_ply(path: Union[str, Path], g: Gaussians) -> None:
-    """Standard 3DGS point_cloud.ply of the live rows (upstream save_ply)."""
+    """Standard 3DGS point_cloud.ply of the live rows (upstream save_ply),
+    with a Mip-Splatting model's 3D filter."""
     n = int(g.n_live)
     save_gaussian_ply(path, xyz=_host(g.xyz, n), features_dc=_host(g.f_dc, n),
                       features_rest=_host(g.f_rest, n), opacity=_host(g.opacity, n),
-                      scaling=_host(g.scaling, n), rotation=_host(g.rotation, n))
+                      scaling=_host(g.scaling, n), rotation=_host(g.rotation, n),
+                      filter_3d=_host(g.filter_3d, n) if g.mip else None)

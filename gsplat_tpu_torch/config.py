@@ -3,10 +3,14 @@
 The reference's four parameter groups (names, defaults and CLI flags;
 reference src/arguments/params.h:25-133, params.cpp:9-66) plus the
 `MeshParams` group, with the JAX package's flags, short aliases and
-defaults. The one difference: `ModelParams.data_device` defaults to
+defaults. Two differences: `ModelParams.data_device` defaults to
 "cuda" (upstream's default; the device `Scene` and the training loop put
-their tensors on). The JAX package's config module imports no jax, but the
-port imports nothing of that package, so the module is copied here.
+their tensors on), and `ModelParams.mip_splatting` (`--mip_splatting`, off
+by default) trains and renders a Mip-Splatting model (Yu et al. 2024), a
+field the JAX package lacks: `print_params` and `cfg_args_string` leave it
+out while it is off, so with it off they write the JAX package's text. The
+JAX package's config module imports no jax, but the port imports nothing
+of that package, so the module is copied here.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ class ModelParams:
     white_background: bool = False
     data_device: str = "cuda"
     eval: bool = False
+    mip_splatting: bool = False   # Mip-Splatting's 3D and 2D filters (the port's own)
+
+
+# the port's own fields and their defaults: printed and recorded only when set
+PORT_ONLY = {"mip_splatting": False}
 
 
 @dataclass
@@ -239,6 +248,8 @@ def print_params(params, out=None) -> str:
     buf.write(f"> {title} parameters:\n")
     for f in dataclasses.fields(params):
         v = getattr(params, f.name)
+        if f.name in PORT_ONLY and v == PORT_ONLY[f.name]:
+            continue
         if isinstance(v, bool):
             v = "true" if v else "false"
         elif isinstance(v, list):
@@ -254,6 +265,7 @@ def cfg_args_string(model: ModelParams) -> str:
     """The `cfg_args` file content upstream viewers expect: a python-repr Namespace
     with the ModelParams fields (reference persists print_params instead,
     src/utils/train_utils.cpp:69-74; we write the upstream-compatible form)."""
-    fields = dataclasses.asdict(model)
+    fields = {k: v for k, v in dataclasses.asdict(model).items()
+              if not (k in PORT_ONLY and v == PORT_ONLY[k])}
     inner = ", ".join(f"{k}={v!r}" for k, v in fields.items())
     return f"Namespace({inner})"

@@ -6,6 +6,12 @@ annealing, inverse_sigmoid, the fresh-scene init create_from_pcd with its
 with a live count, as in the reference, so states compare array for array;
 padded rows are inert by construction (opacity logit -30, log-scale -30,
 identity quaternion).
+
+A Mip-Splatting model (Yu et al. 2024) carries one more per-row buffer,
+`filter_3d`: each Gaussian's 3D smoothing filter, a world-space standard
+deviation taken from the training cameras (render/filter3d.py), not
+optimized. It is None for a 3DGS model, and its presence is what makes
+the projection apply both Mip filters (render/project.py).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ class Gaussians:
       scaling (CAP,3) log | rotation (CAP,4)
       max_radii2D (CAP,) | xyz_gradient_accum (CAP,) | denom (CAP,)
       n_live () int32
+      filter_3d (CAP,) or None: the Mip-Splatting 3D filter (0 on dead rows)
     """
 
     xyz: torch.Tensor
@@ -54,6 +61,12 @@ class Gaussians:
     active_sh_degree: int = 0
     max_sh_degree: int = 3
     spatial_lr_scale: float = 1.0
+    filter_3d: Optional[torch.Tensor] = None
+
+    @property
+    def mip(self) -> bool:
+        """A Mip-Splatting model: the projection applies both filters."""
+        return self.filter_3d is not None
 
     @property
     def capacity(self) -> int:
@@ -195,5 +208,8 @@ def grow_capacity(g: Gaussians, new_capacity: int) -> Gaussians:
     def pad(name: str, a: torch.Tensor) -> torch.Tensor:
         return torch.cat([a, pad_fill(name, (extra,) + tuple(a.shape[1:]), a.device)])
 
-    return g.replace(**{k: pad(k, getattr(g, k)) for k in PARAM_KEYS + (
+    out = g.replace(**{k: pad(k, getattr(g, k)) for k in PARAM_KEYS + (
         "max_radii2D", "xyz_gradient_accum", "denom")})
+    if g.mip:
+        out = out.replace(filter_3d=pad("filter_3d", g.filter_3d))
+    return out

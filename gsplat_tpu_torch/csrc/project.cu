@@ -31,6 +31,16 @@
 // no SH coefficient. Each row's sums run in a fixed order, with no atomics:
 // two launches give the same bits.
 //
+// Mip-Splatting (Yu et al. 2024) is a compile-time variant of both kernels
+// (project_fwd_mip_kernel, project_bwd_mip_kernel; the 3DGS kernels keep
+// their code and names): the row's 3D filter f widens its scales to
+// sqrt(s^2 + f^2) and compensates its opacity by c3 = sqrt(prod of
+// s^2 / (s^2 + f^2)); the 2D filter adds var2d (0.1) to the screen-space
+// covariance in place of 3DGS's 0.3 and compensates the opacity by c2 =
+// sqrt(det / det(+ var2d)) (0 where det <= 0). The opacity written is
+// (sigmoid(logit) c3) c2; the backward carries both compensations in closed
+// form (project_bwd_plain's formulas, in its order).
+//
 // Bound on this card: bytes. Forward, a row reads its 59 parameter floats
 // (236 B at SH degree 3) and writes 45 B; backward, it reads them again
 // (f_rest's 180 B only where the rgb gradient is not zero) with its nine
@@ -115,6 +125,9 @@ struct Geo {
   float zs, u0, u1, txtz, tytz, tx, ty, iz, iz2, j00, j02, j11, j12;
   float a[3], b[3], sa[3], sb[3];    // rows of J W and Sigma times them
   float A, B, C, det, ds, idet;      // the 2D covariance (+0.3), its determinant
+  // Mip: the filter's f^2, exp(log-scale)^2, + f^2, its sqrt, their ratio;
+  // c3; the covariance before its dilation, its determinant; their ratio, c2
+  float ff, e2[3], t2[3], sf[3], rr[3], c3, A0, C0, det0, q2d, c2;
 };
 
 __device__ __forceinline__ float dot_wv_col(const Cam& c, float x, float y, float z, int j) {
@@ -125,9 +138,10 @@ __device__ __forceinline__ float dot_fp_col(const Cam& c, float x, float y, floa
   return ((x * c.fp[j] + y * c.fp[4 + j]) + z * c.fp[8 + j]) + c.fp[12 + j];
 }
 
+template <bool MIP>
 __device__ __forceinline__ void geometry(Geo& g, const Cam& c, float x, float y, float z,
                                          const float (&scl)[3], const float4 qin,
-                                         bool live, float mod) {
+                                         bool live, float mod, float f, float var2d) {
   g.h0 = dot_fp_col(c, x, y, z, 0);
   g.h1 = dot_fp_col(c, x, y, z, 1);
   const float h3 = dot_fp_col(c, x, y, z, 3);
@@ -137,12 +151,22 @@ __device__ __forceinline__ void geometry(Geo& g, const Cam& c, float x, float y,
   g.depth = dot_wv_col(c, x, y, z, 2);
   g.base = g.depth > 0.2f && live;
 
+  if (MIP) g.ff = f * f;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     g.ex[k] = expf(scl[k]);
-    g.s[k] = g.ex[k] * mod;
+    if (MIP) {
+      g.e2[k] = g.ex[k] * g.ex[k];
+      g.t2[k] = g.e2[k] + g.ff;
+      g.sf[k] = sqrtf(g.t2[k]);
+      g.rr[k] = g.e2[k] / g.t2[k];
+      g.s[k] = g.sf[k] * mod;
+    } else {
+      g.s[k] = g.ex[k] * mod;
+    }
     g.s2[k] = g.s[k] * g.s[k];
   }
+  if (MIP) g.c3 = sqrtf((g.rr[0] * g.rr[1]) * g.rr[2]);
   // get_rotation: the row sum as torch's CUDA reduction adds four elements
   // (0 + 2 and 1 + 3, then the two), the clamped rsqrt
   g.sq = (qin.x * qin.x + qin.z * qin.z) + (qin.y * qin.y + qin.w * qin.w);
@@ -191,13 +215,23 @@ __device__ __forceinline__ void geometry(Geo& g, const Cam& c, float x, float y,
   g.sb[0] = (g.c00 * g.b[0] + g.c01 * g.b[1]) + g.c02 * g.b[2];
   g.sb[1] = (g.c01 * g.b[0] + g.c11 * g.b[1]) + g.c12 * g.b[2];
   g.sb[2] = (g.c02 * g.b[0] + g.c12 * g.b[1]) + g.c22 * g.b[2];
-  g.A = ((g.a[0] * g.sa[0] + g.a[1] * g.sa[1]) + g.a[2] * g.sa[2]) + 0.3f;
+  const float A0 = (g.a[0] * g.sa[0] + g.a[1] * g.sa[1]) + g.a[2] * g.sa[2];
   g.B = (g.b[0] * g.sa[0] + g.b[1] * g.sa[1]) + g.b[2] * g.sa[2];
-  g.C = ((g.b[0] * g.sb[0] + g.b[1] * g.sb[1]) + g.b[2] * g.sb[2]) + 0.3f;
+  const float C0 = (g.b[0] * g.sb[0] + g.b[1] * g.sb[1]) + g.b[2] * g.sb[2];
+  const float kv = MIP ? var2d : 0.3f;
+  g.A = A0 + kv;
+  g.C = C0 + kv;
   g.det = g.A * g.C - g.B * g.B;
   g.det_ok = g.det > 0.0f;
   g.ds = g.det_ok ? g.det : 1.0f;
   g.idet = 1.0f / g.ds;
+  if (MIP) {
+    g.A0 = A0;
+    g.C0 = C0;
+    g.det0 = A0 * C0 - g.B * g.B;
+    g.q2d = g.det0 > 0.0f ? g.det0 / g.ds : 1.0f;
+    g.c2 = g.det0 > 0.0f ? sqrtf(g.q2d) : 0.0f;
+  }
 }
 
 // The view direction, normalised as project_plain normalises it: the
@@ -365,17 +399,24 @@ __device__ __forceinline__ Row load_row(const Leaves& in, long long i, bool dc) 
   return w;
 }
 
+// The Mip variant's inputs: the rows' 3D filter (n,) and the 2D filter's
+// variance.
+struct MipArgs {
+  const float* filter;
+  float var2d;
+};
+
 // DEG: the active SH degree, or -1 where the caller overrides the colour
-// (no rgb, no view direction).
+// (no rgb, no view direction). MIP: the Mip-Splatting variant.
 struct Fields {
   const float* offset;  // (n, 2) or null
   float *mean2d, *conic, *depth, *radius, *rgb, *opacity;
   bool* visible;
 };
 
-template <int DEG>
-__global__ void __launch_bounds__(kThreads) project_fwd_kernel(
-    Leaves in, int n, int m3, CamPtrs cp, float mod, Fields f) {
+template <int DEG, bool MIP>
+__device__ __forceinline__ void project_fwd_row(Leaves in, int n, int m3, CamPtrs cp, float mod,
+                                                MipArgs mip, Fields f) {
   __shared__ Cam cam;
   __shared__ float rest_buf[DEG > 0 ? kWarps * 32 * kMaxRest3 : 1];
   load_cam(cam, cp.wv, cp.fp, cp.cc, cp.tanx, cp.tany, cp.width, cp.height, in.n_live);
@@ -387,7 +428,11 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
   const int stride = (m3 | 1);
   float* buf = rest_buf + (DEG > 0 ? warp * 32 * stride : 0);
   Row w = {};
-  if (in_range) w = load_row(in, i, DEG >= 0);
+  float fr = 0.0f;
+  if (in_range) {
+    w = load_row(in, i, DEG >= 0);
+    if (MIP) fr = __ldg(mip.filter + i);
+  }
   if (DEG > 0) {
     const unsigned need = __ballot_sync(kFull, in_range);
     const int nrows = static_cast<int>(min(32LL, static_cast<long long>(n) - row0));
@@ -397,7 +442,7 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
 
   const float x = w.x, y = w.y, z = w.z;
   Geo g;
-  geometry(g, cam, x, y, z, w.sl, w.q, i < cam.n_live, mod);
+  geometry<MIP>(g, cam, x, y, z, w.sl, w.q, i < cam.n_live, mod, fr, mip.var2d);
 
   f.conic[3 * i] = g.C * g.idet;
   f.conic[3 * i + 1] = -g.B * g.idet;
@@ -417,7 +462,11 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
   }
   reinterpret_cast<float2*>(f.mean2d)[i] = make_float2(mx, my);
   const float sig = 1.0f / (1.0f + expf(-w.logit));
-  f.opacity[i] = vis ? sig : 0.0f;
+  if (MIP) {
+    f.opacity[i] = vis ? (sig * g.c3) * g.c2 : 0.0f;
+  } else {
+    f.opacity[i] = vis ? sig : 0.0f;
+  }
 
   if (DEG >= 0) {
     float bk[16];
@@ -432,6 +481,18 @@ __global__ void __launch_bounds__(kThreads) project_fwd_kernel(
       f.rgb[3 * i + ch] = max_nan(sh_eval<DEG>(bk, w.dc[ch], rest, ch), 0.0f);
     }
   }
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) project_fwd_kernel(
+    Leaves in, int n, int m3, CamPtrs cp, float mod, Fields f) {
+  project_fwd_row<DEG, false>(in, n, m3, cp, mod, MipArgs{nullptr, 0.0f}, f);
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) project_fwd_mip_kernel(
+    Leaves in, int n, int m3, CamPtrs cp, float mod, MipArgs mip, Fields f) {
+  project_fwd_row<DEG, true>(in, n, m3, cp, mod, mip, f);
 }
 
 // The incoming gradients: row-strided views (the pair table's packing hands
@@ -454,9 +515,9 @@ __device__ __forceinline__ float clamp_grad(float v, float lim, float gout) {
   return v == -lim ? gm / 2.0f : (v < -lim ? 0.0f : gm);
 }
 
-template <int DEG>
-__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
-    Leaves in, int n, int m3, CamPtrs cp, float mod, Grads gr, Outs out) {
+template <int DEG, bool MIP>
+__device__ __forceinline__ void project_bwd_row(Leaves in, int n, int m3, CamPtrs cp, float mod,
+                                                MipArgs mip, Grads gr, Outs out) {
   __shared__ Cam cam;
   __shared__ float rest_buf[DEG > 0 ? kWarps * 32 * kMaxRest3 : 1];
   load_cam(cam, cp.wv, cp.fp, cp.cc, cp.tanx, cp.tany, cp.width, cp.height, in.n_live);
@@ -473,7 +534,11 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   // with them rather than after them); a row with no rgb gradient reads no
   // SH coefficient
   Row w = {};
-  if (in_range) w = load_row(in, i, DEG >= 0);
+  float fr = 0.0f;
+  if (in_range) {
+    w = load_row(in, i, DEG >= 0);
+    if (MIP) fr = __ldg(mip.filter + i);
+  }
   float gm0 = 0.f, gm1 = 0.f, gc0 = 0.f, gc1 = 0.f, gc2 = 0.f, gd = 0.f, go = 0.f;
   float gc[3] = {0.f, 0.f, 0.f};
   if (in_range) {
@@ -511,12 +576,20 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     const float4 q4 = w.q;
     const float logit = w.logit;
     Geo g;
-    geometry(g, cam, x, y, z, w.sl, q4, i < cam.n_live, mod);
+    geometry<MIP>(g, cam, x, y, z, w.sl, q4, i < cam.n_live, mod, fr, mip.var2d);
     const bool vis = g.base && g.det_ok;
 
-    // opacity = where(visible, sigmoid(logit), 0)
+    // opacity = where(visible, sigmoid(logit), 0); Mip: (sigmoid c3) c2
     const float sig = 1.0f / (1.0f + expf(-logit));
-    out.opacity[i] = vis ? (go * (1.0f - sig)) * sig : 0.0f;
+    float g_c3 = 0.0f, g_c2 = 0.0f;
+    if (MIP) {
+      const float gsig = (go * g.c2) * g.c3;
+      out.opacity[i] = vis ? (gsig * (1.0f - sig)) * sig : 0.0f;
+      g_c3 = vis ? (go * g.c2) * sig : 0.0f;
+      g_c2 = vis ? go * (sig * g.c3) : 0.0f;
+    } else {
+      out.opacity[i] = vis ? (go * (1.0f - sig)) * sig : 0.0f;
+    }
 
     // mean2d = ndc2pix(h * pw): h0, h1, and h3 through pw
     const float gpx = (gm0 * 0.5f) * cam.width;
@@ -528,7 +601,16 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     // conic = (C, -B, A) / det_safe
     float gA = gc2 * g.idet, gB = -(gc1 * g.idet), gC = gc0 * g.idet;
     const float gidet = (gc0 * g.C + gc1 * (-g.B)) + gc2 * g.A;
-    const float gdet = g.det_ok ? -gidet * (g.idet * g.idet) : 0.0f;
+    float gdet = g.det_ok ? -gidet * (g.idet * g.idet) : 0.0f;
+    if (MIP) {
+      // c2 = sqrt(det0 / det_safe), det0 = A0 C0 - B^2 (before the dilation)
+      const float gq = g.c2 > 0.0f ? (0.5f * g_c2) / g.c2 : 0.0f;
+      const float gdet0 = gq * g.idet;
+      if (g.det_ok) gdet = gdet - (gq * g.q2d) * g.idet;
+      gA = gA + gdet0 * g.C0;
+      gC = gC + gdet0 * g.A0;
+      gB = gB - 2.0f * g.B * gdet0;
+    }
     gA = gA + gdet * g.C;
     gC = gC + gdet * g.A;
     gB = gB - 2.0f * g.B * gdet;
@@ -591,8 +673,17 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
     }
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-      // s2 = s s, s = exp(l) mod
-      out.scaling[3 * i + m] = ((2.0f * g.s[m] * gs2[m]) * mod) * g.ex[m];
+      if (MIP) {
+        // s = sqrt(exp(l)^2 + f^2) mod; c3 = sqrt(r0 r1 r2), r = e2 / (e2 + f^2):
+        // dc3 / dl = c3 f^2 / (e2 + f^2)
+        const float gsf = (2.0f * g.s[m] * gs2[m]) * mod;
+        const float gt2 = (gsf * 0.5f) / g.sf[m];
+        out.scaling[3 * i + m] = (gt2 * (2.0f * g.ex[m])) * g.ex[m] +
+                                 (g_c3 * g.c3) * (g.ff / g.t2[m]);
+      } else {
+        // s2 = s s, s = exp(l) mod
+        out.scaling[3 * i + m] = ((2.0f * g.s[m] * gs2[m]) * mod) * g.ex[m];
+      }
     }
     // R from the normalised quaternion (qr, qi, qj, qk)
     const float qr = g.q[0], qi = g.q[1], qj = g.q[2], qk = g.q[3];
@@ -710,6 +801,18 @@ __global__ void __launch_bounds__(kThreads) project_bwd_kernel(
   }
 }
 
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) project_bwd_kernel(
+    Leaves in, int n, int m3, CamPtrs cp, float mod, Grads gr, Outs out) {
+  project_bwd_row<DEG, false>(in, n, m3, cp, mod, MipArgs{nullptr, 0.0f}, gr, out);
+}
+
+template <int DEG>
+__global__ void __launch_bounds__(kThreads) project_bwd_mip_kernel(
+    Leaves in, int n, int m3, CamPtrs cp, float mod, MipArgs mip, Grads gr, Outs out) {
+  project_bwd_row<DEG, true>(in, n, m3, cp, mod, mip, gr, out);
+}
+
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -719,7 +822,8 @@ int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 // on one device; cam: world_view, full_proj (4, 4) row-major, cam_center
 // (3,), tan_fovx, tan_fovy (). deg -1..3 (-1: no rgb). offset (n, 2) or
 // null. Outputs: mean2d (n, 2), conic (n, 3), depth, radius, opacity (n,),
-// rgb (n, 3) (unused at deg -1), visible (n,) bool.
+// rgb (n, 3) (unused at deg -1), visible (n,) bool. filter3d (n,) or null:
+// with it the Mip variant runs, the 2D filter's variance var2d.
 // Returns cudaGetLastError() after the launch.
 extern "C" int project_fwd_launch(
     const void* xyz, const void* f_dc, const void* f_rest, const void* opac,
@@ -727,7 +831,7 @@ extern "C" int project_fwd_launch(
     const void* wv, const void* fp, const void* cc, const void* tanx, const void* tany,
     int width, int height, float mod, int deg, const void* offset, void* mean2d,
     void* conic, void* depth, void* radius, void* rgb, void* opacity, void* visible,
-    void* stream) {
+    const void* filter3d, float var2d, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (m3 > kMaxRest3) return static_cast<int>(cudaErrorInvalidValue);
   Leaves in{static_cast<const float*>(xyz), static_cast<const float*>(f_dc),
@@ -743,6 +847,18 @@ extern "C" int project_fwd_launch(
            static_cast<float*>(opacity), static_cast<bool*>(visible)};
   auto s = static_cast<cudaStream_t>(stream);
   const int b = blocks(n);
+  if (filter3d != nullptr) {
+    const MipArgs mip{static_cast<const float*>(filter3d), var2d};
+    switch (deg) {
+      case -1: project_fwd_mip_kernel<-1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, f); break;
+      case 0: project_fwd_mip_kernel<0><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, f); break;
+      case 1: project_fwd_mip_kernel<1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, f); break;
+      case 2: project_fwd_mip_kernel<2><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, f); break;
+      case 3: project_fwd_mip_kernel<3><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, f); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (deg) {
     case -1: project_fwd_kernel<-1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, f); break;
     case 0: project_fwd_kernel<0><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, f); break;
@@ -759,7 +875,8 @@ extern "C" int project_fwd_launch(
 // pointer and a row stride in floats (unit stride within the row), or null
 // for none. Outputs, every row written: the gradients of xyz, f_dc,
 // scaling (n, 3), f_rest (n, m3 / 3, 3), opacity (n, 1), rotation (n, 4)
-// (16-byte aligned) and, unless null, the offset (n, 2).
+// (16-byte aligned) and, unless null, the offset (n, 2). filter3d, var2d:
+// as project_fwd_launch's.
 // Returns cudaGetLastError() after the launch.
 extern "C" int project_bwd_launch(
     const void* xyz, const void* f_dc, const void* f_rest, const void* opac,
@@ -770,7 +887,7 @@ extern "C" int project_bwd_launch(
     const void* g_depth, long long s_depth, const void* g_rgb, long long s_rgb,
     const void* g_opacity, long long s_opacity,
     void* o_xyz, void* o_f_dc, void* o_f_rest, void* o_opacity, void* o_scaling,
-    void* o_rotation, void* o_offset, void* stream) {
+    void* o_rotation, void* o_offset, const void* filter3d, float var2d, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (m3 > kMaxRest3) return static_cast<int>(cudaErrorInvalidValue);
   Leaves in{static_cast<const float*>(xyz), static_cast<const float*>(f_dc),
@@ -790,6 +907,18 @@ extern "C" int project_bwd_launch(
            static_cast<float*>(o_offset)};
   auto s = static_cast<cudaStream_t>(stream);
   const int b = blocks(n);
+  if (filter3d != nullptr) {
+    const MipArgs mip{static_cast<const float*>(filter3d), var2d};
+    switch (deg) {
+      case -1: project_bwd_mip_kernel<-1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, gr, out); break;
+      case 0: project_bwd_mip_kernel<0><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, gr, out); break;
+      case 1: project_bwd_mip_kernel<1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, gr, out); break;
+      case 2: project_bwd_mip_kernel<2><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, gr, out); break;
+      case 3: project_bwd_mip_kernel<3><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, mip, gr, out); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (deg) {
     case -1: project_bwd_kernel<-1><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, gr, out); break;
     case 0: project_bwd_kernel<0><<<b, kThreads, 0, s>>>(in, n, m3, cp, mod, gr, out); break;

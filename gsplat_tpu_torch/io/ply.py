@@ -11,7 +11,7 @@ from __future__ import annotations
 import io
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -138,11 +138,14 @@ def save_gaussian_ply(
     opacity: np.ndarray,
     scaling: np.ndarray,
     rotation: np.ndarray,
+    filter_3d: Optional[np.ndarray] = None,
 ) -> None:
     """Standard 3DGS `point_cloud.ply` layout (raw/pre-activation values).
 
     features_dc: (N,3); features_rest: (N,M,3) SH rest coeffs; opacity: (N,1)
-    logit; scaling: (N,3) log; rotation: (N,4).
+    logit; scaling: (N,3) log; rotation: (N,4); filter_3d: (N,), a
+    Mip-Splatting model's 3D filter, written last as the published code
+    writes it (`filter_3D`).
     """
     n = len(xyz)
     cols: Dict[str, np.ndarray] = {}
@@ -161,11 +164,14 @@ def save_gaussian_ply(
         cols[f"scale_{i}"] = np.asarray(scaling[:, i], np.float32)
     for i in range(rotation.shape[1]):
         cols[f"rot_{i}"] = np.asarray(rotation[:, i], np.float32)
+    if filter_3d is not None:
+        cols["filter_3D"] = np.asarray(filter_3d, np.float32).reshape(n)
     write_ply(path, cols)
 
 
 def load_gaussian_ply(path: str | Path) -> Dict[str, np.ndarray]:
-    """Inverse of `save_gaussian_ply` -> dict of raw parameter arrays."""
+    """Inverse of `save_gaussian_ply` -> dict of raw parameter arrays (with
+    `filter_3d` where the file has a `filter_3D` column)."""
     cols = read_ply(path)
     n = len(cols["x"])
     xyz = np.stack([cols["x"], cols["y"], cols["z"]], -1)
@@ -181,7 +187,7 @@ def load_gaussian_ply(path: str | Path) -> Dict[str, np.ndarray]:
     rot_names = sorted(
         (k for k in cols if k.startswith("rot_")), key=lambda s: int(s.split("_")[-1])
     )
-    return {
+    out = {
         "xyz": xyz,
         "features_dc": f_dc,
         "features_rest": rest,
@@ -189,3 +195,6 @@ def load_gaussian_ply(path: str | Path) -> Dict[str, np.ndarray]:
         "scaling": np.stack([cols[k] for k in scale_names], -1),
         "rotation": np.stack([cols[k] for k in rot_names], -1),
     }
+    if "filter_3D" in cols:
+        out["filter_3d"] = cols["filter_3D"]
+    return out

@@ -21,6 +21,16 @@ kernel's plain version: the same closed form in the same order, held to
 autograd on the CPU and to the kernel on the card. An `override_color`
 skips SH (the kernels' no-SH branch): it is the rgb, and its gradient
 passes straight through.
+
+Mip-Splatting (Yu et al. 2024, arXiv 2311.16493), for a model that carries
+`filter_3d` (Gaussians.mip): the 3D filter f widens each scale to
+sqrt(s^2 + f^2) (before the scaling modifier) and compensates the opacity
+by c3 = sqrt(prod(s^2 / (s^2 + f^2))); the 2D filter adds MIP_FILTER_2D
+(0.1) to the screen-space covariance's diagonal in place of 0.3, its conic
+and radius from the sum, and compensates the opacity by c2 = sqrt(det /
+det(+ 0.1)) (0 where det <= 0). The opacity is (sigmoid c3) c2. The kernels'
+Mip variants and the plain version compute it alike. MIP_FILTER_2D is read
+at call time, so a test can plant a fault.
 """
 
 from __future__ import annotations
@@ -35,6 +45,15 @@ from gsplat_tpu_torch import _build
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
 from gsplat_tpu_torch.core.sh import C0, C1, C2, C3, eval_sh, sh_basis, sh_to_rgb_color
+
+
+# the 2D filters: 3DGS's dilation, and Mip-Splatting's filter variance (pixels^2)
+DILATION_2D = 0.3
+MIP_FILTER_2D = 0.1
+# the Mip variants' launches, counted apart from project_fwd's and
+# project_bwd's own (which count every launch)
+mip_fwd_count = SimpleNamespace(launches=0)
+mip_bwd_count = SimpleNamespace(launches=0)
 
 
 class Projection(NamedTuple):
@@ -70,7 +89,18 @@ def _terms(g: Gaussians, cam: Camera, scaling_modifier: float) -> SimpleNamespac
 
     # --- EWA 2D covariance (explicit symmetric-form expansion) ---
     t.ex = g.get_scaling()
-    t.s3 = t.ex * scaling_modifier
+    t.mip = g.mip
+    if t.mip:
+        # the 3D filter: s = sqrt(exp(l)^2 + f^2); c3 = sqrt(r0 r1 r2), r = e2 / t2
+        t.ff = (g.filter_3d * g.filter_3d)[:, None]
+        t.e2 = t.ex * t.ex
+        t.t2 = t.e2 + t.ff
+        t.sf = torch.sqrt(t.t2)
+        t.rr = t.e2 / t.t2
+        t.c3 = torch.sqrt((t.rr[:, 0] * t.rr[:, 1]) * t.rr[:, 2])
+        t.s3 = t.sf * scaling_modifier
+    else:
+        t.s3 = t.ex * scaling_modifier
     # get_rotation, its squared norm and clamped rsqrt kept
     t.sq = (g.rotation * g.rotation).sum(-1, keepdim=True)
     t.rs = torch.rsqrt(torch.clamp(t.sq, min=1e-12))
@@ -112,15 +142,24 @@ def _terms(g: Gaussians, cam: Camera, scaling_modifier: float) -> SimpleNamespac
     cv, a, b = t.cov, t.a, t.b
     t.sa = [cv[k][0] * a[0] + cv[k][1] * a[1] + cv[k][2] * a[2] for k in range(3)]
     t.sb = [cv[k][0] * b[0] + cv[k][1] * b[1] + cv[k][2] * b[2] for k in range(3)]
-    t.A = a[0] * t.sa[0] + a[1] * t.sa[1] + a[2] * t.sa[2] + 0.3
+    t.A0 = a[0] * t.sa[0] + a[1] * t.sa[1] + a[2] * t.sa[2]
     t.B = b[0] * t.sa[0] + b[1] * t.sa[1] + b[2] * t.sa[2]
-    t.C = b[0] * t.sb[0] + b[1] * t.sb[1] + b[2] * t.sb[2] + 0.3
+    t.C0 = b[0] * t.sb[0] + b[1] * t.sb[1] + b[2] * t.sb[2]
+    kv = MIP_FILTER_2D if t.mip else DILATION_2D
+    t.A = t.A0 + kv
+    t.C = t.C0 + kv
 
     t.det = t.A * t.C - t.B * t.B
     t.det_ok = t.det > 0.0
     t.det_safe = torch.where(t.det_ok, t.det, torch.ones_like(t.det))
     t.inv_det = 1.0 / t.det_safe
     t.visible = t.base_mask & t.det_ok
+    if t.mip:
+        # the 2D filter's compensation c2 = sqrt(det0 / det_safe), 0 where det0 <= 0
+        t.det0 = t.A0 * t.C0 - t.B * t.B
+        pos = t.det0 > 0.0
+        t.q2d = torch.where(pos, t.det0, torch.ones_like(t.det0)) / t.det_safe
+        t.c2 = torch.where(pos, torch.sqrt(t.q2d), torch.zeros_like(t.q2d))
     return t
 
 
@@ -156,7 +195,10 @@ def project_plain(
         )
         rgb = sh_to_rgb_color(g.active_sh_degree, g.get_features(), dirs)
 
-    opacity = torch.where(t.visible, g.get_opacity()[:, 0], torch.zeros_like(t.depth))
+    sig = g.get_opacity()[:, 0]
+    if t.mip:
+        sig = (sig * t.c3) * t.c2
+    opacity = torch.where(t.visible, sig, torch.zeros_like(t.depth))
     return Projection(
         mean2d=mean2d,
         conic=conic,
@@ -203,9 +245,14 @@ def project_bwd_plain(g: Gaussians, cam: Camera, scaling_modifier: float, sh: bo
     p, sq, rs = g.rotation, t.sq[:, 0], t.rs[:, 0]
     qr, qi, qj, qk = t.q[:, 0], t.q[:, 1], t.q[:, 2], t.q[:, 3]
 
-    # opacity = where(visible, sigmoid(logit), 0)
+    # opacity = where(visible, sigmoid(logit), 0); Mip: (sigmoid c3) c2
     sig = torch.sigmoid(g.opacity[:, 0])
-    g_logit = torch.where(vis, go * (1.0 - sig) * sig, 0.0)
+    if t.mip:
+        g_logit = torch.where(vis, (go * t.c2) * t.c3 * (1.0 - sig) * sig, 0.0)
+        g_c3 = torch.where(vis, (go * t.c2) * sig, 0.0)
+        g_c2 = torch.where(vis, go * (sig * t.c3), 0.0)
+    else:
+        g_logit = torch.where(vis, go * (1.0 - sig) * sig, 0.0)
 
     # mean2d = ndc2pix(h * pw)
     gpx = gm[:, 0] * 0.5 * cam.width
@@ -219,6 +266,14 @@ def project_bwd_plain(g: Gaussians, cam: Camera, scaling_modifier: float, sh: bo
     gA, gB, gC = gc2 * idet, -(gc1 * idet), gc0 * idet
     gidet = gc0 * C + gc1 * (-B) + gc2 * A
     gdet = torch.where(det_ok, -gidet * (idet * idet), 0.0)
+    if t.mip:
+        # c2 = sqrt(det0 / det_safe), det0 = A0 C0 - B^2
+        gq = torch.where(t.c2 > 0.0, (0.5 * g_c2) / torch.where(t.c2 > 0.0, t.c2, 1.0), 0.0)
+        gdet0 = gq * idet
+        gdet = torch.where(det_ok, gdet - (gq * t.q2d) * idet, gdet)
+        gA = gA + gdet0 * t.C0
+        gC = gC + gdet0 * t.A0
+        gB = gB - 2.0 * B * gdet0
     gA = gA + gdet * C
     gC = gC + gdet * A
     gB = gB - 2.0 * B * gdet
@@ -266,8 +321,14 @@ def project_bwd_plain(g: Gaussians, cam: Camera, scaling_modifier: float, sh: bo
         gr9[6 + m] = s2c[m] * ((g02 * r0 + g12 * r1) + 2.0 * g22 * r2)
         gs2.append(((g00 * r0 * r0 + g11 * r1 * r1) + g22 * r2 * r2)
                    + ((g01 * r0 * r1 + g02 * r0 * r2) + g12 * r1 * r2))
-    g_scaling = torch.stack([2.0 * s[:, m] * gs2[m] * scaling_modifier * ex[:, m]
-                             for m in range(3)], dim=-1)
+    if t.mip:
+        # s = sqrt(e2 + f^2) mod; dc3 / dl = c3 f^2 / (e2 + f^2)
+        g_scaling = torch.stack([
+            ((2.0 * s[:, m] * gs2[m] * scaling_modifier) * 0.5 / t.sf[:, m]) * (2.0 * ex[:, m])
+            * ex[:, m] + (g_c3 * t.c3) * (t.ff[:, 0] / t.t2[:, m]) for m in range(3)], dim=-1)
+    else:
+        g_scaling = torch.stack([2.0 * s[:, m] * gs2[m] * scaling_modifier * ex[:, m]
+                                 for m in range(3)], dim=-1)
     gqr = 2.0 * (((-qk * gr9[1] + qj * gr9[2]) + (qk * gr9[3] - qi * gr9[5]))
                  + (-qj * gr9[6] + qi * gr9[7]))
     gqi = 2.0 * (((qj * gr9[1] + qk * gr9[2]) + (qj * gr9[3] - qr * gr9[5]))
@@ -385,19 +446,30 @@ def _ptr(t: Optional[torch.Tensor]):
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
-                 + [ctypes.c_void_p] * 9)
+                 + [ctypes.c_void_p] * 9 + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int]
-                 + [ctypes.c_void_p, ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 8)
+                 + [ctypes.c_void_p, ctypes.c_longlong] * 5 + [ctypes.c_void_p] * 8
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _check_filter(filter_3d: Optional[torch.Tensor], n: int, device) -> None:
+    if filter_3d is not None and (filter_3d.shape != (n,) or filter_3d.dtype != torch.float32
+                                  or not filter_3d.is_contiguous()
+                                  or filter_3d.device != device):
+        raise ValueError("filter_3d must be a contiguous float32 (n,) on the leaves' device")
 
 
 def project_fwd(leaves, n_live: torch.Tensor, cam: Camera, scaling_modifier: float, deg: int,
-                offset: Optional[torch.Tensor] = None):
+                offset: Optional[torch.Tensor] = None,
+                filter_3d: Optional[torch.Tensor] = None, var2d: float = MIP_FILTER_2D):
     """The forward kernel: leaves (xyz, f_dc, f_rest, opacity, scaling,
     rotation), n_live () int32, deg the active SH degree or -1 (no rgb) ->
     (mean2d, conic, depth, radius, rgb or None, opacity, visible), each field
-    as project_plain's."""
+    as project_plain's. With filter_3d (n,) the Mip variant runs, its 2D
+    filter's variance var2d."""
     n = _check_leaves(leaves, n_live)
+    _check_filter(filter_3d, n, leaves[0].device)
     xyz = leaves[0]
     m = leaves[2].shape[1]
     deg = _kernel_deg(deg, m)
@@ -424,10 +496,11 @@ def project_fwd(leaves, n_live: torch.Tensor, cam: Camera, scaling_modifier: flo
                  wv.data_ptr(), fp.data_ptr(), cc.data_ptr(), tanx.data_ptr(), tany.data_ptr(),
                  cam.width, cam.height, float(scaling_modifier), deg, _ptr(offset),
                  mean2d.data_ptr(), conic.data_ptr(), depth.data_ptr(), radius.data_ptr(),
-                 _ptr(rgb), opacity.data_ptr(), visible.data_ptr(),
-                 torch.cuda.current_stream(xyz.device).cuda_stream)
+                 _ptr(rgb), opacity.data_ptr(), visible.data_ptr(), _ptr(filter_3d),
+                 float(var2d), torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(lib, err, "project_fwd launch")
     project_fwd.launches += 1
+    mip_fwd_count.launches += filter_3d is not None
     return mean2d, conic, depth, radius, rgb, opacity, visible
 
 
@@ -449,12 +522,14 @@ def _grad_arg(t: Optional[torch.Tensor], n: int, cols: int, device):
 
 
 def project_bwd(leaves, n_live: torch.Tensor, cam: Camera, scaling_modifier: float, deg: int,
-                g_mean2d, g_conic, g_depth, g_rgb, g_opacity, want_offset: bool):
+                g_mean2d, g_conic, g_depth, g_rgb, g_opacity, want_offset: bool,
+                filter_3d: Optional[torch.Tensor] = None, var2d: float = MIP_FILTER_2D):
     """The backward kernel: the leaves and settings of project_fwd's call and
     the incoming gradients (tensors or None) -> the gradients of xyz, f_dc,
     f_rest, opacity, scaling, rotation (f_dc and f_rest None at deg -1) and,
     with want_offset, of the offset (else None)."""
     n = _check_leaves(leaves, n_live)
+    _check_filter(filter_3d, n, leaves[0].device)
     xyz = leaves[0]
     m = leaves[2].shape[1]
     deg = _kernel_deg(deg, m)
@@ -474,9 +549,11 @@ def project_bwd(leaves, n_live: torch.Tensor, cam: Camera, scaling_modifier: flo
                  wv.data_ptr(), fp.data_ptr(), cc.data_ptr(), tanx.data_ptr(), tany.data_ptr(),
                  cam.width, cam.height, float(scaling_modifier), deg,
                  *[v for pair in grads for v in pair], *[_ptr(t) for t in outs],
-                 _ptr(g_offset), torch.cuda.current_stream(xyz.device).cuda_stream)
+                 _ptr(g_offset), _ptr(filter_3d), float(var2d),
+                 torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check(lib, err, "project_bwd launch")
     project_bwd.launches += 1
+    mip_bwd_count.launches += filter_3d is not None
     return (*outs, g_offset)
 
 
@@ -488,8 +565,9 @@ class _Project(torch.autograd.Function):
     (xyz, f_dc, f_rest, opacity, scaling, rotation, mean2d_offset) ->
     (mean2d, conic, depth, radius, opacity, visible[, rgb]); f_dc and f_rest
     None and no rgb where the caller overrides the colour. static: (g, cam,
-    scaling_modifier); g gives n_live and the active SH degree. Saves only
-    its inputs; radius and visible carry no gradient."""
+    scaling_modifier); g gives n_live, the active SH degree and, for a Mip
+    model, the 3D filter (MIP_FILTER_2D is read once, at the forward). Saves
+    only its inputs; radius and visible carry no gradient."""
 
     @staticmethod
     def forward(ctx, xyz, f_dc, f_rest, opacity, scaling, rotation, offset, static):
@@ -501,10 +579,11 @@ class _Project(torch.autograd.Function):
         n_live = g.n_live.to(device=xyz.device, dtype=torch.int32)
         ctx.save_for_backward(*leaves, n_live)
         ctx.static, ctx.sh, ctx.has_offset = static, sh, offset is not None
+        ctx.var2d = MIP_FILTER_2D
         ctx.set_materialize_grads(False)
         mean2d, conic, depth, radius, rgb, opac, visible = project_fwd(
             leaves, n_live, cam, mod, g.active_sh_degree if sh else -1,
-            None if offset is None else offset.contiguous())
+            None if offset is None else offset.contiguous(), g.filter_3d, ctx.var2d)
         ctx.mark_non_differentiable(radius, visible)
         return (mean2d, conic, depth, radius, opac, visible) + ((rgb,) if sh else ())
 
@@ -515,7 +594,8 @@ class _Project(torch.autograd.Function):
         saved = ctx.saved_tensors
         gx, gdc, grest, gop, gsc, grot, goff = project_bwd(
             saved[:6], saved[6], cam, mod, g.active_sh_degree if ctx.sh else -1,
-            g_mean2d, g_conic, g_depth, g_rgb, g_opacity, ctx.has_offset)
+            g_mean2d, g_conic, g_depth, g_rgb, g_opacity, ctx.has_offset, g.filter_3d,
+            ctx.var2d)
         return gx, gdc, grest, gop, gsc, grot, goff, None
 
 

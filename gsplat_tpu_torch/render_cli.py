@@ -6,9 +6,10 @@ Port of gsplat_tpu/render_cli.py (upstream 3DGS's `render.py`). Usage:
         [--skip_train] [--skip_test] [--data_device cuda]
 
 Writes <model>/{train,test}/ours_<iter>/{renders,gt}/NNNNN.png, the PNGs
-through the port's own codec (io/png.py). The flags are the JAX CLI's, plus
-upstream's `--data_device` (default cuda: the device the scene, and so the
-render, runs on).
+through the port's own codec (io/png.py). A Mip-Splatting model (its PLY's
+`filter_3D` column; cfg_args' mip_splatting=True) renders with both
+filters. The flags are the JAX CLI's, plus upstream's `--data_device`
+(default cuda: the device the scene, and so the render, runs on).
 """
 
 from __future__ import annotations
@@ -75,18 +76,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     ns = p.parse_args(argv)
 
     source = ns.source_path
+    cfg_path = Path(ns.model_path) / "cfg_args"
+    cfg = cfg_path.read_text() if cfg_path.exists() else ""
     if not source:
         # recover from cfg_args (written at train time, upstream-compatible)
-        cfg = (Path(ns.model_path) / "cfg_args").read_text()
         m = re.search(r"source_path='([^']*)'", cfg)
         if not m:
             raise SystemExit("--source_path not given and not found in cfg_args")
         source = m.group(1)
 
+    # a Mip-Splatting model: cfg_args records the switch, and its PLY must
+    # carry the 3D filter (the render applies both filters wherever it does)
     model = ModelParams(
         sh_degree=ns.sh_degree, source_path=source, model_path=ns.model_path,
         resolution=ns.resolution, white_background=ns.white_background, eval=ns.eval,
-        data_device=ns.data_device,
+        data_device=ns.data_device, mip_splatting="mip_splatting=True" in cfg,
     )
     mesh = MeshParams(pair_budget=ns.pair_budget, tile_size=ns.tile_size,
                       chunk_size=ns.chunk_size)

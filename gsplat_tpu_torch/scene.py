@@ -142,6 +142,8 @@ class Scene:
                 / "point_cloud.ply"
             )
             raw = load_gaussian_ply(ply)
+            if model.mip_splatting and "filter_3d" not in raw:
+                raise ValueError(f"{ply} has no filter_3D column: not a Mip-Splatting model")
             self.gaussians = gaussians_from_raw(
                 raw, capacity=capacity, sh_degree=model.sh_degree,
                 spatial_lr_scale=self.cameras_extent, device=device,
@@ -213,12 +215,17 @@ def gaussians_from_raw(
     device: Optional[Union[str, torch.device]] = None,
 ) -> Gaussians:
     """raw PLY/checkpoint arrays -> Gaussians padded to max(capacity,
-    next_pow2(n)) on `device` (CUDA unless named)."""
+    next_pow2(n)) on `device` (CUDA unless named); a `filter_3d` array makes
+    a Mip-Splatting model."""
     device = resolve_device(device)
     n = len(raw["xyz"])
     cap = max(capacity, _next_pow2(n))
     pad = _pad_rows(cap, device)
     zeros = torch.zeros(cap, dtype=torch.float32, device=device)
+    filt = None
+    if "filter_3d" in raw:
+        filt = torch.zeros(cap, dtype=torch.float32, device=device)
+        filt[:n] = torch.from_numpy(np.asarray(raw["filter_3d"], np.float32)).to(device)
     return Gaussians(
         xyz=pad("xyz", raw["xyz"]),
         f_dc=pad("f_dc", raw["features_dc"]),
@@ -233,4 +240,5 @@ def gaussians_from_raw(
         active_sh_degree=sh_degree,
         max_sh_degree=sh_degree,
         spatial_lr_scale=float(spatial_lr_scale),
+        filter_3d=filt,
     )

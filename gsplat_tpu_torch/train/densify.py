@@ -14,11 +14,16 @@ training loop then grows the capacity.
 The split noise is drawn by `split_noise` from an explicit torch.Generator
 (the reference draws jax.random.normal from its key): densify_and_prune
 takes the draw itself, so a test can pass in the JAX draw.
+
+A Mip-Splatting model's `filter_3d` rides the same gather (new rows copy
+their source's; the training loop recomputes it after every pass), and its
+opacity reset clamps the filter-compensated opacity (`reset_opacity_mip`,
+the published code's reset).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,14 +108,23 @@ def densify_and_prune(
     extent: float,
     max_screen_size: float,
     percent_dense: float,
+    stats: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Gaussians, AdamState, torch.Tensor]:
     """One densify + prune pass (upstream densify_and_prune) -> (gaussians,
     optimizer state, () int64 count dropped by capacity). `noise` is the
-    (CAP, 3) standard normal draw of the split samples (split_noise)."""
+    (CAP, 3) standard normal draw of the split samples (split_noise).
+    `stats`, if given, receives the pass's decisions as () int64 device
+    scalars: `cloned`, `split` (sources), `pruned` (live rows neither kept
+    nor split), before any capacity drop."""
     cap = g.capacity
     src, kind, valid, total = densify_selection(
         g, max_grad=max_grad, min_opacity=min_opacity, extent=extent,
         max_screen_size=max_screen_size, percent_dense=percent_dense)
+    if stats is not None:
+        kept = ((kind == 0) & valid).sum()
+        split = ((kind == 2) & valid).sum()
+        stats.update(cloned=((kind == 1) & valid).sum(), split=split,
+                     pruned=g.n_live.to(torch.int64) - kept - split)
     n_live = torch.clamp(total, max=cap).to(torch.int32)
     n_dropped = torch.clamp(total - cap, min=0)
 
@@ -158,6 +172,8 @@ def densify_and_prune(
     zeros = torch.zeros(cap, dtype=torch.float32, device=g.device)
     g_new = g.replace(**params, xyz_gradient_accum=zeros, denom=zeros.clone(),
                       max_radii2D=zeros.clone(), n_live=n_live)
+    if g.mip:
+        g_new = g_new.replace(filter_3d=torch.where(valid, g.filter_3d[src], zeros))
     return g_new, new_state, n_dropped
 
 
@@ -174,3 +190,25 @@ def reset_opacity(g: Gaussians, opt_state: AdamState, max_opacity: float = 0.01
     nu["opacity"] = torch.zeros_like(nu["opacity"])
     return g.replace(opacity=new_op), AdamState(mu=mu, nu=nu, count=opt_state.count)
 
+
+# the largest opacity the Mip reset stores (its logit is finite)
+MIP_RESET_MAX = 1.0 - 2.0 ** -20
+
+
+def reset_opacity_mip(g: Gaussians, opt_state: AdamState, max_opacity: float = 0.01
+                      ) -> Tuple[Gaussians, AdamState]:
+    """Mip-Splatting's reset: the filter-compensated opacity clamped at
+    max_opacity, divided by the compensation, stored as a logit, for live
+    rows; the opacity moments zeroed. Where the compensation is below
+    max_opacity the quotient passes 1 (the published code then stores a
+    NaN): it is clamped at MIP_RESET_MAX."""
+    live = g.live_mask[:, None]
+    # the 3D filter's compensation as the published code computes it
+    s2 = torch.exp(g.scaling) ** 2
+    coef = torch.sqrt(s2.prod(dim=1) / (s2 + (g.filter_3d ** 2)[:, None]).prod(dim=1))[:, None]
+    new = torch.clamp(torch.sigmoid(g.opacity) * coef, max=_f32(max_opacity)) / coef
+    new_op = torch.where(live, inverse_sigmoid(torch.clamp(new, max=MIP_RESET_MAX)), g.opacity)
+    mu, nu = dict(opt_state.mu), dict(opt_state.nu)
+    mu["opacity"] = torch.zeros_like(mu["opacity"])
+    nu["opacity"] = torch.zeros_like(nu["opacity"])
+    return g.replace(opacity=new_op), AdamState(mu=mu, nu=nu, count=opt_state.count)

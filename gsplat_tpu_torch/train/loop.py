@@ -14,6 +14,22 @@ densify/prune with capacity growth; the opacity reset; the checkpoint, last.
 A KeyboardInterrupt saves an interrupt checkpoint; checkpoints carry the
 loop's state for an exact resume.
 
+With --mip_splatting (ModelParams.mip_splatting) the loop trains a
+Mip-Splatting model (Yu et al. 2024) as the published code does: the 3D
+filter (render/filter3d.py) over the training cameras at the start (after a
+resume too), after every densify pass (after its capacity growth), and
+every 100 iterations past densify_until_iter but the last 100; the opacity
+reset clamps the filter-compensated opacity (densify.reset_opacity_mip).
+The projection applies both filters wherever the model carries its filter.
+A mesh of more than one device refuses the switch at the start.
+
+Under a profiler each iteration is a root span ("iteration") whose
+children are the densify pass ("densify": counters cloned, split, pruned,
+live), the capacity growth ("grow": counter capacity) and the 3D filter
+pass ("filter3d": counters rows, cameras); the train step is a root of its
+own ("step"). The loop does not wait on the host for its next view: the
+cameras' images are on the training device.
+
 Where the port differs from the reference:
 - randomness: the reference's JAX key chain (PRNGKey(0), split for each
   draw) is one torch.Generator on the training device, seeded 0; the
@@ -73,10 +89,11 @@ from gsplat_tpu_torch.dist.mesh import backend_banner, make_mesh, world_info
 from gsplat_tpu_torch.dist.spmd import make_sharded_spmd_train_step, make_spmd_train_step
 from gsplat_tpu_torch.network_gui import (GuiRequest, NetworkGUIServer, camera_from_request,
                                           image_to_bytes)
+from gsplat_tpu_torch.render.filter3d import camera_table, filter3d
 from gsplat_tpu_torch.render.render import render
 from gsplat_tpu_torch.scene import Scene
 from gsplat_tpu_torch.train.densify import (add_densification_stats, densify_and_prune,
-                                            reset_opacity, split_noise)
+                                            reset_opacity, reset_opacity_mip, split_noise)
 from gsplat_tpu_torch.train.loss import photometric_loss, psnr
 from gsplat_tpu_torch.train.metrics import MetricsLogger
 from gsplat_tpu_torch.train.optim import (AdamState, adam_update, current_lrs, init_adam_state,
@@ -248,6 +265,18 @@ def eval_step(g: Gaussians, cam: Camera, bg: torch.Tensor, *, lambda_dssim: floa
             psnr(out.image, cam.image), out.n_dropped)
 
 
+def mip_filter(g: Gaussians, cams: Tuple[torch.Tensor, float]) -> Gaussians:
+    """g with its Mip-Splatting 3D filter computed over the cameras
+    (`cams`: filter3d.camera_table's table and focal), a span "filter3d"
+    under a profiler."""
+    table, focal = cams
+    with spans.span("filter3d") as sp:
+        f, _ = filter3d(g.xyz, g.n_live.to(torch.int32), table, focal)
+        if sp is not None:
+            sp.count(rows=g.n_live, cameras=table.shape[0])
+    return g.replace(filter_3d=f)
+
+
 def draw_background(gen: torch.Generator) -> torch.Tensor:
     """A random background, (3,) float32 uniform in [0, 1) on the
     generator's device (the reference's jax.random.uniform(key, (3,)))."""
@@ -300,6 +329,9 @@ def train(
     rank runs it (the same seeds give the same camera picks and draws);
     rank 0 alone prints and writes."""
     resolve_device(model.data_device)
+    if model.mip_splatting and (mesh.data_axis, mesh.tile_axis) != (1, 1):
+        raise ValueError("--mip_splatting runs on one device (data_axis 1, tile_axis 1): "
+                         "the mesh's steps and gathers do not carry the 3D filter")
     mesh = resolve_mesh(mesh)
     world, rank = world_info()
     is_main = rank == 0
@@ -334,6 +366,9 @@ def train(
 
     train_cams = scene.get_train_cameras()
     w, h = train_cams[0].width, train_cams[0].height
+    mip_cams = camera_table(train_cams, device) if model.mip_splatting else None
+    if mip_cams is not None:
+        g = mip_filter(g, mip_cams)
     pair_budget = mesh.pair_budget
     if "pair_budget" in resume_extras:  # resume with the grown budget, no re-ramp
         pair_budget = max(pair_budget, int(resume_extras["pair_budget"]))
@@ -475,285 +510,303 @@ def train(
 
     try:
         for iteration in range(first_iter + 1, opt.iterations + 1):
-            # network-GUI round trips at the loop's top (upstream train.py's
-            # order): render every pending viewer camera; while the viewer
-            # has paused training (train=False, keep_alive), keep serving
-            # until it resumes or disconnects
-            if viewer is not None and viewer.url:
-                while True:
-                    req = viewer.poll()
-                    if req is None:
-                        if viewer.training_paused and viewer.sibr_connected:
-                            time.sleep(0.02)
-                            continue
-                        viewer.training_paused = False
-                        break
-                    _serve_gui_request(viewer, req, g, bg, mesh, pair_budget)
-                    viewer.training_paused = not req.do_training and req.keep_alive
+            with spans.span("iteration", root=True):
+                # network-GUI round trips at the loop's top (upstream train.py's
+                # order): render every pending viewer camera; while the viewer
+                # has paused training (train=False, keep_alive), keep serving
+                # until it resumes or disconnects
+                if viewer is not None and viewer.url:
+                    while True:
+                        req = viewer.poll()
+                        if req is None:
+                            if viewer.training_paused and viewer.sibr_connected:
+                                time.sleep(0.02)
+                                continue
+                            viewer.training_paused = False
+                            break
+                        _serve_gui_request(viewer, req, g, bg, mesh, pair_budget)
+                        viewer.training_paused = not req.do_training and req.keep_alive
 
-            # SH degree annealing every 1000 iters (reference gaussian_model.cpp:307-313)
-            if iteration % 1000 == 0:
-                g = g.oneup_sh_degree()
+                # SH degree annealing every 1000 iters (reference gaussian_model.cpp:307-313)
+                if iteration % 1000 == 0:
+                    g = g.oneup_sh_degree()
 
-            picks = []
-            for _ in range(mesh.data_axis if spmd else 1):
-                if not cam_order:
-                    cam_order = list(range(len(train_cams)))
-                    random.shuffle(cam_order)
-                picks.append(train_cams[cam_order.pop()])
-            cam = picks[0]
+                picks = []
+                for _ in range(mesh.data_axis if spmd else 1):
+                    if not cam_order:
+                        cam_order = list(range(len(train_cams)))
+                        random.shuffle(cam_order)
+                    picks.append(train_cams[cam_order.pop()])
+                cam = picks[0]
 
-            step_bg = draw_background(rng) if opt.random_background else bg
+                step_bg = draw_background(rng) if opt.random_background else bg
 
-            # --profile_dir: a torch.profiler trace of steady-state steps
-            if mesh.profile_dir and is_main and iteration == 20:
-                from torch.profiler import ProfilerActivity, profile
+                # --profile_dir: a torch.profiler trace of steady-state steps
+                if mesh.profile_dir and is_main and iteration == 20:
+                    from torch.profiler import ProfilerActivity, profile
 
-                acts = [ProfilerActivity.CPU] + (
-                    [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-                profiler = profile(activities=acts)
-                profiler.start()
-            if profiler is not None and iteration == 20 + mesh.profile_steps:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                profiler.stop()
-                Path(mesh.profile_dir).mkdir(parents=True, exist_ok=True)
-                trace = Path(mesh.profile_dir) / f"trace_iter20-{iteration}.json"
-                profiler.export_chrome_trace(str(trace))
-                profiler = None
-                printer.print(f"profiler trace written to {trace}")
+                    acts = [ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                    profiler = profile(activities=acts)
+                    profiler.start()
+                if profiler is not None and iteration == 20 + mesh.profile_steps:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    profiler.stop()
+                    Path(mesh.profile_dir).mkdir(parents=True, exist_ok=True)
+                    trace = Path(mesh.profile_dir) / f"trace_iter20-{iteration}.json"
+                    profiler.export_chrome_trace(str(trace))
+                    profiler = None
+                    printer.print(f"profiler trace written to {trace}")
 
-            (g, opt_state, loss, ema_loss, n_pairs, n_dropped, n_culled,
-             n_contrib, n_sat) = train_step(
-                g, opt_state, global_camera_batch(dev_mesh, picks) if spmd else cam,
-                step_bg, iteration, ema_loss)
+                (g, opt_state, loss, ema_loss, n_pairs, n_dropped, n_culled,
+                 n_contrib, n_sat) = train_step(
+                    g, opt_state, global_camera_batch(dev_mesh, picks) if spmd else cam,
+                    step_bg, iteration, ema_loss)
 
-            # --- adaptive pair budget: every gather/sort in the render
-            # pipeline scales with the budget. Checked every 10 iters only:
-            # scalar readbacks are host syncs; a short lag of dropped-pair
-            # steps is harmless ---
-            if iteration % 10 != 0:
-                pass
-            elif sat_budget is not None and int(n_sat) > sat_budget:
-                # sat overflow zeroed this step's gradients (and truncated the
-                # image); regrow first: its excess also lands in n_dropped,
-                # so a premature pair-budget doubling must not fire on it
-                sat_budget = max(sat_budget * 2,
-                                 -(-int(n_sat) // mesh.chunk_size) * mesh.chunk_size)
-                printer.print(
-                    f"[iter {iteration}] sat budget -> {sat_budget} "
-                    f"({int(n_sat)} survivor slots; recompiling)"
-                )
-                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                low_sat_streak = 0
-            elif (kept_budget is not None and int(n_dropped) > 0
-                  and int(n_pairs) < pair_budget):
-                # n_pairs < pair_budget means the expansion fit: the drop is
-                # a KEPT-budget overflow (grad_ok zeroed this step); regrow to
-                # the observed demand (kept + dropped) with 20% headroom
-                kept_budget = min(pair_budget, max(
-                    kept_budget * 2,
-                    -(-int((kept_budget + int(n_dropped)) * 1.2)
-                      // mesh.chunk_size) * mesh.chunk_size,
-                ))
-                printer.print(
-                    f"[iter {iteration}] kept budget -> {kept_budget} "
-                    f"({int(n_dropped)} kept pairs dropped; recompiling)"
-                )
-                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                low_kept_streak = 0
-            elif int(n_dropped) > 0:
-                pair_budget *= 2
-                if contrib_budget is not None:
-                    contrib_budget *= 2
-                printer.print(
-                    f"[iter {iteration}] pair budget {pair_budget // 2} -> {pair_budget} "
-                    f"({int(n_dropped)} pairs dropped; recompiling)"
-                )
-                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                low_usage_streak = 0
-            elif contrib_budget is not None and int(n_contrib) > contrib_budget:
-                # contrib overflow zeroed this step's gradients (the image is
-                # still exact); regrow the compaction budget
-                contrib_budget = max(contrib_budget * 2, -(-int(n_contrib) // 512) * 512)
-                printer.print(
-                    f"[iter {iteration}] contrib budget -> {contrib_budget} "
-                    f"({int(n_contrib)} compacted rows; recompiling)"
-                )
-                train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                low_contrib_streak = 0
-            elif int(n_pairs) * 4 < pair_budget and pair_budget > mesh.pair_budget:
-                low_usage_streak += 1
-                if low_usage_streak >= 20:  # 20 checks x 10 iters = 200 iterations
-                    pair_budget //= 2
-                    printer.print(f"[iter {iteration}] pair budget shrink -> {pair_budget}")
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                            kept_budget)
+                # --- adaptive pair budget: every gather/sort in the render
+                # pipeline scales with the budget. Checked every 10 iters only:
+                # scalar readbacks are host syncs; a short lag of dropped-pair
+                # steps is harmless ---
+                if iteration % 10 != 0:
+                    pass
+                elif sat_budget is not None and int(n_sat) > sat_budget:
+                    # sat overflow zeroed this step's gradients (and truncated the
+                    # image); regrow first: its excess also lands in n_dropped,
+                    # so a premature pair-budget doubling must not fire on it
+                    sat_budget = max(sat_budget * 2,
+                                     -(-int(n_sat) // mesh.chunk_size) * mesh.chunk_size)
+                    printer.print(
+                        f"[iter {iteration}] sat budget -> {sat_budget} "
+                        f"({int(n_sat)} survivor slots; recompiling)"
+                    )
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                    low_sat_streak = 0
+                elif (kept_budget is not None and int(n_dropped) > 0
+                      and int(n_pairs) < pair_budget):
+                    # n_pairs < pair_budget means the expansion fit: the drop is
+                    # a KEPT-budget overflow (grad_ok zeroed this step); regrow to
+                    # the observed demand (kept + dropped) with 20% headroom
+                    kept_budget = min(pair_budget, max(
+                        kept_budget * 2,
+                        -(-int((kept_budget + int(n_dropped)) * 1.2)
+                          // mesh.chunk_size) * mesh.chunk_size,
+                    ))
+                    printer.print(
+                        f"[iter {iteration}] kept budget -> {kept_budget} "
+                        f"({int(n_dropped)} kept pairs dropped; recompiling)"
+                    )
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
+                    low_kept_streak = 0
+                elif int(n_dropped) > 0:
+                    pair_budget *= 2
+                    if contrib_budget is not None:
+                        contrib_budget *= 2
+                    printer.print(
+                        f"[iter {iteration}] pair budget {pair_budget // 2} -> {pair_budget} "
+                        f"({int(n_dropped)} pairs dropped; recompiling)"
+                    )
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
                     low_usage_streak = 0
-            else:
-                low_usage_streak = 0
-                if (contrib_budget is not None
-                        and int(n_contrib) * 4 < contrib_budget
-                        and contrib_budget > (contrib_budget0(mesh, pair_budget) or 512)):
-                    low_contrib_streak += 1
-                    if low_contrib_streak >= 20:
-                        contrib_budget //= 2
-                        printer.print(
-                            f"[iter {iteration}] contrib budget shrink -> {contrib_budget}")
-                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                kept_budget)
-                        low_contrib_streak = 0
-                elif (contrib_auto and contrib_budget is None
-                        and int(n_contrib) * 2 < (kept_budget or pair_budget)):
-                    # AUTO contrib (contrib_frac=-1): bootstrap the backward
-                    # compaction once the composited-pair count is provably
-                    # far below the worst-case d-table
-                    low_contrib_streak += 1
-                    if low_contrib_streak >= 20:
-                        contrib_budget = max(-(-int(int(n_contrib) * 1.5) // 512) * 512, 512)
-                        printer.print(
-                            f"[iter {iteration}] contrib budget fit -> "
-                            f"{contrib_budget} ({int(n_contrib)} composited "
-                            f"rows; recompiling)"
-                        )
-                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                kept_budget)
-                        low_contrib_streak = 0
-                else:
+                elif contrib_budget is not None and int(n_contrib) > contrib_budget:
+                    # contrib overflow zeroed this step's gradients (the image is
+                    # still exact); regrow the compaction budget
+                    contrib_budget = max(contrib_budget * 2, -(-int(n_contrib) // 512) * 512)
+                    printer.print(
+                        f"[iter {iteration}] contrib budget -> {contrib_budget} "
+                        f"({int(n_contrib)} compacted rows; recompiling)"
+                    )
+                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
                     low_contrib_streak = 0
-                if (sat_budget is not None
-                        and int(n_sat) * 4 < sat_budget
-                        and sat_budget > (sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
-                    low_sat_streak += 1
-                    if low_sat_streak >= 20:
-                        sat_budget //= 2
-                        printer.print(f"[iter {iteration}] sat budget shrink -> {sat_budget}")
+                elif int(n_pairs) * 4 < pair_budget and pair_budget > mesh.pair_budget:
+                    low_usage_streak += 1
+                    if low_usage_streak >= 20:  # 20 checks x 10 iters = 200 iterations
+                        pair_budget //= 2
+                        printer.print(f"[iter {iteration}] pair budget shrink -> {pair_budget}")
+                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                kept_budget)
+                        low_usage_streak = 0
+                else:
+                    low_usage_streak = 0
+                    if (contrib_budget is not None
+                            and int(n_contrib) * 4 < contrib_budget
+                            and contrib_budget > (contrib_budget0(mesh, pair_budget) or 512)):
+                        low_contrib_streak += 1
+                        if low_contrib_streak >= 20:
+                            contrib_budget //= 2
+                            printer.print(
+                                f"[iter {iteration}] contrib budget shrink -> {contrib_budget}")
+                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                    kept_budget)
+                            low_contrib_streak = 0
+                    elif (contrib_auto and contrib_budget is None
+                            and int(n_contrib) * 2 < (kept_budget or pair_budget)):
+                        # AUTO contrib (contrib_frac=-1): bootstrap the backward
+                        # compaction once the composited-pair count is provably
+                        # far below the worst-case d-table
+                        low_contrib_streak += 1
+                        if low_contrib_streak >= 20:
+                            contrib_budget = max(-(-int(int(n_contrib) * 1.5) // 512) * 512, 512)
+                            printer.print(
+                                f"[iter {iteration}] contrib budget fit -> "
+                                f"{contrib_budget} ({int(n_contrib)} composited "
+                                f"rows; recompiling)"
+                            )
+                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                    kept_budget)
+                            low_contrib_streak = 0
+                    else:
+                        low_contrib_streak = 0
+                    if (sat_budget is not None
+                            and int(n_sat) * 4 < sat_budget
+                            and sat_budget > (sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
+                        low_sat_streak += 1
+                        if low_sat_streak >= 20:
+                            sat_budget //= 2
+                            printer.print(f"[iter {iteration}] sat budget shrink -> {sat_budget}")
+                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                    kept_budget)
+                            low_sat_streak = 0
+                    else:
+                        low_sat_streak = 0
+                    # AUTO kept budget (kept_frac=-1): bootstrap/refit the
+                    # post-sort split from the kept-pair telemetry
+                    fitted_kept = max(int(n_pairs) - int(n_culled), 0)
+                    kept_target = -(-int(fitted_kept * 1.5 + mesh.chunk_size)
+                                    // mesh.chunk_size) * mesh.chunk_size
+                    if kept_auto and kept_target * 2 < (kept_budget or pair_budget):
+                        low_kept_streak += 1
+                        if low_kept_streak >= 20:
+                            kept_budget = max(kept_target, mesh.chunk_size)
+                            printer.print(
+                                f"[iter {iteration}] kept budget fit -> "
+                                f"{kept_budget} (kept {fitted_kept} of "
+                                f"{int(n_pairs)} pairs; recompiling)"
+                            )
+                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
+                                                    kept_budget)
+                            low_kept_streak = 0
+                    else:
+                        low_kept_streak = 0
+
+                # --- AUTO saturation cull (default, sat_frac=-1): probe n_sat
+                # every sat_probe_interval iters while off; enable once the cull
+                # would provably cut the post-sort pair stages >= 2x. The cull is
+                # bit-identical by construction, so enabling it mid-run changes
+                # nothing but step time. Guards: the sat key packing needs gid <
+                # 2^24 and an exact int32 quanta cumsum (kept < 2^25). ---
+                if (sat_auto and sat_budget is None
+                        and iteration % mesh.sat_probe_interval == 0
+                        and pair_budget < (1 << 25) and capacity(g) < (1 << 24)):
+                    ns_p, np_p, nc_p, nd_p = _agree(dev_mesh, device, *_sat_probe(
+                        to_host_view(g), cam, bg, tile_size=mesh.tile_size,
+                        chunk=mesh.chunk_size, pair_budget=pair_budget))
+                    kept_live = int(np_p) - int(nc_p)
+                    if int(nd_p) == 0 and 2 * int(ns_p) < kept_live:
+                        sat_budget = (-(-int(ns_p) // mesh.chunk_size) * mesh.chunk_size
+                                      + mesh.chunk_size)
+                        printer.print(
+                            f"[iter {iteration}] saturation cull AUTO-ENABLED: "
+                            f"{int(ns_p)} survivor slots of {kept_live} kept pairs "
+                            f"(sat budget {sat_budget}; recompiling)"
+                        )
                         train_step = build_step(pair_budget, contrib_budget, sat_budget,
                                                 kept_budget)
                         low_sat_streak = 0
-                else:
-                    low_sat_streak = 0
-                # AUTO kept budget (kept_frac=-1): bootstrap/refit the
-                # post-sort split from the kept-pair telemetry
-                fitted_kept = max(int(n_pairs) - int(n_culled), 0)
-                kept_target = -(-int(fitted_kept * 1.5 + mesh.chunk_size)
-                                // mesh.chunk_size) * mesh.chunk_size
-                if kept_auto and kept_target * 2 < (kept_budget or pair_budget):
-                    low_kept_streak += 1
-                    if low_kept_streak >= 20:
-                        kept_budget = max(kept_target, mesh.chunk_size)
-                        printer.print(
-                            f"[iter {iteration}] kept budget fit -> "
-                            f"{kept_budget} (kept {fitted_kept} of "
-                            f"{int(n_pairs)} pairs; recompiling)"
-                        )
-                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                kept_budget)
-                        low_kept_streak = 0
-                else:
-                    low_kept_streak = 0
 
-            # --- AUTO saturation cull (default, sat_frac=-1): probe n_sat
-            # every sat_probe_interval iters while off; enable once the cull
-            # would provably cut the post-sort pair stages >= 2x. The cull is
-            # bit-identical by construction, so enabling it mid-run changes
-            # nothing but step time. Guards: the sat key packing needs gid <
-            # 2^24 and an exact int32 quanta cumsum (kept < 2^25). ---
-            if (sat_auto and sat_budget is None
-                    and iteration % mesh.sat_probe_interval == 0
-                    and pair_budget < (1 << 25) and capacity(g) < (1 << 24)):
-                ns_p, np_p, nc_p, nd_p = _agree(dev_mesh, device, *_sat_probe(
-                    to_host_view(g), cam, bg, tile_size=mesh.tile_size,
-                    chunk=mesh.chunk_size, pair_budget=pair_budget))
-                kept_live = int(np_p) - int(nc_p)
-                if int(nd_p) == 0 and 2 * int(ns_p) < kept_live:
-                    sat_budget = (-(-int(ns_p) // mesh.chunk_size) * mesh.chunk_size
-                                  + mesh.chunk_size)
+                # --- logging / eval / save before densify/reset (upstream order:
+                # an eval or save on an opacity-reset iteration sees the
+                # pre-reset model) ---
+                if iteration % progress_every == 0:
+                    rate = progress_every / max(time.time() - t0, 1e-9)
+                    t0 = time.time()
+                    if viewer is not None and viewer.url:
+                        viewer.publish(eval_render(
+                            g, train_cams[0], bg, tile_size=mesh.tile_size,
+                            chunk=mesh.chunk_size, pair_budget=pair_budget))
                     printer.print(
-                        f"[iter {iteration}] saturation cull AUTO-ENABLED: "
-                        f"{int(ns_p)} survivor slots of {kept_live} kept pairs "
-                        f"(sat budget {sat_budget}; recompiling)"
+                        f"iter {iteration}/{opt.iterations} loss {float(loss):.5f} "
+                        f"ema {float(ema_loss):.5f} gaussians {int(g.n_live)} "
+                        f"({rate:.1f} it/s)"
                     )
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                            kept_budget)
-                    low_sat_streak = 0
-
-            # --- logging / eval / save before densify/reset (upstream order:
-            # an eval or save on an opacity-reset iteration sees the
-            # pre-reset model) ---
-            if iteration % progress_every == 0:
-                rate = progress_every / max(time.time() - t0, 1e-9)
-                t0 = time.time()
-                if viewer is not None and viewer.url:
-                    viewer.publish(eval_render(
-                        g, train_cams[0], bg, tile_size=mesh.tile_size,
-                        chunk=mesh.chunk_size, pair_budget=pair_budget))
-                printer.print(
-                    f"iter {iteration}/{opt.iterations} loss {float(loss):.5f} "
-                    f"ema {float(ema_loss):.5f} gaussians {int(g.n_live)} "
-                    f"({rate:.1f} it/s)"
-                )
-                metrics.log(
-                    iteration, loss=float(loss), ema_loss=float(ema_loss),
-                    n_gaussians=int(g.n_live), capacity=capacity(g),
-                    it_per_s=round(rate, 2), n_dropped_pairs=int(n_dropped),
-                    n_culled_pairs=int(n_culled),
-                    n_contrib_pairs=int(n_contrib),
-                    n_sat_pairs=int(n_sat),
-                )
-
-            if iteration in other.test_iterations:
-                g_eval = to_host_view(g)       # a collective: every rank gathers
-                if is_main:
-                    evaluate(scene, g_eval, bg, opt, mesh, printer, iteration, metrics,
-                             pair_budget=pair_budget)
-                del g_eval
-
-            if iteration in other.save_iterations:
-                g_save = to_host_view(g)
-                if is_main:
-                    printer.print(f"[iter {iteration}] saving point cloud")
-                    save_ply(Path(out_dir) / "point_cloud" / f"iteration_{iteration}"
-                             / "point_cloud.ply", g_save)
-                del g_save
-
-            # --- densification (upstream schedule; reference params.h:50-91) ---
-            if iteration < opt.densify_until_iter:
-                if (iteration > opt.densify_from_iter
-                        and iteration % opt.densification_interval == 0):
-                    max_screen = 20.0 if iteration > opt.opacity_reset_interval else 0.0
-                    g, opt_state = to_host_view(g, opt_state)
-                    g, opt_state, dropped = densify_and_prune(
-                        g, opt_state, split_noise(rng, g.capacity),
-                        max_grad=opt.densify_grad_threshold, min_opacity=0.005,
-                        extent=scene.cameras_extent, max_screen_size=max_screen,
-                        percent_dense=opt.percent_dense,
+                    metrics.log(
+                        iteration, loss=float(loss), ema_loss=float(ema_loss),
+                        n_gaussians=int(g.n_live), capacity=capacity(g),
+                        it_per_s=round(rate, 2), n_dropped_pairs=int(n_dropped),
+                        n_culled_pairs=int(n_culled),
+                        n_contrib_pairs=int(n_contrib),
+                        n_sat_pairs=int(n_sat),
                     )
-                    dropped, n_live = _agree(dev_mesh, device, dropped, g.n_live)
-                    if dropped > 0 or n_live > 0.9 * g.capacity:
-                        new_cap = g.capacity * 2
-                        printer.print(
-                            f"[iter {iteration}] growing capacity {g.capacity} -> {new_cap} "
-                            f"(live {n_live}, dropped {dropped})"
-                        )
-                        g = grow_capacity(g, new_cap)
-                        opt_state = _grow_opt_state(opt_state, new_cap)
-                    g, opt_state = to_step_view(g, opt_state)
 
-                if iteration % opt.opacity_reset_interval == 0 or (
-                    model.white_background and iteration == opt.densify_from_iter
-                ):
-                    g, opt_state = to_step_view(*reset_opacity(*to_host_view(g, opt_state)))
+                if iteration in other.test_iterations:
+                    g_eval = to_host_view(g)       # a collective: every rank gathers
+                    if is_main:
+                        evaluate(scene, g_eval, bg, opt, mesh, printer, iteration, metrics,
+                                 pair_budget=pair_budget)
+                    del g_eval
 
-            # checkpoint LAST within the iteration (after densify and the
-            # optimizer step) so a resume at iteration + 1 is exact
-            if iteration in other.checkpoint_iterations:
-                g_ck, opt_ck = to_host_view(g, opt_state)   # gathered on every rank
-                if is_main:
-                    printer.print(f"[iter {iteration}] saving checkpoint")
-                    save_checkpoint(Path(out_dir) / f"chkpnt{iteration}.npz", g_ck, opt_ck,
-                                    iteration, extra=loop_extras())
-                del g_ck, opt_ck
+                if iteration in other.save_iterations:
+                    g_save = to_host_view(g)
+                    if is_main:
+                        printer.print(f"[iter {iteration}] saving point cloud")
+                        save_ply(Path(out_dir) / "point_cloud" / f"iteration_{iteration}"
+                                 / "point_cloud.ply", g_save)
+                    del g_save
+
+                # --- densification (upstream schedule; reference params.h:50-91) ---
+                if iteration < opt.densify_until_iter:
+                    if (iteration > opt.densify_from_iter
+                            and iteration % opt.densification_interval == 0):
+                        max_screen = 20.0 if iteration > opt.opacity_reset_interval else 0.0
+                        g, opt_state = to_host_view(g, opt_state)
+                        with spans.span("densify") as sp:
+                            stats = {} if sp is not None else None
+                            g, opt_state, dropped = densify_and_prune(
+                                g, opt_state, split_noise(rng, g.capacity),
+                                max_grad=opt.densify_grad_threshold, min_opacity=0.005,
+                                extent=scene.cameras_extent, max_screen_size=max_screen,
+                                percent_dense=opt.percent_dense,
+                                **({} if stats is None else {"stats": stats}),
+                            )
+                            if sp is not None:
+                                sp.count(**stats, live=g.n_live)
+                        dropped, n_live = _agree(dev_mesh, device, dropped, g.n_live)
+                        if dropped > 0 or n_live > 0.9 * g.capacity:
+                            new_cap = g.capacity * 2
+                            printer.print(
+                                f"[iter {iteration}] growing capacity {g.capacity} -> {new_cap} "
+                                f"(live {n_live}, dropped {dropped})"
+                            )
+                            with spans.span("grow") as sp:
+                                g = grow_capacity(g, new_cap)
+                                opt_state = _grow_opt_state(opt_state, new_cap)
+                                if sp is not None:
+                                    sp.count(capacity=new_cap)
+                        if mip_cams is not None:
+                            g = mip_filter(g, mip_cams)
+                        g, opt_state = to_step_view(g, opt_state)
+
+                    if iteration % opt.opacity_reset_interval == 0 or (
+                        model.white_background and iteration == opt.densify_from_iter
+                    ):
+                        reset = reset_opacity_mip if mip_cams is not None else reset_opacity
+                        g, opt_state = to_step_view(*reset(*to_host_view(g, opt_state)))
+                elif (mip_cams is not None and iteration % 100 == 0
+                        and iteration > opt.densify_until_iter
+                        and iteration < opt.iterations - 100):
+                    # the published schedule: the filter follows the centres after
+                    # densification ends, but not in the last 100 iterations
+                    g = mip_filter(g, mip_cams)
+
+                # checkpoint LAST within the iteration (after densify and the
+                # optimizer step) so a resume at iteration + 1 is exact
+                if iteration in other.checkpoint_iterations:
+                    g_ck, opt_ck = to_host_view(g, opt_state)   # gathered on every rank
+                    if is_main:
+                        printer.print(f"[iter {iteration}] saving checkpoint")
+                        save_checkpoint(Path(out_dir) / f"chkpnt{iteration}.npz", g_ck, opt_ck,
+                                        iteration, extra=loop_extras())
+                    del g_ck, opt_ck
 
     except KeyboardInterrupt:
         # interrupt recovery: persist an emergency checkpoint so

@@ -2,9 +2,11 @@
 checkpoints, PLY export, metrics stream, train() and CLI on the CPU, against
 the JAX package's on the same inputs.
 
-- config: every default field by field (ModelParams.data_device is the
-  one stated difference: "cuda"), the reference flags and short aliases
-  parsed to equal values, print_params and cfg_args text equal.
+- config: every default field by field (two stated differences:
+  ModelParams.data_device, "cuda", and the port's own
+  ModelParams.mip_splatting, off), the reference flags and short aliases
+  parsed to equal values, print_params and cfg_args text equal with the
+  switch off; with it on, the same text with its one line or entry added.
 - checkpoints: a round trip, and cross-loading in both directions (the
   arrays equal); save_ply bytes equal; metrics.jsonl and the TensorBoard
   event files byte-equal with the clock fixed.
@@ -67,8 +69,10 @@ MARGIN = 1e-3
 @pytest.mark.parametrize("group", GROUPS)
 def test_config_defaults_match_jax(group):
     got, want = getattr(config, group)(), getattr(jconfig, group)()
-    names = [f.name for f in dataclasses.fields(got)]
+    names = [f.name for f in dataclasses.fields(got) if f.name not in config.PORT_ONLY]
     assert names == [f.name for f in dataclasses.fields(want)]
+    if group == "ModelParams":
+        assert got.mip_splatting is False     # the port's own field, off by default
     for name in names:
         if (group, name) == ("ModelParams", "data_device"):
             assert got.data_device == "cuda"   # the one stated difference
@@ -91,13 +95,20 @@ ALIASES = ["-s", "/data/garden", "-m", "/out", "-r", "2", "-i", "images_4", "-w"
            "--shard_gaussians", "--data_device", "cpu", "--detect_anomaly"]
 
 
-@pytest.mark.parametrize("argv", [REFERENCE_FLAGS, ALIASES], ids=["reference", "aliases"])
+MIP = ALIASES + ["--mip_splatting"]
+
+
+@pytest.mark.parametrize("argv", [REFERENCE_FLAGS, ALIASES, MIP],
+                         ids=["reference", "aliases", "mip"])
 def test_cli_flags_parse_as_jax(argv):
-    got, want = config.parse_parameters(argv), jconfig.parse_parameters(argv)
+    got = config.parse_parameters(argv)
+    want = jconfig.parse_parameters([a for a in argv if a != "--mip_splatting"])
     for g, w in zip(got, want):
         gd, wd = dataclasses.asdict(g), dataclasses.asdict(w)
         if "data_device" in gd and "--data_device" not in argv:
             assert gd.pop("data_device") == "cuda" and wd.pop("data_device") == "tpu"
+        if "mip_splatting" in gd:
+            assert gd.pop("mip_splatting") == (argv is MIP)
         assert gd == wd, type(g).__name__
     model, opt, pipe, other, mesh = got
     if argv is REFERENCE_FLAGS:
@@ -116,6 +127,14 @@ def test_print_params_and_cfg_args_match_jax():
     model = config.ModelParams(source_path="/x", data_device="tpu")
     assert config.cfg_args_string(model) == jconfig.cfg_args_string(
         jconfig.ModelParams(source_path="/x"))
+    # the switch on: its one line after eval's, its one entry last
+    mip = config.parse_parameters(MIP)[0]
+    jtext = jconfig.print_params(jconfig.parse_parameters(argv)[0])
+    assert config.print_params(mip) == jtext.replace("  eval: false\n",
+                                                      "  eval: false\n  mip_splatting: true\n")
+    assert config.cfg_args_string(dataclasses.replace(model, mip_splatting=True)) == \
+        jconfig.cfg_args_string(jconfig.ModelParams(source_path="/x"))[:-1] + \
+        ", mip_splatting=True)"
 
 
 # ---------------------------------------------------------------- checkpoints
