@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (gsplat_tpu_torch): the forward render
 path and the training step at 1M Gaussians and 1920x1080 on one NVIDIA GPU,
-at tile 32, at tile 64 and at tile 128, on the f32 and the packed pair table
-(attr_pack), serving_bench, the render CLI over a dataset on disk, the
+at tile 32, at tile 64 and at tile 128, on the f32 and the packed attribute
+rows read through the sorted gids (attr_pack), serving_bench, the render CLI over a dataset on disk, the
 training CLI over a JPEG dataset, the
 training CLI (from a checkpoint of the 1M scene, and 1000 iterations of the
 repo's quality-proxy scene held to the JAX package's record), a 200-view
@@ -33,7 +33,8 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
   expand_pairs   the kernel against its plain version at the fitted pair
            budget: keys and gids bit-equal
   composite_fwd  the kernel against its plain version on the view's real
-           pair table: tiles within 2e-5 abs, nproc equal in every tile but
+           rows and sorted gids (each pair's row read through its gid):
+           tiles within 2e-5 abs, nproc equal in every tile but
            those whose max T at the deciding chunk boundary lies within 1e-6
            relative of T_EPS (the two multiply in another order); the share
            of kept pairs past each tile's saturation exit; the share of
@@ -41,9 +42,9 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            bound recounted from it (12 operations for a pair-pixel whose
            power lies below its pair's threshold, 31 for the rest)
   composite_fwd packed, composite_bwd packed  the two checks above on the
-           view's packed (P, 8) pair table (rgb and opacity as bf16 pairs),
+           view's packed (N+1, 8) rows (rgb and opacity as bf16 pairs),
            their bounds recounted for 32-byte rows
-  composite_bwd  the kernel against its plain version on the same table and
+  composite_bwd  the kernel against its plain version on the same rows and
            the cotangent of the real photometric loss, at the contrib budget
            bench.py fits: keys bit-equal, each d column within 1e-4 of its
            max; the same bits from two launches; the share of (warp, pair)
@@ -702,15 +703,24 @@ def phase_expand(s, label, g, cam, pair_fit, kept):
                 bytes=nbytes, ops=ops, library_ms=None)
 
 
+def gid_rows(p, b, kept, pack=False):
+    """What K2 and K3 read for a binned view: (the (N+1, 16) attribute rows
+    with their gid column, packed (N+1, 8) with `pack`; the kept prefix of
+    the sorted gids)."""
+    from gsplat_tpu_torch.render.render import _attr_rows, _gid_rows
+
+    return _gid_rows(_attr_rows(p), pack), b.gid_s[:kept]
+
+
 def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None, pack=False):
-    """K2 against its plain version on the camera's pair table (the packed
-    (P, 8) table with `pack`): tiles within ATOL, nproc equal but where a
-    tile's transmittance sits at T_EPS -> (gathered, tile starts, tile
-    counts, tw, K2's tiles, K2's nproc, max |tiles diff|)."""
+    """K2 against its plain version on the camera's rows read through its
+    sorted gids (the packed (N+1, 8) rows with `pack`): tiles within ATOL,
+    nproc equal but where a tile's transmittance sits at T_EPS -> (rows,
+    gids, tile starts, tile counts, tw, K2's tiles, K2's nproc, max |tiles
+    diff|)."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
-    from gsplat_tpu_torch.render.render import pair_table
 
     w, h = size or (W, H)
     tw, _ = tile_grid(w, h, tile)
@@ -718,25 +728,25 @@ def composite_check(s, label, g, cam, pair_fit, kept, tile=TILE, size=None, pack
     b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
-    gathered = pair_table(p, b, kept, attr_pack=pack)
+    rows, gid = gid_rows(p, b, kept, pack)
     del p
     ts, tc = b.tile_start, b.tile_count
-    tiles_k, np_k = raster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=tile,
-                                         chunk=CHUNK)
-    err = fwd_against_plain(s, f"{label} packed" if pack else label, gathered, ts, tc, tw,
-                            tile, tiles_k, np_k)
-    return gathered, ts, tc, tw, tiles_k, np_k, err
+    tiles_k, np_k = raster.composite_fwd(rows, ts, tc, tw=tw, tile_size=tile, chunk=CHUNK,
+                                         gid=gid)
+    err = fwd_against_plain(s, f"{label} packed" if pack else label, rows, ts, tc, tw,
+                            tile, tiles_k, np_k, gid)
+    return rows, gid, ts, tc, tw, tiles_k, np_k, err
 
 
-def fwd_against_plain(s, label, gathered, ts, tc, tw, tile, tiles_k, np_k):
-    """K2's output (tiles_k, np_k) on a pair table against its plain
-    version's: tiles within ATOL, nproc equal but where a tile's
+def fwd_against_plain(s, label, rows, ts, tc, tw, tile, tiles_k, np_k, gid):
+    """K2's output (tiles_k, np_k) on rows read through the gids against its
+    plain version's: tiles within ATOL, nproc equal but where a tile's
     transmittance sits at T_EPS (the two multiply in another order) -> max
     |tiles diff|."""
     from gsplat_tpu_torch.render import raster
 
-    tiles_p, np_p = raster.composite_fwd_plain(gathered, ts, tc, tw=tw,
-                                               tile_size=tile, chunk=CHUNK)
+    tiles_p, np_p = raster.composite_fwd_plain(rows, ts, tc, tw=tw, tile_size=tile,
+                                               chunk=CHUNK, gid=gid)
     torch.cuda.synchronize()
     allowed = torch.zeros(ts.shape[0], dtype=torch.bool, device=ts.device)
     bad_tiles = torch.nonzero(np_k != np_p).squeeze(1).tolist()
@@ -746,8 +756,8 @@ def fwd_against_plain(s, label, gathered, ts, tc, tw, tile, tiles_k, np_k):
         m = min(int(np_k[t]), int(np_p[t]))
         counts = torch.zeros_like(tc)
         counts[t] = max(min(int(tc[t]), m * CHUNK - int(ts[t]) % CHUNK), 0)
-        replay, _ = raster.composite_fwd_plain(gathered, ts, counts, tw=tw,
-                                               tile_size=tile, chunk=CHUNK)
+        replay, _ = raster.composite_fwd_plain(rows, ts, counts, tw=tw, tile_size=tile,
+                                               chunk=CHUNK, gid=gid)
         t_max = float(replay[t, 3].max())
         near = abs(t_max - raster.T_EPS) <= 1e-6 * raster.T_EPS
         print(f"  {label} tile {t}: nproc kernel {int(np_k[t])} plain {int(np_p[t])}, "
@@ -758,7 +768,7 @@ def fwd_against_plain(s, label, gathered, ts, tc, tw, tile, tiles_k, np_k):
     err = float(diff[~allowed].max()) if bool((~allowed).any()) else 0.0
     n_bad = len(bad_tiles) - int(allowed.sum())
     s.check(err <= ATOL, f"{label} composite_fwd vs plain on {ts.shape[0]} tiles, "
-            f"{gathered.shape[0]} pairs: max |tiles diff| {err:.3g} (tol {ATOL})")
+            f"{gid.shape[0]} pairs: max |tiles diff| {err:.3g} (tol {ATOL})")
     s.check(n_bad == 0, f"{label} composite_fwd nproc: {len(bad_tiles)} tiles differ, "
             f"{n_bad} of them away from the T_EPS boundary (want 0)")
     return err
@@ -766,28 +776,29 @@ def fwd_against_plain(s, label, gathered, ts, tc, tw, tile, tiles_k, np_k):
 
 def phase_composite(s, label, g, cam, pair_fit, kept, tile=TILE, pack=False):
     """K2's check (composite_check), time, plain time, skip census and
-    bound on the view's pair table (packed with `pack`: the row "composite_fwd
-    packed", 32 bytes a pair) -> its kernels row."""
+    bound on the view's rows read through its gids (packed with `pack`: the
+    row "composite_fwd packed", 32 bytes a pair) -> its kernels row."""
     from gsplat_tpu_torch.render import raster
 
-    gathered, ts, tc, tw, tiles_k, np_k, err = composite_check(s, label, g, cam, pair_fit,
-                                                                kept, tile, pack=pack)
+    rows, gid, ts, tc, tw, tiles_k, np_k, err = composite_check(s, label, g, cam, pair_fit,
+                                                                 kept, tile, pack=pack)
     # a tile's pairs past its exit: those beyond its nproc-th chunk of the
     # chunk-aligned grid its segment is swept on
     tc64 = tc.to(torch.int64)
     past = torch.minimum(torch.clamp(ts.to(torch.int64) % CHUNK + tc64
                                      - np_k.to(torch.int64) * CHUNK, min=0), tc64)
     n_past, n_kept = int(past.sum()), int(tc64.sum())
-    ms = device_ms(lambda: raster.composite_fwd(gathered, ts, tc, tw=tw,
-                                                tile_size=tile, chunk=CHUNK), 10)
+    ms = device_ms(lambda: raster.composite_fwd(rows, ts, tc, tw=tw, tile_size=tile,
+                                                chunk=CHUNK, gid=gid), 10)
     plain_ms, _ = wall_ms(lambda: raster.composite_fwd_plain(
-        gathered, ts, tc, tw=tw, tile_size=tile, chunk=CHUNK))
+        rows, ts, tc, tw=tw, tile_size=tile, chunk=CHUNK, gid=gid))
     chunks = int(np_k.sum())
-    census = skip_census(raster.unpack_rows(gathered) if pack else gathered, ts, tc, np_k,
+    census = skip_census(raster.unpack_rows(rows) if pack else rows, gid, ts, tc, np_k,
                          tw, tile)
-    # each composited pair's row read once (64 bytes, 32 packed), the
-    # tiles written once, the tile tables and nproc
-    nbytes = chunks * CHUNK * gathered.shape[1] * 4 + tiles_k.numel() * 4 + 3 * ts.numel() * 4
+    # each composited pair's gid and row read once (4 + 64 bytes, 4 + 32
+    # packed), the tiles written once, the tile tables and nproc
+    nbytes = (chunks * CHUNK * (rows.shape[1] * 4 + 4) + tiles_k.numel() * 4
+              + 3 * ts.numel() * 4)
     name = "composite_fwd packed" if pack else "composite_fwd"
     print(f"  {label} {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms; "
           f"{chunks} chunks composited, {census[0] / 1e9:.3f} G pair-pixel evaluations; "
@@ -817,17 +828,17 @@ def skip_bound(what, census, ops_per_eval):
     return ops
 
 
-def skip_census(gathered, ts, tc, nproc, tw, tile=TILE):
+def skip_census(rows, gid, ts, tc, nproc, tw, tile=TILE):
     """What composite_fwd's (or composite_bwd's) inputs need, counted with
     plain torch over each tile's first nproc chunks (those composited, or
     replayed): the (pair, pixel) evaluations, those whose power lies below
     the pair's skip threshold (alpha 0 there whatever follows), the (warp,
     pair) groups at the kernels' pixel layout, and those whose every pixel
     lies below (the groups the kernels skip) -> (evals, below, groups,
-    skipped)."""
+    skipped). Pair i's row is rows[gid[i]]."""
     from gsplat_tpu_torch.render import raster
 
-    dev = gathered.device
+    dev = rows.device
     npix, h = tile * tile, tile // 2
     blocks = raster.fwd_pixel_blocks(tile).to(dev)
     assert bool((blocks >= 0).all())
@@ -848,7 +859,7 @@ def skip_census(gathered, ts, tc, nproc, tw, tile=TILE):
         for b0 in range(0, live.numel(), step):
             t = live[b0:b0 + step]
             idx = j * CHUNK + lane
-            a = gathered[astart[t, None] + idx]                 # (B, chunk, 16)
+            a = rows[gid[astart[t, None] + idx]]                # (B, chunk, 16)
             ok = (idx >= head[t, None]) & (idx < (head + count)[t, None])
             ox = ((t % tw) * tile + h).to(torch.float32)
             oy = ((t // tw) * tile + h).to(torch.float32)
@@ -871,14 +882,14 @@ def fit_contrib(n_contrib):
     return -(-int(n_contrib) // 512) * 512 + 512
 
 
-def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE, size=None):
-    """The forward tiles of a pair table and the cotangent of the real
-    photometric loss (bg 0) with respect to them."""
+def loss_cotangent(rows, gid, ts, tc, tw, th, target, tile=TILE, size=None):
+    """The forward tiles of rows read through the gids and the cotangent of
+    the real photometric loss (bg 0) with respect to them."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.train.loss import photometric_loss
 
-    tiles, nproc = raster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=tile,
-                                        chunk=CHUNK)
+    tiles, nproc = raster.composite_fwd(rows, ts, tc, tw=tw, tile_size=tile, chunk=CHUNK,
+                                        gid=gid)
     with torch.enable_grad():
         t = tiles.clone().requires_grad_()
         rgb, _ = raster.untile_image(t, tw, th, tile, *(size or (W, H)))
@@ -889,13 +900,13 @@ def loss_cotangent(gathered, ts, tc, tw, th, target, tile=TILE, size=None):
 def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=None,
                    pack=False):
     """composite_bwd against its plain version at the bench view's fitted
-    budgets, on its real pair table (packed with `pack`: the row
-    "composite_bwd packed") and loss cotangent -> (K3 row, the kernel's
-    d-table)."""
+    budgets, on its real rows read through its gids (packed with `pack`:
+    the row "composite_bwd packed") and loss cotangent -> (K3 row, the
+    kernel's d-table)."""
     from gsplat_tpu_torch.render import raster
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
-    from gsplat_tpu_torch.render.render import contrib_regions, pair_table
+    from gsplat_tpu_torch.render.render import contrib_regions
 
     name = "composite_bwd packed" if pack else "composite_bwd"
     s.phase(f"kernel {name} ({label})")
@@ -905,14 +916,14 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=Non
     b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
                       tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
                       cull_conic=p.conic, cull_opacity=p.opacity, kept_budget=kept)
-    gathered = pair_table(p, b, kept, attr_pack=pack)
+    rows, gid = gid_rows(p, b, kept, pack)
     del p
     ts, tc = b.tile_start, b.tile_count
-    tiles, nproc, g_tiles = loss_cotangent(gathered, ts, tc, tw, th, target, tile, size)
+    tiles, nproc, g_tiles = loss_cotangent(rows, gid, ts, tc, tw, th, target, tile, size)
     contrib = fit_contrib(int(nproc.sum()) * CHUNK)
     np_c, comp_start, overflow = contrib_regions(nproc, CHUNK, contrib)
-    args = (gathered, ts, tc, comp_start, np_c, tiles, g_tiles)
-    kw = dict(tw=tw, tile_size=tile, chunk=CHUNK, p_out=contrib)
+    args = (rows, ts, tc, comp_start, np_c, tiles, g_tiles)
+    kw = dict(tw=tw, tile_size=tile, chunk=CHUNK, p_out=contrib, gid=gid)
     d_k = raster.composite_bwd(*args, **kw)
     d_k2 = raster.composite_bwd(*args, **kw)
     d_p = raster.composite_bwd_plain(*args, **kw)
@@ -927,20 +938,20 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=Non
             + " ".join(f"{r:.2g}" for r in rel) + f" (tol {BWD_RTOL} of each column's max)")
     s.check(torch.equal(d_k, d_k2), f"{label} {name}: two launches give the same bits")
     del d_k2, d_p
-    rows = int(np_c.sum()) * CHUNK
-    census = skip_census(raster.unpack_rows(gathered) if pack else gathered, ts, tc, np_c,
+    replayed = int(np_c.sum()) * CHUNK
+    census = skip_census(raster.unpack_rows(rows) if pack else rows, gid, ts, tc, np_c,
                          tw, tile)
     # the wrapper fills a fresh d-table before each launch: its time, less
     # that of the fill alone, is the kernel's
     ms = (device_ms(lambda: raster.composite_bwd(*args, **kw), 20)
           - device_ms(lambda: raster.d_table_prefilled(contrib, d_k.device), 20))
     plain_ms, _ = wall_ms(lambda: raster.composite_bwd_plain(*args, **kw))
-    # the replayed pair rows read once (64 bytes, 32 packed), tiles and
-    # cotangent read once, the four tile tables, the replayed 64-byte
-    # d-rows written once
-    nbytes = (rows * gathered.shape[1] * 4 + 2 * tiles.numel() * 4 + 4 * ts.numel() * 4
-              + rows * 64)
-    print(f"  {label} {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms; {rows} rows "
+    # the replayed pairs' gids and rows read once (4 + 64 bytes, 4 + 32
+    # packed), tiles and cotangent read once, the four tile tables, the
+    # replayed 64-byte d-rows written once
+    nbytes = (replayed * (rows.shape[1] * 4 + 4) + 2 * tiles.numel() * 4
+              + 4 * ts.numel() * 4 + replayed * 64)
+    print(f"  {label} {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms; {replayed} rows "
           f"replayed, {census[0] / 1e9:.3f} G pair-pixel evaluations; {nbytes / 1e6:.1f} MB "
           f"moved ({nbytes / PEAK_BYTES * 1e3:.4f} ms at 3.35 TB/s)", flush=True)
     ops = skip_bound(f"{label} {name}", census, K3_OPS_PER_EVAL)
@@ -1969,7 +1980,7 @@ def serve_packed(s, label, g, cam_args, budget, zero, counts):
     def capture(attrs, ts, tc, **k):
         out = real(attrs, ts, tc, **k)
         if attrs.shape[1] == raster.PACKED_IN_DIM:
-            k2_inputs.setdefault(cull, (attrs, ts, tc, out))
+            k2_inputs.setdefault(cull, (attrs, k["gid"], ts, tc, out))
         return out
 
     for cull, kw in (("off", base), ("on", culled)):
@@ -2012,9 +2023,9 @@ def serve_packed(s, label, g, cam_args, budget, zero, counts):
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counts.items()}
     tw = tile_grid(W, H, TILE)[0]
-    for cull, (attrs, ts, tc, (tiles_k, np_k)) in k2_inputs.items():
+    for cull, (attrs, gid, ts, tc, (tiles_k, np_k)) in k2_inputs.items():
         fwd_against_plain(s, f"{label} cull {cull} packed", attrs, ts, tc, tw, TILE, tiles_k,
-                          np_k)
+                          np_k, gid)
     del k2_inputs
     total = renders[False] + renders[True]
     s.check(launches["expand_pairs"] >= total and launches["composite_fwd"] >= renders[False]
@@ -3301,8 +3312,6 @@ def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None,
     `project` the projection's kernels (project_check, the state's own SH
     degree) -> ({kernel: max |err|}, K1's live slots at each budget, the
     pairs whose gid is a live row at or above 2^20)."""
-    from gsplat_tpu_torch.render import raster
-
     errs = {}
     if project:
         errs["project_fwd"], errs["project_bwd"] = project_check(
@@ -3317,7 +3326,7 @@ def loop_kernel_checks(s, label, g, cam, target, budgets, tile=TILE, size=None,
         errs["expand_pairs"] = max(errs.get("expand_pairs", 0.0), float(err))
     k = S if kept is None else kept
     res = composite_check(s, label, g, cam, S, k, tile, size)
-    gid = res[0][:, raster.KEY_COL]
+    gid = res[1]
     high = int(((gid >= (1 << 20)) & (gid < g.capacity)).sum())    # the null gid is capacity
     errs["composite_fwd"] = res[-1]
     del res, gid

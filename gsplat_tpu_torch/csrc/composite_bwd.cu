@@ -3,9 +3,11 @@
 //
 // Replaces the TPU kernel gsplat_tpu/render/raster_pallas.py::_bwd_kernel
 // (through _bwd_call / composite_bwd). Block t replays exactly nproc[t]
-// chunks of its tile's chunk-aligned segment, front to back, as the forward
-// composited them (rows outside [tile_start, +tile_count) masked to opacity
-// 0), and writes one 16-float d-row per swept pair into the tile's own
+// chunks of its tile's chunk-aligned segment of the sorted gids, front to
+// back, as the forward composited them (pairs outside [tile_start,
+// +tile_count) masked to opacity 0), pair i's attributes read as row gid[i]
+// of the (N+1, 16) per-Gaussian rows (composite_fwd.cu: no pair table), and
+// writes one 16-float d-row per swept pair into the tile's own
 // region of the d-table: row comp_start[t] + j*chunk + k holds
 //   d mean x | d mean y | d conic a, b, c | d r, g, b | d opacity |
 //   the pair's gid as an f32 key (KEY_INVALID on masked rows) | 0 x 6.
@@ -55,7 +57,9 @@
 //     order is fixed, so two launches give the same bits.
 //   - staging one chunk ahead, as in composite_fwd: every thread copies its
 //     rows of the next chunk with 16-byte cp.async while the block replays
-//     this one. nproc is known, so there is no exit vote.
+//     this one, each row through its pair's gid, the gids a chunk further
+//     ahead (composite_fwd.cu's prefetch_rows). nproc is known, so there is
+//     no exit vote.
 //   - two blocks an SM (96 registers, no spills). Capped at 80 for a third
 //     block the kernel ran ~9% faster but spilled, with the per-pixel
 //     cotangent terms in registers and with them in shared memory alike.
@@ -83,8 +87,8 @@
 // the power, of alpha and of the alpha >= 1/255 decision (the forward's
 // decisions); only the pixel sums use explicit fused multiply-adds.
 //
-// The packed table (PACK, the port of _bwd_kernel's packed branch,
-// raster_pallas.py:687-697): composite_fwd's (P, 8) rows of 32 bytes, two
+// The packed rows (PACK, the port of _bwd_kernel's packed branch,
+// raster_pallas.py:687-697): composite_fwd's (N+1, 8) rows of 32 bytes, two
 // 16-byte copies a pair, rgb and opacity unpacked from their bf16 halves in
 // staging, the key from column 7. The replay runs on the unpacked values
 // and the d-rows are the same 16 columns: the gradient passes straight
@@ -98,8 +102,8 @@
 
 namespace {
 
-constexpr int kAttrDim = 16;   // a d-table row (and a 16-column pair table row)
-// a pair table row: 16 floats, or 8 packed
+constexpr int kAttrDim = 16;   // a d-table row (and a 16-column attribute row)
+// an attribute row: 16 floats, or 8 packed
 template <bool PACK>
 constexpr int kRowDim = PACK ? 8 : 16;
 // the 16-byte pieces of a row the kernel copies: columns 0-11, or 0-7 packed
@@ -135,12 +139,38 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Chunk jj's rows, staged by gid into raw, chunk jj + 1's gids (jj + 1 <
+// np) into the other half of the two chunks of gids that follow raw:
+// composite_fwd.cu's prefetch_rows.
+template <bool PACK, bool FIRST>
+__device__ __forceinline__ void prefetch_rows(const float* __restrict__ attrs,
+                                              const int32_t* __restrict__ gid, float4* raw,
+                                              int astart, int jj, int np, int chunk) {
+  int32_t* s_gid = reinterpret_cast<int32_t*>(raw + kRowVecs<PACK> * chunk);
+  const int32_t* cur = s_gid + (jj & 1) * chunk;
+  int32_t* nxt = s_gid + ((jj + 1) & 1) * chunk;
+  const int next = astart + (jj + 1) * chunk;
+  for (int k = threadIdx.x; k < chunk; k += blockDim.x) {
+    const int32_t g = FIRST ? __ldg(gid + astart + k) : cur[k];
+    const float* a = attrs + static_cast<size_t>(g) * kRowDim<PACK>;
+#pragma unroll
+    for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
+    if (jj + 1 < np) cp_async4(nxt + k, gid + next + k);
+  }
+  cp_async_commit();
 }
 
 // Copied row k's columns 0-11 in the 16-column layout (composite_fwd.cu's
@@ -224,13 +254,14 @@ __device__ __forceinline__ void load_cotangent(
 }
 
 #define COMPOSITE_BWD_ARGS                                                              \
-  const float *__restrict__ attrs, const int32_t *__restrict__ tile_start,             \
+  const float *__restrict__ attrs, const int32_t *__restrict__ gid,                     \
+      const int32_t *__restrict__ tile_start,                                           \
       const int32_t *__restrict__ tile_count, const int32_t *__restrict__ comp_start,  \
       const int32_t *__restrict__ nproc, const float *__restrict__ tiles,              \
       const float *__restrict__ g_tiles, int tw, int tile_size, int chunk, int p_out,  \
       float alpha_min, float alpha_max, float key_invalid, float *__restrict__ d_out
 #define COMPOSITE_BWD_PASS                                                            \
-  attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size, chunk, \
+  attrs, gid, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size, chunk, \
       p_out, alpha_min, alpha_max, key_invalid, d_out
 
 // The replay of tile blockIdx.x's nproc chunks over the pixels of map
@@ -240,18 +271,18 @@ __device__ __forceinline__ void load_cotangent(
 // registers, and the cotangent terms are reloaded for each pass of a
 // round. WIN: one unit of composite_bwd_windows, whose basis sums are
 // taken about its window's centre and whose d-values add to the d-rows the
-// units before it wrote (`first`: none has). PACK: the packed pair table.
+// units before it wrote (`first`: none has). PACK: the packed rows.
 template <int NPASS, bool PACK, bool WIN>
 __device__ __forceinline__ void replay_tile(COMPOSITE_BWD_ARGS, int np, int wx, int wy,
                                             int ww, int wh, int v0, bool first) {
   // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, a, c);
   // then the raw rows of the next chunk (columns 0-11, or 0-7 packed),
-  // copied in flight; then two buffers of [warp][pair of the round][sum]
-  // partials; then the keys
+  // copied in flight; then two chunks of gids (prefetch_rows); then two
+  // buffers of [warp][pair of the round][sum] partials; then the keys
   extern __shared__ float4 sm[];
   float4* raw = sm + 3 * chunk;
   const int nwarps = blockDim.x >> 5;
-  float* s_part = reinterpret_cast<float*>(sm + (3 + kRowVecs<PACK>) * chunk);
+  float* s_part = reinterpret_cast<float*>(sm + (3 + kRowVecs<PACK>) * chunk) + 2 * chunk;
   const int part_size = nwarps * kSub * kSums;
   float* s_key = s_part + 2 * part_size;
 
@@ -299,18 +330,7 @@ __device__ __forceinline__ void replay_tile(COMPOSITE_BWD_ARGS, int np, int wx, 
   if (NPASS == 1)
     load_cotangent<Index>(res, gt, ts, x0[0], y0[0], valid[0], gr, gg, gb, total_cg, tf_gt);
 
-  // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
-  // each chunk: it reads only rows it copied itself, so the copy needs no
-  // barrier of its own
-  auto prefetch = [&](int jj) {
-    for (int k = tid; k < chunk; k += blockDim.x) {
-      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
-#pragma unroll
-      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
-    }
-    cp_async_commit();
-  };
-  prefetch(0);
+  prefetch_rows<PACK, true>(attrs, gid, raw, astart, 0, np, chunk);
 
   float t_run[NPASS][4], prefix[NPASS][4];
 #pragma unroll
@@ -334,7 +354,7 @@ __device__ __forceinline__ void replay_tile(COMPOSITE_BWD_ARGS, int np, int wx, 
       s_key[k] = ok ? a2.y : key_invalid;
     }
     // the next chunk's rows travel while this one is replayed
-    if (j + 1 < np) prefetch(j + 1);
+    if (j + 1 < np) prefetch_rows<PACK, false>(attrs, gid, raw, astart, j + 1, np, chunk);
     __syncthreads();
 
     float t_exc[NPASS][4], csum[NPASS][4];
@@ -523,14 +543,17 @@ int map_threads(int tile_size) {
 
 template <int NPASS, bool PACK>
 cudaError_t launch(int num_tiles, int threads, int chunk, cudaStream_t stream,
-                   const float* attrs, const int32_t* tile_start,
+                   const float* attrs, const int32_t* gid, const int32_t* tile_start,
                    const int32_t* tile_count, const int32_t* comp_start,
                    const int32_t* nproc, const float* tiles, const float* g_tiles,
                    int tw, int tile_size, int p_out, float alpha_min, float alpha_max,
                    float key_invalid, float* d_out) {
+  // the staged records, the copy of the next chunk, two chunks of gids,
+  // the partials and the keys
   const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk) +
                       sizeof(float) * (2 * static_cast<size_t>(threads / 32) * kSub * kSums +
-                                       static_cast<size_t>(chunk));
+                                       static_cast<size_t>(chunk)) +
+                      2 * sizeof(int32_t) * static_cast<size_t>(chunk);
   void (*kernel)(COMPOSITE_BWD_ARGS);
   if constexpr (NPASS == 0) {
     kernel = composite_bwd_windows<PACK>;
@@ -543,36 +566,36 @@ cudaError_t launch(int num_tiles, int threads, int chunk, cudaStream_t stream,
     if (e != cudaSuccess) return e;
   }
   kernel<<<num_tiles, threads, smem, stream>>>(
-      attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size,
+      attrs, gid, tile_start, tile_count, comp_start, nproc, tiles, g_tiles, tw, tile_size,
       chunk, p_out, alpha_min, alpha_max, key_invalid, d_out);
   return cudaGetLastError();
 }
 
 template <bool PACK>
 cudaError_t launch_passes(int npass, int num_tiles, int threads, int chunk, cudaStream_t st,
-                          const float* a, const int32_t* s, const int32_t* c,
-                          const int32_t* cs, const int32_t* np, const float* r,
+                          const float* a, const int32_t* gi, const int32_t* s,
+                          const int32_t* c, const int32_t* cs, const int32_t* np, const float* r,
                           const float* g, int tw, int tile_size, int p_out, float alpha_min,
                           float alpha_max, float key_invalid, float* d) {
   switch (npass) {
-    case 0: return launch<0, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+    case 0: return launch<0, PACK>(num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g, tw,
                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
-    case 1: return launch<1, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+    case 1: return launch<1, PACK>(num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g, tw,
                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
-    case 2: return launch<2, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+    case 2: return launch<2, PACK>(num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g, tw,
                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
-    case 3: return launch<3, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+    case 3: return launch<3, PACK>(num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g, tw,
                                    tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
-    default: return launch<4, PACK>(num_tiles, threads, chunk, st, a, s, c, cs, np, r, g, tw,
+    default: return launch<4, PACK>(num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g, tw,
                                     tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
   }
 }
 
 }  // namespace
 
-// attrs: (P, 16) float32, or (P, 8) packed where `packed` is nonzero,
-// 16-byte aligned, with P a multiple of chunk and every segment inside it;
-// tile_start, tile_count, comp_start, nproc:
+// attrs: (N+1, 16) float32 per-Gaussian rows, or (N+1, 8) packed where
+// `packed` is nonzero, 16-byte aligned; gid: (P,) int32 sorted gids, each in
+// [0, N], with P a multiple of chunk and every segment inside it; tile_start, tile_count, comp_start, nproc:
 // (num_tiles,) int32; tiles, g_tiles: (num_tiles, 4, tile_size^2) float32;
 // d_out: (p_out, 16) float32, prefilled by the caller. tile_size >= 1: up
 // to kWin in pixel passes (1 to 4), above it in windows. alpha_min,
@@ -580,7 +603,7 @@ cudaError_t launch_passes(int npass, int num_tiles, int threads, int chunk, cuda
 // KEY_INVALID. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a tile below 1).
 extern "C" int composite_bwd_launch(
-    const void* attrs, const void* tile_start, const void* tile_count,
+    const void* attrs, const void* gid, const void* tile_start, const void* tile_count,
     const void* comp_start, const void* nproc, const void* tiles,
     const void* g_tiles, int num_tiles, int tw, int tile_size, int chunk,
     int p_out, int packed, float alpha_min, float alpha_max, float key_invalid,
@@ -593,6 +616,7 @@ extern "C" int composite_bwd_launch(
   const int npass = tile_size <= kWin ? (virt + kMaxThreads - 1) / kMaxThreads : 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(attrs);
+  const auto* gi = static_cast<const int32_t*>(gid);
   const auto* s = static_cast<const int32_t*>(tile_start);
   const auto* c = static_cast<const int32_t*>(tile_count);
   const auto* cs = static_cast<const int32_t*>(comp_start);
@@ -601,9 +625,9 @@ extern "C" int composite_bwd_launch(
   const auto* g = static_cast<const float*>(g_tiles);
   auto* d = static_cast<float*>(d_out);
   const cudaError_t e =
-      packed ? launch_passes<true>(npass, num_tiles, threads, chunk, st, a, s, c, cs, np, r, g,
+      packed ? launch_passes<true>(npass, num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g,
                                    tw, tile_size, p_out, alpha_min, alpha_max, key_invalid, d)
-             : launch_passes<false>(npass, num_tiles, threads, chunk, st, a, s, c, cs, np, r, g,
+             : launch_passes<false>(npass, num_tiles, threads, chunk, st, a, gi, s, c, cs, np, r, g,
                                     tw, tile_size, p_out, alpha_min, alpha_max, key_invalid, d);
   return static_cast<int>(e);
 }

@@ -4,10 +4,13 @@
 //
 // Replaces the TPU kernel gsplat_tpu/render/raster_pallas.py::_fwd_kernel
 // (through _fwd_call / composite_fwd). A tile's pairs are the segment
-// [tile_start, +tile_count) of the (P, 16) gathered attribute table (row
-// layout of render/raster.py: mean xy, conic abc, rgb, opacity, gid). The
-// block walks the chunk-aligned superset of the segment: chunk j covers rows
-// [align_down(tile_start) + j*chunk, +chunk), and rows outside the segment
+// [tile_start, +tile_count) of the (P,) sorted gids; pair i's attributes are
+// row gid[i] of the (N+1, 16) per-Gaussian rows (row layout of
+// render/raster.py: mean xy, conic abc, rgb, opacity, gid; row N the inert
+// null Gaussian the padding slots point at). No (P, 16) pair table is
+// gathered: the kernel stages each pair's row through its gid. The block
+// walks the chunk-aligned superset of the segment: chunk j covers pairs
+// [align_down(tile_start) + j*chunk, +chunk), and pairs outside the segment
 // (neighbour tiles' pairs) are masked to opacity 0. Per pixel:
 // alpha = min(op * exp(power <= 0 ? power : -100), 0.99), zeroed below 1/255,
 // composited front to back. Before each chunk the block stops if every one of
@@ -46,6 +49,11 @@
 //   - staging one chunk ahead: every thread copies its rows of the next
 //     chunk with 16-byte cp.async while the block composites this one, and
 //     turns them into the packed pair records after the next exit vote.
+//     The row of a pair is found through its gid, a dependent load: the
+//     gids travel one chunk further ahead (a 4-byte cp.async of chunk j + 2's
+//     gids beside chunk j + 1's rows, into shared memory), so issuing a
+//     chunk's row copies never waits on its gids (only the first chunk's
+//     gids are read from global memory before their copies).
 //   - tiles from 33 to 64 run in pixel passes: the block stays at 256
 //     threads, and in pass p thread tid takes the 2x2 block of map thread
 //     p * 256 + tid (at tile 64 a pass is a 64x16 band). The kernel is a
@@ -68,8 +76,8 @@
 // runs beside it, w = (alpha * t_exc) * T, T *= t_chunk after the chunk: the
 // plain PyTorch version's association.
 //
-// The packed table (PACK, the port of _fwd_kernel's packed branch,
-// raster_pallas.py:572-577): (P, 8) rows of 32 bytes, mean xy, conic abc,
+// The packed rows (PACK, the port of _fwd_kernel's packed branch,
+// raster_pallas.py:572-577): (N+1, 8) rows of 32 bytes, mean xy, conic abc,
 // (bf16(r) << 16) | bf16(g), (bf16(b) << 16) | bf16(opacity), the gid. A
 // pair's copy is two 16-byte loads instead of three; staging unpacks rgb and
 // opacity with a mask and a shift (a bf16 is the top half of an f32) into
@@ -82,7 +90,7 @@
 
 namespace {
 
-// a pair table row: 16 floats, or 8 packed (see the note above)
+// an attribute row: 16 floats, or 8 packed (see the note above)
 template <bool PACK>
 constexpr int kRowDim = PACK ? 8 : 16;
 // the 16-byte pieces of a row the kernel copies: columns 0-11, or 0-7 packed
@@ -119,12 +127,47 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
 }
 
+// 4-byte asynchronous copy (the .ca form: .cg copies 16 bytes only)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Chunk jj's rows, staged by gid into raw (columns 0-11, or 0-7 packed): a
+// thread copies the rows of pairs k = tid, tid + blockDim.x, ... of the
+// chunk, pair k's row being attrs[gid[astart + jj * chunk + k]], and later
+// stages only rows it copied itself, so the copy needs no barrier of its
+// own. Chunk jj's gids are in half jj & 1 of the two chunks of gids that
+// follow raw in shared memory, copied there with chunk jj - 1's rows (with
+// FIRST, for chunk 0, they are read from global memory); chunk jj + 1's
+// gids, where there is such a chunk (jj + 1 < nch), go into the other half
+// in the same copy group, by the thread that will read them.
+template <bool PACK, bool FIRST>
+__device__ __forceinline__ void prefetch_rows(const float* __restrict__ attrs,
+                                              const int32_t* __restrict__ gid, float4* raw,
+                                              int astart, int jj, int nch, int chunk) {
+  int32_t* s_gid = reinterpret_cast<int32_t*>(raw + kRowVecs<PACK> * chunk);
+  const int32_t* cur = s_gid + (jj & 1) * chunk;
+  int32_t* nxt = s_gid + ((jj + 1) & 1) * chunk;
+  // an int offset: a 64-bit pointer here made a pixel-pass kernel, at its
+  // 128-register cap, spill
+  const int next = astart + (jj + 1) * chunk;
+  for (int k = threadIdx.x; k < chunk; k += blockDim.x) {
+    const int32_t g = FIRST ? __ldg(gid + astart + k) : cur[k];
+    const float* a = attrs + static_cast<size_t>(g) * kRowDim<PACK>;
+#pragma unroll
+    for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
+    if (jj + 1 < nch) cp_async4(nxt + k, gid + next + k);
+  }
+  cp_async_commit();
 }
 
 // Copied row k's columns 0-11 in the 16-column layout: (mx, my, a, b),
@@ -204,16 +247,17 @@ __device__ __forceinline__ void composite_chunk(const float4* sm, int chunk, flo
 }
 
 // One tile in NPASS pixel passes (the two kernels below), on a 16-column
-// or a packed table.
+// or packed rows.
 template <int NPASS, bool PACK>
 __device__ __forceinline__ void composite_tile(
-    const float* __restrict__ attrs, const int32_t* __restrict__ tile_start,
+    const float* __restrict__ attrs, const int32_t* __restrict__ gid,
+    const int32_t* __restrict__ tile_start,
     const int32_t* __restrict__ tile_count, int tw, int tile_size, int chunk,
     float alpha_min, float alpha_max, float t_eps, float* __restrict__ tiles,
     int32_t* __restrict__ nproc) {
   // per pair: (mx - ox, my - oy, 0.5 a, b), (0.5 c, r, g, b), (op, thr, -, -);
   // then the raw rows of the next chunk (columns 0-11, or 0-7 packed),
-  // copied in flight
+  // copied in flight; then two chunks of gids (prefetch_rows)
   extern __shared__ float4 sm[];
   float4* raw = sm + 3 * chunk;
 
@@ -246,18 +290,7 @@ __device__ __forceinline__ void composite_tile(
       valid[p][q] = v < nblk && x0[p] + (q & 1) < ts && y0[p] + (q >> 1) < ts;
   }
 
-  // a thread copies, and later stages, rows tid, tid + blockDim.x, ... of
-  // each chunk: it reads only rows it copied itself, so the copy needs no
-  // barrier of its own
-  auto prefetch = [&](int jj) {
-    for (int k = tid; k < chunk; k += blockDim.x) {
-      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
-#pragma unroll
-      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
-    }
-    cp_async_commit();
-  };
-  if (nch > 0) prefetch(0);
+  if (nch > 0) prefetch_rows<PACK, true>(attrs, gid, raw, astart, 0, nch, chunk);
 
   float T[NPASS][4], cr[NPASS][4], cg[NPASS][4], cb[NPASS][4];
 #pragma unroll
@@ -278,7 +311,7 @@ __device__ __forceinline__ void composite_tile(
     cp_async_wait_all();
     stage_chunk<PACK>(sm, raw, j, chunk, head, count, ox, oy, alpha_min);
     // the next chunk's rows travel while this one is composited
-    if (j + 1 < nch) prefetch(j + 1);
+    if (j + 1 < nch) prefetch_rows<PACK, false>(attrs, gid, raw, astart, j + 1, nch, chunk);
     __syncthreads();
 #pragma unroll
     for (int p = 0; p < NPASS; ++p)
@@ -302,16 +335,16 @@ __device__ __forceinline__ void composite_tile(
   if (tid == 0) nproc[t] = j;
 }
 
-#define COMPOSITE_FWD_ARGS                                                       \
-  const float *__restrict__ attrs, const int32_t *__restrict__ tile_start,      \
-      const int32_t *__restrict__ tile_count, int tw, int tile_size, int chunk, \
-      float alpha_min, float alpha_max, float t_eps, float *__restrict__ tiles, \
-      int32_t *__restrict__ nproc
+#define COMPOSITE_FWD_ARGS                                                          \
+  const float *__restrict__ attrs, const int32_t *__restrict__ gid,                \
+      const int32_t *__restrict__ tile_start, const int32_t *__restrict__ tile_count, \
+      int tw, int tile_size, int chunk, float alpha_min, float alpha_max, float t_eps, \
+      float *__restrict__ tiles, int32_t *__restrict__ nproc
 
 // tiles up to 32: one pass
 template <bool PACK>
 __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(COMPOSITE_FWD_ARGS) {
-  composite_tile<1, PACK>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
+  composite_tile<1, PACK>(attrs, gid, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
                           alpha_max, t_eps, tiles, nproc);
 }
 
@@ -319,8 +352,8 @@ __global__ void __launch_bounds__(kMaxThreads) composite_fwd_kernel(COMPOSITE_FW
 // blocks share an SM (one block alone waits on its latencies, ~25% slower)
 template <int NPASS, bool PACK>
 __global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_passes(COMPOSITE_FWD_ARGS) {
-  composite_tile<NPASS, PACK>(attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min,
-                              alpha_max, t_eps, tiles, nproc);
+  composite_tile<NPASS, PACK>(attrs, gid, tile_start, tile_count, tw, tile_size, chunk,
+                              alpha_min, alpha_max, t_eps, tiles, nproc);
 }
 
 // Tiles above kWin, in windows (see the note at the top). Window (wx, wy)
@@ -346,15 +379,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_windows(COMPOSIT
   const float oy = static_cast<float>((t / tw) * ts + h);
   float* out = tiles + static_cast<size_t>(t) * 4 * npix;
 
-  auto prefetch = [&](int jj) {
-    for (int k = tid; k < chunk; k += blockDim.x) {
-      const float* a = attrs + static_cast<size_t>(astart + jj * chunk + k) * kRowDim<PACK>;
-#pragma unroll
-      for (int v = 0; v < kRowVecs<PACK>; ++v) cp_async16(raw + kRowVecs<PACK> * k + v, a + 4 * v);
-    }
-    cp_async_commit();
-  };
-  if (nch > 0) prefetch(0);
+  if (nch > 0) prefetch_rows<PACK, true>(attrs, gid, raw, astart, 0, nch, chunk);
 
   bool alive = true;  // before the first chunk every pixel has T = 1
   int j = 0;
@@ -363,7 +388,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) composite_fwd_windows(COMPOSIT
     if (!__syncthreads_or(alive)) break;
     cp_async_wait_all();
     stage_chunk<PACK>(sm, raw, j, chunk, head, count, ox, oy, alpha_min);
-    if (j + 1 < nch) prefetch(j + 1);
+    if (j + 1 < nch) prefetch_rows<PACK, false>(attrs, gid, raw, astart, j + 1, nch, chunk);
     __syncthreads();
     alive = false;
     for (int wy = 0; wy < ts; wy += kWin)
@@ -422,12 +447,14 @@ int map_threads(int tile_size) {
 
 template <int NPASS, bool PACK>
 cudaError_t launch(int num_tiles, int threads, cudaStream_t stream,
-                   const float* attrs, const int32_t* tile_start,
+                   const float* attrs, const int32_t* gid, const int32_t* tile_start,
                    const int32_t* tile_count, int tw, int tile_size, int chunk,
                    float alpha_min, float alpha_max, float t_eps, float* tiles,
                    int32_t* nproc) {
-  // the staged records (3 float4 a pair) and the copy of the next chunk
-  const size_t smem = (3 + kRowVecs<PACK>) * sizeof(float4) * static_cast<size_t>(chunk);
+  // the staged records (3 float4 a pair), the copy of the next chunk and
+  // two chunks of gids
+  const size_t smem = ((3 + kRowVecs<PACK>) * sizeof(float4) + 2 * sizeof(int32_t)) *
+                      static_cast<size_t>(chunk);
   void (*kernel)(COMPOSITE_FWD_ARGS);
   if constexpr (NPASS == 0) {
     kernel = composite_fwd_windows<PACK>;
@@ -442,41 +469,43 @@ cudaError_t launch(int num_tiles, int threads, cudaStream_t stream,
     if (e != cudaSuccess) return e;
   }
   kernel<<<num_tiles, threads, smem, stream>>>(
-      attrs, tile_start, tile_count, tw, tile_size, chunk, alpha_min, alpha_max,
+      attrs, gid, tile_start, tile_count, tw, tile_size, chunk, alpha_min, alpha_max,
       t_eps, tiles, nproc);
   return cudaGetLastError();
 }
 
 template <bool PACK>
 cudaError_t launch_passes(int npass, int num_tiles, int threads, cudaStream_t st,
-                          const float* a, const int32_t* s, const int32_t* c, int tw,
+                          const float* a, const int32_t* gid, const int32_t* s,
+                          const int32_t* c, int tw,
                           int tile_size, int chunk, float alpha_min, float alpha_max,
                           float t_eps, float* o, int32_t* n) {
   switch (npass) {
-    case 0: return launch<0, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+    case 0: return launch<0, PACK>(num_tiles, threads, st, a, gid, s, c, tw, tile_size, chunk,
                                    alpha_min, alpha_max, t_eps, o, n);
-    case 1: return launch<1, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+    case 1: return launch<1, PACK>(num_tiles, threads, st, a, gid, s, c, tw, tile_size, chunk,
                                    alpha_min, alpha_max, t_eps, o, n);
-    case 2: return launch<2, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+    case 2: return launch<2, PACK>(num_tiles, threads, st, a, gid, s, c, tw, tile_size, chunk,
                                    alpha_min, alpha_max, t_eps, o, n);
-    case 3: return launch<3, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+    case 3: return launch<3, PACK>(num_tiles, threads, st, a, gid, s, c, tw, tile_size, chunk,
                                    alpha_min, alpha_max, t_eps, o, n);
-    default: return launch<4, PACK>(num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
+    default: return launch<4, PACK>(num_tiles, threads, st, a, gid, s, c, tw, tile_size, chunk,
                                     alpha_min, alpha_max, t_eps, o, n);
   }
 }
 
 }  // namespace
 
-// attrs: (P, 16) float32, or (P, 8) packed where `packed` is nonzero,
-// 16-byte aligned, with P a multiple of chunk and every segment inside it;
+// attrs: (N+1, 16) float32 per-Gaussian rows, or (N+1, 8) packed where
+// `packed` is nonzero, 16-byte aligned; gid: (P,) int32 sorted gids, each in
+// [0, N], with P a multiple of chunk and every segment inside it;
 // tile_start, tile_count: (num_tiles,) int32; tiles:
 // (num_tiles, 4, tile_size^2) float32; nproc: (num_tiles,) int32.
 // tile_size >= 1: up to kWin in pixel passes (1 to 4), above it in
 // windows. alpha_min, alpha_max, t_eps: render/raster.py's ALPHA_MIN,
 // ALPHA_MAX, T_EPS. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a tile below 1).
-extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
+extern "C" int composite_fwd_launch(const void* attrs, const void* gid, const void* tile_start,
                                     const void* tile_count, int num_tiles,
                                     int tw, int tile_size, int chunk, int packed,
                                     float alpha_min, float alpha_max,
@@ -490,14 +519,15 @@ extern "C" int composite_fwd_launch(const void* attrs, const void* tile_start,
   const int npass = tile_size <= kWin ? (virt + kMaxThreads - 1) / kMaxThreads : 0;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* a = static_cast<const float*>(attrs);
+  const auto* gi = static_cast<const int32_t*>(gid);
   const auto* s = static_cast<const int32_t*>(tile_start);
   const auto* c = static_cast<const int32_t*>(tile_count);
   auto* o = static_cast<float*>(tiles);
   auto* n = static_cast<int32_t*>(nproc);
   const cudaError_t e =
-      packed ? launch_passes<true>(npass, num_tiles, threads, st, a, s, c, tw, tile_size, chunk,
-                                   alpha_min, alpha_max, t_eps, o, n)
-             : launch_passes<false>(npass, num_tiles, threads, st, a, s, c, tw, tile_size,
+      packed ? launch_passes<true>(npass, num_tiles, threads, st, a, gi, s, c, tw, tile_size,
+                                   chunk, alpha_min, alpha_max, t_eps, o, n)
+             : launch_passes<false>(npass, num_tiles, threads, st, a, gi, s, c, tw, tile_size,
                                     chunk, alpha_min, alpha_max, t_eps, o, n);
   return static_cast<int>(e);
 }

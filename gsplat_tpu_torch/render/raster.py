@@ -7,25 +7,29 @@ their plain PyTorch versions. `composite_fwd` and `composite_bwd` launch the
 kernel for CUDA tensors (or raise) and run the plain version only for CPU
 tensors.
 
-Pair table layout: (P, 16) float32, ROW-major, one 64-byte row per sorted
-pair (the reference's (16, P) table transposed, so a pair's attributes are
-contiguous for the gather and for the kernel's staging load):
+Attribute row layout: (N+1, 16) float32, ROW-major, one 64-byte row per
+Gaussian (row N the inert null Gaussian the padding slots point at; the
+reference's (16, P) pair table transposed, so a pair's attributes are
+contiguous for the kernel's staging load):
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c | 5..7 rgb |
-  8 opacity | 9 gid as an f32 value | 10..15 zero.
-The backward's d-table has the same row layout: d{mean x, mean y, conic a,
-b, c, r, g, b, opacity} | the gid key | zero.
+  8 opacity | 9 the row's gid as an f32 value | 10..15 zero.
+The compositors take the rows and the (P,) int32 sorted gids and read pair
+i's attributes as row gid[i]: no (P, 16) pair table is gathered. Without
+gids they read a table's rows in order (a gathered table is the rows of
+gids arange(P)). The backward's d-table has the same row layout: d{mean x,
+mean y, conic a, b, c, r, g, b, opacity} | the gid key | zero.
 
-The packed pair table (`attr_pack`, raster_pallas.py:238-304 of the
-reference): (P, 8) float32, one 32-byte row per pair:
+The packed rows (`attr_pack`, raster_pallas.py:238-304 of the reference):
+(N+1, 8) float32, one 32-byte row per Gaussian:
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c |
   5 (bf16(r) << 16) | bf16(g) | 6 (bf16(b) << 16) | bf16(opacity) |
   7 gid as an f32 value,
 rgb and opacity rounded to bfloat16 (to nearest even). Both compositors
-take either table and choose by its width, as the reference's _fwd_call
-does; the d-table keeps its 16 columns, and the gradient passes straight
-through the rounding. `GSPLAT_PACK` sets render's default, read at import:
-"0" (the default) off, "1" on, "auto" packed for CUDA tensors and f32 on the
-CPU (the reference's "packed unless interpret").
+take either width, as the reference's _fwd_call does; the d-table keeps
+its 16 columns, and the gradient passes straight through the rounding.
+`GSPLAT_PACK` sets render's default, read at import: "0" (the default)
+off, "1" on, "auto" packed for CUDA tensors and f32 on the CPU (the
+reference's "packed unless interpret").
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ ATTR_DIM = 16
 # the gid rides row 9 as an f32 VALUE (exact below 2^24); the backward's
 # invalid key sorts after every real id
 KEY_INVALID = float(1 << 30)
-KEY_COL = 9   # the gid column of the pair table and the key column of the d-table
+KEY_COL = 9   # the gid column of the attribute rows and the key column of the d-table
 N_DCOLS = 9   # d-table columns carrying gradients: mean2d(2) conic(3) rgb(3) opacity(1)
 # the compositors' skip: a pair whose power lies below log(ALPHA_MIN / op)
 # less this margin has alpha 0 at that pixel (skip_threshold)
@@ -57,7 +61,7 @@ _PLAIN_TILE_BATCH = 256
 # 2x2 pixel block in each of up to four passes), a larger one in windows of
 # at most WINDOW x WINDOW pixels (tile_windows)
 WINDOW = 64
-# the packed pair table's width and its gid column
+# the packed rows' width and their gid column
 PACKED_IN_DIM = 8
 PACKED_GID_COL = 7
 
@@ -100,7 +104,7 @@ def _plain_tile_batch(npix: int) -> int:
 
 def pack_attrs(mean2d, conic, rgb, opacity) -> torch.Tensor:
     """(N,2),(N,3),(N,3),(N,) -> (N,16) attribute rows; row 9 (gid) and the
-    padding are zero here and filled by render._gather_with_gid."""
+    padding are zero here, the gid filled by render._gid_rows."""
     n = mean2d.shape[0]
     pad = torch.zeros((n, ATTR_DIM - 9), dtype=torch.float32, device=mean2d.device)
     return torch.cat([mean2d, conic, rgb, opacity[:, None], pad], dim=1).to(torch.float32)
@@ -140,8 +144,8 @@ def pack_attrs8(attrs: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_rows(attrs: torch.Tensor) -> torch.Tensor:
-    """A packed (P, 8) pair table -> the (P, 16) table of its values (rgb
-    and opacity unpacked, the gid in column 9): what the compositors see."""
+    """Packed (R, 8) rows -> the (R, 16) rows of their values (rgb and
+    opacity unpacked, the gid in column 9): what the compositors see."""
     rg, bo = attrs[:, 5], attrs[:, 6]
     out = attrs.new_zeros((attrs.shape[0], ATTR_DIM))
     out[:, :5] = attrs[:, :5]
@@ -152,21 +156,38 @@ def unpack_rows(attrs: torch.Tensor) -> torch.Tensor:
 
 
 def _table_width(attrs: torch.Tensor, what: str) -> bool:
-    """Check a pair table for a kernel -> whether it is packed."""
+    """Check attribute rows for a kernel -> whether they are packed."""
     if attrs.dtype != torch.float32 or attrs.dim() != 2 \
             or attrs.shape[1] not in (ATTR_DIM, PACKED_IN_DIM) \
             or not attrs.is_contiguous() or attrs.data_ptr() % 16:
-        raise ValueError(f"{what} needs a contiguous, 16-byte aligned float32 (P, 16) "
-                         f"or packed (P, 8) table")
+        raise ValueError(f"{what} needs contiguous, 16-byte aligned float32 (N+1, 16) "
+                         f"or packed (N+1, 8) rows")
     return attrs.shape[1] == PACKED_IN_DIM
 
 
-def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
+def _gids(attrs: torch.Tensor, gid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The gids a compositor reads its rows through: `gid`, or a gathered
+    table's own order (arange)."""
+    if gid is None:
+        return torch.arange(attrs.shape[0], dtype=torch.int32, device=attrs.device)
+    return gid
+
+
+def _check_gids(gid: torch.Tensor, attrs: torch.Tensor, chunk: int, what: str) -> None:
+    if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous() \
+            or gid.device != attrs.device:
+        raise ValueError(f"{what} needs contiguous (P,) int32 gids on the rows' device")
+    if gid.shape[0] % chunk:
+        raise ValueError(f"gids {gid.shape[0]} are not a multiple of chunk {chunk}")
+
+
+def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid=None):
     """Plain PyTorch version of the composite_fwd kernel (same signature),
-    over _PLAIN_TILE_BATCH tiles at a time. Within a chunk the exclusive
-    transmittance is a cumprod of (1 - alpha) against the chunk's entry T,
-    as in the reference. A packed (P, 8) table composites its unpacked
-    values."""
+    over _PLAIN_TILE_BATCH tiles at a time, pair i's row read as
+    attrs[gid[i]]. Within a chunk the exclusive transmittance is a cumprod
+    of (1 - alpha) against the chunk's entry T, as in the reference. Packed
+    (N+1, 8) rows composite their unpacked values."""
+    gid = _gids(attrs, gid)
     if attrs.shape[1] == PACKED_IN_DIM:
         attrs = unpack_rows(attrs)
     dev = attrs.device
@@ -197,7 +218,7 @@ def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk):
             if run.numel() == 0:
                 break
             idx = j * chunk + lane                         # (chunk,)
-            a = attrs[astart[run, None] + idx]             # (B, chunk, 16)
+            a = attrs[gid[astart[run, None] + idx]]        # (B, chunk, 16)
             ok = (idx >= head[run, None]) & (idx < (head + count)[run, None])
             mxl = (a[..., 0] - ox[run, None])[..., None]   # (B, chunk, 1)
             myl = (a[..., 1] - oy[run, None])[..., None]
@@ -281,32 +302,33 @@ def fwd_pixel_blocks(tile_size: int) -> torch.Tensor:
     return torch.cat(maps)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 3)
 
 
-def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
+def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """attrs (P, 16) gathered pair table, or (P, 8) packed; tile_start/
-    tile_count (num_tiles,) int32 -> (tiles (num_tiles, 4, tile_size^2) rgb
-    accumulation + final T, nproc (num_tiles,) int32 chunks composited
-    before the whole-tile early exit). A tile with no pairs comes out (0,
-    0, 0, T=1); its nproc is 0 unless its (empty) segment starts mid-chunk,
-    where the reference too sweeps that one masked chunk. A launch on a
-    packed table counts in packed_fwd_count, not in composite_fwd.launches."""
+    """attrs (N+1, 16) attribute rows, or (N+1, 8) packed, read through gid
+    (P,) int32 sorted gids (None: attrs is a gathered (P, 16) or (P, 8)
+    table, read in order); tile_start/tile_count (num_tiles,) int32 segments
+    of the P pairs -> (tiles (num_tiles, 4, tile_size^2) rgb accumulation +
+    final T, nproc (num_tiles,) int32 chunks composited before the
+    whole-tile early exit). A tile with no pairs comes out (0, 0, 0, T=1);
+    its nproc is 0 unless its (empty) segment starts mid-chunk, where the
+    reference too sweeps that one masked chunk. A launch on packed rows
+    counts in packed_fwd_count, not in composite_fwd.launches."""
     if attrs.device.type == "cpu":
         return composite_fwd_plain(attrs, tile_start, tile_count, tw=tw,
-                                   tile_size=tile_size, chunk=chunk)
+                                   tile_size=tile_size, chunk=chunk, gid=gid)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on cuda or cpu, not {attrs.device}")
-    P = attrs.shape[0]
     packed = _table_width(attrs, "composite_fwd")
-    if P % chunk:
-        raise ValueError(f"pair table rows {P} are not a multiple of chunk {chunk}")
+    gid = _gids(attrs, gid)
+    _check_gids(gid, attrs, chunk, "composite_fwd")
     npix = tile_size * tile_size
     for tab in (tile_start, tile_count):
         if tab.dtype != torch.int32 or not tab.is_contiguous() or tab.device != attrs.device:
-            raise ValueError("tile tables must be contiguous int32 on the table's device")
+            raise ValueError("tile tables must be contiguous int32 on the rows' device")
     num_tiles = tile_start.shape[0]
     tiles = torch.empty((num_tiles, 4, npix), dtype=torch.float32, device=attrs.device)
     nproc = torch.empty(num_tiles, dtype=torch.int32, device=attrs.device)
@@ -315,7 +337,7 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(attrs.device):
-        err = fn(attrs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+        err = fn(attrs.data_ptr(), gid.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
                  num_tiles, tw, tile_size, chunk, int(packed), ALPHA_MIN, ALPHA_MAX, T_EPS,
                  tiles.data_ptr(), nproc.data_ptr(),
                  torch.cuda.current_stream(attrs.device).cuda_stream)
@@ -350,7 +372,7 @@ def _conic_mean_grads(dU, mxl, myl, ca, cb, cc):
 
 
 def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
-                        g_tiles, *, tw, tile_size, chunk, p_out):
+                        g_tiles, *, tw, tile_size, chunk, p_out, gid=None):
     """Plain PyTorch version of the composite_bwd kernel (same signature),
     over _PLAIN_TILE_BATCH tiles at a time: the reference's per-chunk
     backward (raster_pallas.py::_bwd_kernel) with exact-f32 sums over the
@@ -360,8 +382,10 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     sums of d conic and d mean are taken about the tile's centre, above
     WINDOW about each window's (tile_windows), whose d-values are then
     added window by window: the kernel's basis (csrc/composite_bwd.cu),
-    which keeps the algebra's cancellation at tile 64's. A packed (P, 8)
-    table replays its unpacked values (the d-table is the same)."""
+    which keeps the algebra's cancellation at tile 64's. Pair i's row is
+    attrs[gid[i]]; packed (N+1, 8) rows replay their unpacked values (the
+    d-table is the same)."""
+    gid = _gids(attrs, gid)
     if attrs.shape[1] == PACKED_IN_DIM:
         attrs = unpack_rows(attrs)
     dev = attrs.device
@@ -409,7 +433,7 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
             if run.numel() == 0:
                 break
             idx = j * chunk + lane
-            a = attrs[astart[run, None] + idx]             # (R, chunk, 16)
+            a = attrs[gid[astart[run, None] + idx]]        # (R, chunk, 16)
             ok = (idx >= head[run, None]) & (idx < (head + count)[run, None])
             op = a[..., 8] * ok                            # (R, chunk)
             mxl = a[..., 0] - ox[run, None]
@@ -456,16 +480,18 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     return d
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3
                  + [ctypes.c_void_p] * 2)
 
 
 def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles,
-                  *, tw, tile_size, chunk, p_out) -> torch.Tensor:
-    """The backward sweep of composite_fwd: attrs (P, 16) pair table (or
-    (P, 8) packed: launches counted in packed_bwd_count),
-    tile_start/tile_count (num_tiles,) int32, comp_start/nproc (num_tiles,)
-    int32 (each tile's region offset and its chunks to replay), tiles (the
+                  *, tw, tile_size, chunk, p_out, gid=None) -> torch.Tensor:
+    """The backward sweep of composite_fwd: attrs (N+1, 16) attribute rows
+    (or (N+1, 8) packed: launches counted in packed_bwd_count) read through
+    gid (P,) int32 sorted gids, as composite_fwd reads them (None: a
+    gathered table read in order), tile_start/tile_count (num_tiles,)
+    int32, comp_start/nproc (num_tiles,) int32 (each tile's region offset
+    and its chunks to replay), tiles (the
     forward's output) and g_tiles (their cotangent), both (num_tiles, 4,
     tile_size^2) f32 -> (p_out, 16) d-table: each replayed chunk's rows at
     [comp_start[t] + j*chunk, +chunk) hold d{mean x, mean y, conic a, b, c,
@@ -478,13 +504,12 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
     if attrs.device.type == "cpu":
         return composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc,
                                    tiles, g_tiles, tw=tw, tile_size=tile_size,
-                                   chunk=chunk, p_out=p_out)
+                                   chunk=chunk, p_out=p_out, gid=gid)
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on cuda or cpu, not {attrs.device}")
     packed = _table_width(attrs, "composite_bwd")
-    if attrs.shape[0] % chunk or p_out % chunk:
-        raise ValueError(f"pair table rows {attrs.shape[0]} and p_out {p_out} must "
-                         f"be multiples of chunk {chunk}")
+    if p_out % chunk:
+        raise ValueError(f"p_out {p_out} is not a multiple of chunk {chunk}")
     npix = tile_size * tile_size
     num_tiles = tile_start.shape[0]
     for tab in (tile_start, tile_count, comp_start, nproc):
@@ -496,15 +521,17 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
         if tab.dtype != torch.float32 or not tab.is_contiguous() \
                 or tab.device != attrs.device or tab.shape != (num_tiles, 4, npix):
             raise ValueError("tiles and their cotangent must be contiguous float32 "
-                             "(num_tiles, 4, tile_size^2) on the table's device")
+                             "(num_tiles, 4, tile_size^2) on the rows' device")
     d = d_table_prefilled(p_out, attrs.device)
+    gid = _gids(attrs, gid)
+    _check_gids(gid, attrs, chunk, "composite_bwd")
     lib = _build.load("composite_bwd")
     fn = lib.composite_bwd_launch
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(attrs.device):
-        err = fn(attrs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-                 comp_start.data_ptr(), nproc.data_ptr(), tiles.data_ptr(),
+        err = fn(attrs.data_ptr(), gid.data_ptr(), tile_start.data_ptr(),
+                 tile_count.data_ptr(), comp_start.data_ptr(), nproc.data_ptr(), tiles.data_ptr(),
                  g_tiles.data_ptr(), num_tiles, tw, tile_size, chunk, p_out, int(packed),
                  ALPHA_MIN, ALPHA_MAX, KEY_INVALID, d.data_ptr(),
                  torch.cuda.current_stream(attrs.device).cuda_stream)

@@ -4,17 +4,19 @@ Port of gsplat_tpu/render/render.py::render/render_projected. The
 projection (with SH) is, on CUDA, one autograd Function over its kernels
 (`render/project.py::_Project`), elsewhere plain torch; the attribute
 packing is plain torch; both are differentiated by autograd;
-binning is integer-valued and carries no gradient. The gather, compositing
-and per-Gaussian gradient reduction are one `torch.autograd.Function`,
-`_Rasterize` (the reference's `_rasterize` custom VJP): its forward gathers
-the pair table and runs composite_fwd (K2); its backward runs composite_bwd
-(K3) into per-tile regions of a prefilled d-table whose rows carry their gid
+binning is integer-valued and carries no gradient. Compositing and the
+per-Gaussian gradient reduction are one `torch.autograd.Function`,
+`_Rasterize` (the reference's `_rasterize` custom VJP): its forward fills
+the gid column of the (N+1) attribute rows and runs composite_fwd (K2),
+which reads each sorted pair's row through its gid (no (P, 16) pair table
+is gathered); its backward runs composite_bwd (K3, through the same gids)
+into per-tile regions of a prefilled d-table whose rows carry their gid
 keys, sorts the keys, finds each Gaussian's segment end (K4) and sums each
 segment's rows in a fixed order (segment_sum). No scatter, no atomics: the
 same inputs give the same gradient bits.
 A render whose inputs need no gradient (or under torch.no_grad()) runs the
-forward kernels alone and saves nothing. With attr_pack the pair table is
-the packed (P, 8) layout of render/raster.py (rgb and opacity as bf16
+forward kernels alone and saves nothing. With attr_pack the rows are the
+packed (N+1, 8) layout of render/raster.py (rgb and opacity as bf16
 pairs); the gradient passes straight through the rounding.
 """
 
@@ -27,7 +29,7 @@ import torch
 from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
-from gsplat_tpu_torch.render.binning import Binning, bin_gaussians, out_budget, tile_grid
+from gsplat_tpu_torch.render.binning import bin_gaussians, out_budget, tile_grid
 from gsplat_tpu_torch.render.bounds import segment_ends
 from gsplat_tpu_torch.render.project import Projection, project_fwd, project_gaussians
 from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, composite_bwd, composite_fwd,
@@ -52,34 +54,24 @@ class RenderOutput(NamedTuple):
 
 def _attr_rows(proj: Projection) -> torch.Tensor:
     """(N+1, 16) per-Gaussian attribute rows, row N the inert null Gaussian
-    the pair table's padding slots point at."""
+    the sorted gids' padding slots point at."""
     attrs = pack_attrs(proj.mean2d, proj.conic, proj.rgb, proj.opacity)
     return torch.cat([attrs, attrs.new_zeros((1, ATTR_DIM))], dim=0)
 
 
-def _gather_with_gid(attrs: torch.Tensor, gid_s: torch.Tensor,
-                     attr_pack: bool = False) -> torch.Tensor:
-    """(N+1, 16) attribute rows + (P,) sorted gids -> (P, 16) pair table whose
-    column 9 holds each pair's gid as an f32 value (render/raster.py layout;
-    the reference's (16, P) table is its transpose), or with attr_pack the
-    packed (P, 8) table, its gid in column 7. One row gather: the rows are
-    packed and their gid column filled per Gaussian first."""
+def _gid_rows(attrs: torch.Tensor, attr_pack: bool = False) -> torch.Tensor:
+    """(N+1, 16) attribute rows -> the rows the compositors read through the
+    sorted gids: column 9 holding each row's gid as an f32 value
+    (render/raster.py layout), or with attr_pack the packed (N+1, 8) rows,
+    the gid in column 7. Row gid_s[i] is pair i's row of the reference's
+    (16, P) pair table, transposed: `rows.index_select(0, gid_s)` would be
+    that table, which the compositors never need gathered."""
     gid = torch.arange(attrs.shape[0], dtype=torch.float32, device=attrs.device)
     if attr_pack:
-        rows = torch.cat([pack_attrs8(attrs), gid[:, None]], dim=1)
-    else:
-        rows = attrs.clone()
-        rows[:, KEY_COL] = gid
-    return rows.index_select(0, gid_s)
-
-
-def pair_table(proj: Projection, binning: Binning, kept_budget: int,
-               attr_pack: bool = False) -> torch.Tensor:
-    """The compositor's input: the first kept_budget sorted pairs of
-    `binning` as a (kept_budget, 16) table of `proj`'s attributes (packed:
-    (kept_budget, 8)), the padding slots (gid N) pointing at an appended
-    inert null row."""
-    return _gather_with_gid(_attr_rows(proj), binning.gid_s[:kept_budget], attr_pack)
+        return torch.cat([pack_attrs8(attrs), gid[:, None]], dim=1)
+    rows = attrs.clone()
+    rows[:, KEY_COL] = gid
+    return rows
 
 
 def contrib_regions(nproc: torch.Tensor, chunk: int, c_budget: int):
@@ -117,24 +109,30 @@ def reduce_by_gid(d: torch.Tensor, n_rows: int) -> torch.Tensor:
 
 class _Rasterize(torch.autograd.Function):
     """attrs (N+1, 16) differentiable attribute rows; gid_s (kept or sat,)
-    sorted gids and the tile tables (no gradient); grad_ok () bool, False on
-    kept- or sat-budget overflow -> (tiles (num_tiles, 4, npix), nproc (num_tiles,)
-    int32). static: (tw, tile_size, chunk, contrib_budget, attr_pack). The
-    backward's gradient of a packed table's rows is its d-table's, as if
-    unrounded (the reference's straight-through _rasterize_bwd)."""
+    int32 sorted gids and the tile tables (no gradient); grad_ok () bool,
+    False on kept- or sat-budget overflow -> (tiles (num_tiles, 4, npix),
+    nproc (num_tiles,) int32). static: (tw, tile_size, chunk,
+    contrib_budget, attr_pack). The compositors read pair i's row as
+    rows[gid_s[i]]; the backward's gradient of packed rows is its
+    d-table's, as if unrounded (the reference's straight-through
+    _rasterize_bwd)."""
 
     @staticmethod
     def forward(ctx, attrs, gid_s, tile_start, tile_count, grad_ok, static, on_stage):
         tw, tile_size, chunk, _, attr_pack = static
         with spans.span("gather", on_stage) as sp:
-            gathered = _gather_with_gid(attrs, gid_s, attr_pack)
+            rows = _gid_rows(attrs, attr_pack)
             if sp is not None:
-                # the rows the gather reads, and those that are a tile's pairs
+                # the pairs the compositors read rows for, and those that
+                # are a tile's pairs
                 sp.count(rows=gid_s.shape[0], live=tile_count.sum())
-        with spans.span("composite", on_stage):
-            tiles, nproc = composite_fwd(gathered, tile_start, tile_count, tw=tw,
-                                         tile_size=tile_size, chunk=chunk)
-        ctx.save_for_backward(gathered, tile_start, tile_count, nproc, grad_ok, tiles)
+        with spans.span("composite", on_stage) as sp:
+            tiles, nproc = composite_fwd(rows, tile_start, tile_count, tw=tw,
+                                         tile_size=tile_size, chunk=chunk, gid=gid_s)
+            if sp is not None:
+                # the rows K2 staged through their gids
+                sp.count(staged=nproc.sum(dtype=torch.int64) * chunk)
+        ctx.save_for_backward(rows, gid_s, tile_start, tile_count, nproc, grad_ok, tiles)
         ctx.static = static
         ctx.n_rows = attrs.shape[0]
         ctx.mark_non_differentiable(nproc)
@@ -142,15 +140,18 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_tiles, _g_nproc):
-        with spans.span("backward.raster"):
-            gathered, tile_start, tile_count, nproc, grad_ok, tiles = ctx.saved_tensors
+        with spans.span("backward.raster") as sp:
+            rows, gid_s, tile_start, tile_count, nproc, grad_ok, tiles = ctx.saved_tensors
             tw, tile_size, chunk, c_budget, _ = ctx.static
             if g_tiles is None:
                 g_tiles = torch.zeros_like(tiles)
             np_c, comp_start, overflow = contrib_regions(nproc, chunk, c_budget)
-            d = composite_bwd(gathered, tile_start, tile_count, comp_start, np_c, tiles,
+            d = composite_bwd(rows, tile_start, tile_count, comp_start, np_c, tiles,
                               g_tiles.contiguous(), tw=tw, tile_size=tile_size,
-                              chunk=chunk, p_out=c_budget)
+                              chunk=chunk, p_out=c_budget, gid=gid_s)
+            if sp is not None:
+                # the rows K3 staged through their gids
+                sp.count(staged=np_c.sum(dtype=torch.int64) * chunk)
             with spans.span("backward.raster.reduce"):
                 d_attrs = reduce_by_gid(d, ctx.n_rows)
             # either overflow (kept pairs past the kept budget, or replayed rows
@@ -181,7 +182,7 @@ def render(
 ) -> RenderOutput:
     """Render `g` through `cam` over background `bg` (3,), on the device the
     tensors live on (the kernels on CUDA, their plain versions on the CPU).
-    attr_pack: the packed pair table (render_projected).
+    attr_pack: the packed attribute rows (render_projected).
 
     mean2d_offset: optional zeros (N,2); differentiate w.r.t. it for the
     screen-space positional gradient densification reads.
@@ -251,7 +252,7 @@ def render_projected(
 
     tight_cull drops bounding-rect pairs whose max alpha in the tile is
     provably < 1/255 (the image is unchanged; fewer chunks to composite).
-    kept_budget (< pair_budget) sizes the gather and the compositor by the
+    kept_budget (< pair_budget) sizes the compositor's gid table by the
     cull's survivors instead of the expansion slots; kept overflow shows up
     in n_dropped like slot overflow. contrib_budget sizes the backward's
     d-table by the pairs composited before each tile's early exit
@@ -260,13 +261,13 @@ def render_projected(
     n_contrib > contrib_budget). sat_budget (needs tight_cull; at most
     pair_budget) turns on the saturation bound cull: each tile's pairs are
     cut at the first chunk boundary where a conservative transmittance bound
-    proves the compositor's whole-tile exit, and the gather, the compositor
-    and the backward run on the sat_budget packed survivors. Image, nproc
+    proves the compositor's whole-tile exit, and the compositor and the
+    backward run on the sat_budget packed survivors. Image, nproc
     and gradients are bit-identical to the render without it; n_sat reports
     the rows needed, and an overflow zeroes the gradient and shows in
     n_dropped. Budgets are rounded up to whole chunks.
 
-    attr_pack gathers the packed (P, 8) pair table (render/raster.py):
+    attr_pack composites the packed (N+1, 8) rows (render/raster.py):
     32-byte rows with rgb and opacity rounded to bfloat16, in the image and
     in the gradient chain (the parameters stay float32; the gradient
     passes straight through the rounding). None takes GSPLAT_PACK's
@@ -283,9 +284,9 @@ def render_projected(
         proj = proj._replace(mean2d=proj.mean2d - shift[None, :])
     n = proj.mean2d.shape[0]
     if n + 1 > (1 << 24):
-        # gids ride the pair table as f32 VALUES, exact only below 2^24
+        # gids ride the attribute rows as f32 VALUES, exact only below 2^24
         raise ValueError(
-            f"capacity {n} exceeds the 2^24 exact-f32-id limit of the pair table"
+            f"capacity {n} exceeds the 2^24 exact-f32-id limit of the attribute rows"
         )
     tw, th = tile_grid(width, height, tile_size)
     pair_budget = -(-pair_budget // chunk) * chunk

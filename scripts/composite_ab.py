@@ -12,9 +12,14 @@ kernels into its own build/kernels/). A run builds bench.py's scene in
 numpy (gsplat_tpu_torch/tools/bench_scene.py: 1M Gaussians, 1920x1080; the
 sparse view at 2.25 tile pairs a Gaussian, the dense one at 33), bins the
 bench view at each tile size with the pair and kept budgets fitted as
-scripts/serving_bench.py fits them, and launches K2 on the pair table and
-K3 on K2's output with a seeded normal cotangent. It records the sha256 of
-the pair table, of K2's tiles and nproc and of K3's d-table, and each
+scripts/serving_bench.py fits them, and launches K2 on the view's
+attribute rows and sorted gids and K3 on K2's output with a seeded normal
+cotangent: a tree whose compositors read a gathered pair table (its
+render module has `pair_table`) is handed that table, one whose compositors
+read each pair's row through its gid is handed the rows and the gids. It
+records the sha256 of the inputs (the attribute rows and the kept gids,
+the same for both kinds of tree), of K2's tiles and nproc and of K3's
+d-table, and each
 kernel's median device ms of 10 launches (CUDA events; K3's less the
 d-table fill its wrapper runs before each launch). A tile a tree refuses
 is recorded as refused.
@@ -73,9 +78,10 @@ def run(tree: Path, tiles, out: Path) -> None:
     import torch
 
     from gsplat_tpu_torch.render import raster
+    from gsplat_tpu_torch.render import render as render_mod
     from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
     from gsplat_tpu_torch.render.project import project_gaussians
-    from gsplat_tpu_torch.render.render import contrib_regions, pair_table
+    from gsplat_tpu_torch.render.render import _attr_rows, contrib_regions
     from gsplat_tpu_torch.tools.bench_scene import scene_on_device
 
     assert Path(raster.__file__).resolve().is_relative_to(tree.resolve()), raster.__file__
@@ -96,13 +102,18 @@ def run(tree: Path, tiles, out: Path) -> None:
             kept = -(-(n_pairs - n_culled + CHUNK) // CHUNK) * CHUNK
             b = bin_gaussians(p.mean2d, p.radius, p.depth, pair_budget=pair_fit,
                               kept_budget=kept, **kw)
-            gathered = pair_table(p, b, kept)
             ts, tc = b.tile_start, b.tile_count
-            del b
-            r = res.setdefault(str(tile), {})[view] = {"input": sha(gathered, ts, tc)}
+            attrs, gid = _attr_rows(p), b.gid_s[:kept]
+            r = res.setdefault(str(tile), {})[view] = {"input": sha(attrs, gid, ts, tc)}
             fwd = dict(tw=tw, tile_size=tile, chunk=CHUNK)
+            if hasattr(render_mod, "pair_table"):     # a tree with a gathered table
+                rows = render_mod.pair_table(p, b, kept)
+            else:
+                rows = render_mod._gid_rows(attrs)
+                fwd["gid"] = gid
+            del b, attrs
             try:
-                tiles_k, np_k = raster.composite_fwd(gathered, ts, tc, **fwd)
+                tiles_k, np_k = raster.composite_fwd(rows, ts, tc, **fwd)
             except ValueError as e:
                 r["refused"] = str(e)
                 continue
@@ -110,15 +121,15 @@ def run(tree: Path, tiles, out: Path) -> None:
             g_tiles = torch.from_numpy(cot.astype(np.float32)).to(tiles_k.device)
             contrib = -(-int(np_k.sum()) * CHUNK // 512) * 512 + 512
             np_c, comp_start, _ = contrib_regions(np_k, CHUNK, contrib)
-            args = (gathered, ts, tc, comp_start, np_c, tiles_k, g_tiles)
+            args = (rows, ts, tc, comp_start, np_c, tiles_k, g_tiles)
             bwd = dict(fwd, p_out=contrib)
             d = raster.composite_bwd(*args, **bwd)
             r.update(k2=sha(tiles_k, np_k), k3=sha(d), chunks=int(np_k.sum()),
-                     k2_ms=device_ms(lambda: raster.composite_fwd(gathered, ts, tc, **fwd)),
+                     k2_ms=device_ms(lambda: raster.composite_fwd(rows, ts, tc, **fwd)),
                      k3_ms=device_ms(lambda: raster.composite_bwd(*args, **bwd))
                      - device_ms(lambda: raster.d_table_prefilled(contrib, d.device)))
             print(f"  {tree} tile {tile} {view}: {r}", flush=True)
-            del tiles_k, np_k, g_tiles, d, args, gathered
+            del tiles_k, np_k, g_tiles, d, args, rows, gid
             torch.cuda.empty_cache()
         del g, cam, p
         torch.cuda.empty_cache()

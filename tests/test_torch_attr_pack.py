@@ -1,8 +1,9 @@
 """Port parity, the packed pair table (render(attr_pack=True)): rgb and
 opacity as bf16 pairs in a (P, 8) table (render/raster.py).
 
-The packing and the gather bit-equal to the JAX package's
-(raster_pallas.pack_attrs8, _unpack_hi/_unpack_lo, render._gather_with_gid);
+The packing, and the packed rows read through the sorted gids, bit-equal
+to the JAX package's packing and gathered table (raster_pallas.pack_attrs8,
+_unpack_hi/_unpack_lo, render._gather_with_gid);
 the plain compositors on a packed table against the JAX kernels' packed
 branch in interpret mode, at test_torch_raster.py's (tiles 2e-5 abs, nproc
 equal) and test_torch_raster_bwd.py's tolerances (keys equal, each d column
@@ -75,7 +76,8 @@ def test_packed_gather_bit_equal_to_jax():
     a = attr_rows(seed=1, n=40)
     a[-1] = 0.0   # the inert null row
     gid = np.sort(np.random.default_rng(2).integers(0, a.shape[0], 300)).astype(np.int32)
-    got = trender._gather_with_gid(torch.from_numpy(a), torch.from_numpy(gid).long(), True)
+    # the packed rows read through the gids, as the compositors read them
+    got = trender._gid_rows(torch.from_numpy(a), True)[torch.from_numpy(gid).long()]
     want = np.asarray(j_gather(jnp.asarray(a), jnp.asarray(gid), True)).T
     assert got.shape == (300, traster.PACKED_IN_DIM)
     np.testing.assert_array_equal(bits(got.numpy()), bits(want))

@@ -22,7 +22,9 @@ per-Gaussian reduction (segment_sum) within 1e-6 of each column's max of
 its plain version, the same bits twice; render gradients within 2e-4 of
 each group's max of the CPU's, and two gradient passes of one train step
 bit-equal in every parameter group; render_cli's PNGs equal to the
-render of each camera."""
+render of each camera. K2 and K3 reading each pair's row through its gid
+give the bits they give on the gathered pair table (every variant, f32
+and packed), K3 the same bits twice."""
 
 import numpy as np
 import pytest
@@ -40,7 +42,8 @@ from gsplat_tpu_torch.render import scan as tscan
 from torch_port_fixtures import (D_TABLE_CASES, EXP_H, EXP_S, EXP_TILE,  # noqa: F401
                                  EXP_W, EXPANSION_CASES, GAP_CASES, SCENES, banded_tile,
                                  crafted_d_table, crafted_projection, crafted_tiles,
-                                 cuda_device, gap_row, pair_tables, random_projection,
+                                 cuda_device, gap_row, gid_tables, pair_tables,
+                                 random_projection,
                                  saturating_projection, skip_edge_tile)
 
 torch.set_num_threads(1)
@@ -349,6 +352,67 @@ def test_packed_render_on_gpu_matches_cpu(cuda_device):
                                atol=ATOL)
     for f in ("n_pairs", "n_culled", "n_contrib", "n_dropped"):
         assert int(getattr(gpu, f)) == int(getattr(cpu, f)), f
+
+
+def by_gid(table, seed):
+    """A gathered (P, w) table -> (rows, gids): its rows in a seeded order
+    behind which a zero row stands last, and the (P,) int32 gids with
+    rows[gids] the table."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(table.shape[0]))
+    rows = table.new_zeros((table.shape[0] + 1, table.shape[1]))
+    rows[perm] = table
+    return rows, perm.to(torch.int32)
+
+
+def assert_by_gid_bit_equal(device, rows, gid, table, ts, tc, tw, tile, chunk):
+    """K2 and K3 reading rows[gid[i]] against the same kernels on the
+    gathered table: tiles, nproc and the d-table the same bits, K3's twice."""
+    from gsplat_tpu_torch.render.render import contrib_regions
+
+    rows, gid, table, ts, tc = (torch.as_tensor(t).to(device) for t in (rows, gid, table, ts, tc))
+    assert torch.equal(rows[gid.long()], table)
+    fwd = dict(tw=tw, tile_size=tile, chunk=chunk)
+    want_tiles, want_np = traster.composite_fwd(table, ts, tc, **fwd)
+    tiles, nproc = traster.composite_fwd(rows, ts, tc, gid=gid, **fwd)
+    torch.cuda.synchronize()
+    assert torch.equal(tiles.view(torch.int32), want_tiles.view(torch.int32))
+    assert torch.equal(nproc, want_np) and int(nproc.sum()) > 0
+    p_out = tb.out_budget(table.shape[0], ts.shape[0], chunk)
+    np_c, comp_start, _ = contrib_regions(nproc, chunk, p_out)
+    g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
+        size=tiles.shape).astype(np.float32)).to(device)
+    args = (ts, tc, comp_start, np_c, tiles, g)
+    want = traster.composite_bwd(table, *args, p_out=p_out, **fwd)
+    got = traster.composite_bwd(rows, *args, p_out=p_out, gid=gid, **fwd)
+    again = traster.composite_bwd(rows, *args, p_out=p_out, gid=gid, **fwd)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [False, True], ids=["f32", "packed"])
+@pytest.mark.parametrize("tile", [16, 32, 64, 96])
+def test_composite_kernels_by_gid_bit_equal_to_the_gathered_table(cuda_device, tile, pack):
+    """Every K2 and K3 variant (one pass, pixel passes, windows; f32 and
+    packed rows) reading each pair's row through its gid gives the bits it
+    gives on the gathered table: crafted tiles (empty tiles, mid-chunk
+    starts, exits before the last chunk) behind a seeded permutation of
+    their rows, at chunk 8 and 128; at tile 16, the fixture scenes' rows and
+    their sorted gids too (many pairs a row, the null row at the end)."""
+    for chunk in (8, 128):
+        attrs, ts, tc = crafted_tiles(3, 2, tile, chunk)
+        table = torch.from_numpy(attrs)
+        rows, gid = by_gid(table, tile + chunk)
+        if pack:
+            table, rows = packed_table(table), packed_table(rows)
+        assert_by_gid_bit_equal(cuda_device, rows, gid, table, ts, tc, 3, tile, chunk)
+    if tile == F.TILE:
+        tw, _ = tb.tile_grid(F.W, F.H, F.TILE)
+        for name in SCENES:
+            rows, gid, ts, tc = gid_tables(F.make_scene(**SCENES[name]), attr_pack=pack)
+            assert_by_gid_bit_equal(cuda_device, rows, gid, rows.index_select(0, gid), ts, tc,
+                                    tw, F.TILE, F.CHUNK)
 
 
 @pytest.mark.cuda
@@ -1138,7 +1202,8 @@ def test_spans_on_gpu(cuda_device):
     device thread runs _Rasterize.backward, whose span takes the step's
     `backward` as parent; every span has device times from its CUDA events;
     the backward's three parts tile it; the gather's live counter stays on
-    the card and equals n_pairs - n_culled."""
+    the card and equals n_pairs - n_culled; K2's and K3's staged counters
+    stay on the card and equal n_contrib (nproc.sum() x chunk)."""
     import dataclasses
     import threading
 
@@ -1187,3 +1252,7 @@ def test_spans_on_gpu(cuda_device):
     live = recs["gather"].counters["live"]
     assert live.device.type == "cuda"
     assert int(live) == int(out[4] - out[6]) > 0
+    # the rows K2 and K3 staged through their gids: the chunks K2 composited
+    staged = recs["composite"].counters["staged"]
+    assert staged.device.type == "cuda"
+    assert int(staged) == int(recs["backward.raster"].counters["staged"]) == int(out[7]) > 0

@@ -6,9 +6,10 @@ torch.profiler's CPU tracing, at the fixtures' 64x48 scene.
   `backward`, `adam` and `densify_stats` under the step, `backward.raster`
   under `backward` and `backward.raster.reduce` under it; the backward's
   three parts (up to the raster's start, the raster, after it) tile it;
-- the gather's counters: the rows of the gid table it reads (the kept or
-  the sat budget) and the live ones (the RenderOutput's n_pairs - n_culled,
-  or the cull's survivors);
+- the gather's counters: the rows of the gid table the compositors read
+  (the kept or the sat budget) and the live ones (the RenderOutput's
+  n_pairs - n_culled, or the cull's survivors); the rows K2 and K3 staged
+  through their gids (`staged`: K2's n_contrib, K3's the same);
 - the exported Chrome trace holds `gsplat.*` annotations inside the step;
 - without a profiler nothing records and no record_function is entered;
 - the ring keeps its bound; parents across threads (the autograd engine's
@@ -96,6 +97,9 @@ def test_train_step_tree(scene):
     assert parent["backward.raster"] == "backward"
     assert parent["backward.raster.reduce"] == "backward.raster"
     assert {r.root for r in recs} == {s["step"].id}
+    # K3 staged the rows of the chunks K2 composited (no contrib overflow)
+    staged = int(s["composite"].counters["staged"])
+    assert int(s["backward.raster"].counters["staged"]) == staged > 0
     for r in recs:   # a child lies inside its parent on the host's clock
         if r.parent is not None:
             p = next(q for q in recs if q.id == r.parent)
@@ -131,6 +135,8 @@ def test_gather_counts_rows_and_live_pairs(scene, kw):
     assert gather.counters["rows"] == kw.get("kept_budget", BUDGET)
     live = int(gather.counters["live"])
     assert live == int(out.n_pairs - out.n_culled) > 0
+    # the rows K2 staged through their gids: its chunks composited
+    assert int(by_name(recs)["composite"].counters["staged"]) == int(out.n_contrib) > 0
 
 
 def test_gather_counts_the_sat_survivors(scene):

@@ -138,12 +138,14 @@ SCENES = {
 }
 
 
-def pair_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK):
-    """The port's own project -> bin -> gather of `scene` on the CPU:
-    (gathered (P, 16) pair table, tile_start, tile_count)."""
+def gid_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK, attr_pack=False):
+    """The port's own project -> bin of `scene` on the CPU, as the
+    compositors read it: (the (N+1, 16) attribute rows with their gid
+    column, packed (N+1, 8) with attr_pack; the kept prefix of the sorted
+    gids; tile_start; tile_count)."""
     from gsplat_tpu_torch.render.binning import bin_gaussians
     from gsplat_tpu_torch.render.project import project_gaussians
-    from gsplat_tpu_torch.render.render import pair_table
+    from gsplat_tpu_torch.render.render import _attr_rows, _gid_rows
 
     g, cam = torch_objects(scene, width, height)
     proj = project_gaussians(g, cam)
@@ -151,7 +153,15 @@ def pair_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK):
                       height=height, tile_size=tile, chunk=chunk,
                       pair_budget=BUDGET, cull_conic=proj.conic,
                       cull_opacity=proj.opacity, kept_budget=BUDGET - chunk)
-    return pair_table(proj, b, BUDGET - chunk), b.tile_start, b.tile_count
+    return (_gid_rows(_attr_rows(proj), attr_pack), b.gid_s[:BUDGET - chunk],
+            b.tile_start, b.tile_count)
+
+
+def pair_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK):
+    """gid_tables' rows gathered through its gids: (the (P, 16) pair table
+    the compositors read in order, tile_start, tile_count)."""
+    rows, gid, ts, tc = gid_tables(scene, width, height, tile, chunk)
+    return rows.index_select(0, gid), ts, tc
 
 
 def crafted_tiles(tw, th, tile, chunk, seed=0):
