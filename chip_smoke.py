@@ -274,7 +274,7 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            step of each pass (torch's sync debug mode); then K1 (at the
            plain pass's budget and the fitted one), K2-K4, segment_sum, K5
            and K6 against their plain versions at the budgets the bench
-           fits (bench.fit_budgets, fit_sat) on each density's scene.
+           fits (render/budgets.py's bench rules) on each density's scene.
            Printed: the phase's wall time and launches
   serving_bench  after the dense cell: tools/serving_bench.py in process,
            without and with --pack (1M Gaussians, 1080p, both scenes, its
@@ -378,6 +378,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.render import budgets
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -390,10 +392,6 @@ REF_SPARSE_PAIRS, REF_SPARSE_CULLED = 2_105_855, 187_969
 REF_DENSE_CULLED = 6_040_429
 # the saturation cull's survivor rows (BENCH_r05.json sat_kept, dense_sat_kept)
 REF_SPARSE_SAT, REF_DENSE_SAT = 2_176_896, 1_823_232
-# the train phases' headroom over a fitted budget: the JAX loop's kept
-# regrowth factor (loop.py:575), here for the sat budget too (the JAX loop
-# starts it at n_sat plus a chunk and doubles it on overflow, loop.py:558)
-SAT_HEADROOM = 1.2
 REF_SPARSE_LOSS = 0.4129     # BENCH_r05.json "loss", the step-1 loss
 ATOL = 2e-5
 BWD_RTOL = 1e-4       # composite_bwd vs plain, of each d column's max
@@ -580,23 +578,15 @@ class Smoke:
         print(f"== {name}", flush=True)
 
 
-def fit_budgets(g, cam, budget, tile=TILE):
-    """scripts/serving_bench.py's probe: bin with kept_budget = budget - 128
-    (which turns the tight cull on), then fit both budgets to the counts."""
-    from gsplat_tpu_torch.render.binning import bin_gaussians
-    from gsplat_tpu_torch.render.project import project_gaussians
-
-    p = project_gaussians(g, cam)
-    b = bin_gaussians(p.mean2d, p.radius, p.depth, width=cam.width,
-                      height=cam.height, tile_size=tile, chunk=CHUNK,
-                      pair_budget=budget, cull_conic=p.conic,
-                      cull_opacity=p.opacity, kept_budget=budget - CHUNK)
-    n_pairs, n_culled = int(b.n_pairs), int(b.n_culled)
+def probe_view(g, cam, budget, tile=TILE):
+    """scripts/serving_bench.py's probe and fit (render/budgets.py) at the
+    view -> (pair budget, kept budget, n_pairs, n_culled); a probe that
+    fills its budget raises."""
+    n_pairs, n_culled = budgets.probe_pairs(g, cam, budget, tile_size=tile, chunk=CHUNK)
     if n_pairs >= budget:
         raise RuntimeError(f"probe overflowed its budget {budget}")
-    pair_fit = min(-(-n_pairs // CHUNK) * CHUNK + CHUNK, budget)
-    kept = -(-(n_pairs - n_culled + CHUNK) // CHUNK) * CHUNK
-    return pair_fit, kept, n_pairs, n_culled
+    return (budgets.fit_pair(n_pairs, budget, CHUNK), budgets.fit_kept(n_pairs, n_culled, CHUNK),
+            n_pairs, n_culled)
 
 
 def load_scene(raw, tmp, name):
@@ -876,12 +866,6 @@ def skip_census(rows, gid, ts, tc, nproc, tw, tile=TILE):
     return evals, below_n, groups, skipped
 
 
-def fit_contrib(n_contrib):
-    """bench.py:241's contrib budget: the replayed rows, rounded up to 512,
-    plus 512."""
-    return -(-int(n_contrib) // 512) * 512 + 512
-
-
 def loss_cotangent(rows, gid, ts, tc, tw, th, target, tile=TILE, size=None):
     """The forward tiles of rows read through the gids and the cotangent of
     the real photometric loss (bg 0) with respect to them."""
@@ -920,7 +904,7 @@ def phase_backward(s, label, g, cam, target, pair_fit, kept, tile=TILE, size=Non
     del p
     ts, tc = b.tile_start, b.tile_count
     tiles, nproc, g_tiles = loss_cotangent(rows, gid, ts, tc, tw, th, target, tile, size)
-    contrib = fit_contrib(int(nproc.sum()) * CHUNK)
+    contrib = budgets.fit_contrib(int(nproc.sum()) * CHUNK)
     np_c, comp_start, overflow = contrib_regions(nproc, CHUNK, contrib)
     args = (rows, ts, tc, comp_start, np_c, tiles, g_tiles)
     kw = dict(tw=tw, tile_size=tile, chunk=CHUNK, p_out=contrib, gid=gid)
@@ -1420,19 +1404,15 @@ def train_budgets(g, cam, bg, budget, tile=TILE):
     with the headroom of the JAX training loop -> (pair, kept, contrib)."""
     from gsplat_tpu_torch.render.render import render
 
-    pair_fit, kept, _, _ = fit_budgets(g, cam, budget, tile)
-    probe = render(cam, g, bg, tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
-                   kept_budget=kept)
-    contrib = fit_contrib(probe.n_contrib)
-    del probe
+    pair_fit, kept, _, _ = probe_view(g, cam, budget, tile)
+    out = render(cam, g, bg, tile_size=tile, chunk=CHUNK, pair_budget=pair_fit,
+                 kept_budget=kept)
+    contrib = budgets.fit_contrib(out.n_contrib)
+    del out
     # the steps move the Gaussians, and with them the pair, kept and
     # composited counts (+4.4% composited rows over the 10 sparse steps on
-    # an H100): the headroom the JAX training loop gives its fitted
-    # budgets, 1.2x kept (loop.py:575) and 1.5x contrib (loop.py:641)
-    pair_fit = min(budget, -(-int(pair_fit * 1.2) // CHUNK) * CHUNK)
-    kept = min(pair_fit, -(-int(kept * 1.2) // CHUNK) * CHUNK)
-    contrib = -(-int(contrib * 1.5) // 512) * 512
-    return pair_fit, kept, contrib
+    # an H100): the headroom the training loop gives its fitted budgets
+    return budgets.with_headroom(pair_fit, kept, contrib, budget, CHUNK)
 
 
 def step_gradients(g, cam, bg, tile, pair_fit, kept, contrib, attr_pack=False,
@@ -1496,7 +1476,8 @@ def train(s, label, g, cam_args, target, budget, steps, ref=None):
     if ref is not None:
         probe = render_mod.render(cam, g, bg, tile_size=TILE, chunk=CHUNK,
                                   pair_budget=pair_fit, kept_budget=kept, sat_budget=kept)
-        sat = min(kept, -(-int(int(probe.n_sat) * SAT_HEADROOM) // CHUNK) * CHUNK)
+        # the loop's kept regrowth headroom, here for the sat budget too
+        sat = min(kept, budgets.ceil_to(int(probe.n_sat) * budgets.KEPT_REGROW, CHUNK))
         del probe
     step_fn = make_train_step(OptimizationParams(), MeshParams(
         tile_size=TILE, chunk_size=CHUNK, pair_budget=pair_fit), 1.0, W, H,
@@ -1635,7 +1616,7 @@ def run_cell(s, label, g, cam_args, views, budget, target):
 
     R, T, fovx, fovy = cam_args
     cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
-    pair_fit, kept, _, n_culled = fit_budgets(g, cam, budget)
+    pair_fit, kept, _, n_culled = probe_view(g, cam, budget)
     plain = render(cam, g, torch.zeros(3, device=g.device), tile_size=TILE, chunk=CHUNK,
                    pair_budget=budget)
     bench_counts = dict(pairs=int(plain.n_pairs), contrib=int(plain.n_contrib),
@@ -1664,7 +1645,7 @@ def run_cell(s, label, g, cam_args, views, budget, target):
         sat = SPARSE_BUDGET
     else:
         seen, b = sat_kernel_inputs(g, cam, pair_fit, kept, kept)
-        sat = -(-int(b.n_sat) // CHUNK) * CHUNK + CHUNK
+        sat = budgets.chunk_fit(b.n_sat, CHUNK)
     del b
     k5, C = phase_scan(s, label, seen)
     k6 = phase_compact(s, label, seen, C, sat)
@@ -1754,7 +1735,7 @@ def wide_tile(s, label, g, cam_args, target, budget, loss1, zero, counts, tile):
     R, T, fovx, fovy = cam_args
     cam = make_camera(R, T, fovx, fovy, W, H, image=target, device="cuda")
     bg = torch.zeros(3, device=g.device)
-    pair_fit, kept, _, _ = fit_budgets(g, cam, budget, tile)
+    pair_fit, kept, _, _ = probe_view(g, cam, budget, tile)
     s.phase(f"kernel composite_fwd ({wl})")
     k2 = phase_composite(s, wl, g, cam, pair_fit, kept, tile)
     k3, d = phase_backward(s, wl, g, cam, cam.image, pair_fit, kept, tile)
@@ -1809,7 +1790,7 @@ def serve(s, g, cam_args, views, budget, label):
     for deg in views:
         R, T, fovx, fovy = yaw_camera(cam_args, deg)
         cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
-        pair_fit, kept, n_pairs, n_culled = fit_budgets(g, cam, budget)
+        pair_fit, kept, n_pairs, n_culled = probe_view(g, cam, budget)
 
         def run(on_stage=None):
             return render(cam, g, bg, tile_size=TILE, chunk=CHUNK,
@@ -1882,7 +1863,7 @@ def serve_sat(s, g, cam_args, budget, label):
     R, T, fovx, fovy = cam_args
     cam = make_camera(R, T, fovx, fovy, W, H, device="cuda")
     bg = torch.zeros(3, device=g.device)
-    pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
+    pair_fit, kept, _, _ = probe_view(g, cam, budget)
 
     def run(on_stage=None, sat=None):
         return render_mod.render(cam, g, bg, tile_size=TILE, chunk=CHUNK,
@@ -1890,7 +1871,7 @@ def serve_sat(s, g, cam_args, budget, label):
                                  on_stage=on_stage)
 
     n_sat = int(run(sat=kept).n_sat)
-    sat = -(-n_sat // CHUNK) * CHUNK + CHUNK
+    sat = budgets.chunk_fit(n_sat, CHUNK)
     s.check(abs(n_sat - REF_DENSE_SAT) <= 1e-3 * REF_DENSE_SAT,
             f"{label} sat probe (sat_budget = kept {kept}): n_sat {n_sat} vs JAX package "
             f"{REF_DENSE_SAT} (diff {n_sat - REF_DENSE_SAT:+d}, "
@@ -1967,11 +1948,11 @@ def serve_packed(s, label, g, cam_args, budget, zero, counts):
         base = dict(pair_budget=SPARSE_BUDGET, kept_budget=SPARSE_BUDGET - CHUNK)
         culled = dict(pair_budget=SPARSE_BUDGET, sat_budget=SPARSE_BUDGET)
     else:
-        pair_fit, kept, _, _ = fit_budgets(g, cam, budget)
+        pair_fit, kept, _, _ = probe_view(g, cam, budget)
         base = dict(pair_budget=pair_fit, kept_budget=kept)
         n_sat = int(render(cam, g, bg, tile_size=TILE, chunk=CHUNK, **base,
                            sat_budget=kept).n_sat)
-        culled = dict(base, sat_budget=-(-n_sat // CHUNK) * CHUNK + CHUNK)
+        culled = dict(base, sat_budget=budgets.chunk_fit(n_sat, CHUNK))
     zero()
     renders = {False: 0, True: 0}
     results, images, k2_inputs = {}, {}, {}
@@ -2230,9 +2211,11 @@ def phase_bench(s, card, cells, loss1, counts):
                 f"{got[pre + 'sat_kept']} vs the {label} cell's {cell}: equal {same}")
         # the passes bench.py's fits run: kept where the probe culled, sat
         # where the survivors fall a chunk short of the kept budget
-        pair_fit, kept, contrib = bench.fit_budgets(cell["pairs"], cell["culled"],
-                                                    cell["contrib"], budget, CHUNK)
-        sat = bench.fit_sat(cell["sat_kept"], 0, kept, CHUNK) if cell["culled"] else None
+        pair_fit = budgets.fit_pair_bench(cell["pairs"], budget, CHUNK)
+        kept = budgets.fit_kept(cell["pairs"], cell["culled"], CHUNK)
+        contrib = budgets.fit_contrib(cell["contrib"])
+        sat = (budgets.fit_sat_bench(cell["sat_kept"], 0, kept, CHUNK) if cell["culled"]
+               else None)
         fitted = dict(pair_budget=pair_fit, kept_budget=kept, contrib_budget=contrib)
         runs = {"plain": dict(pair_budget=budget)}      # each pass's render budgets
         if cell["culled"]:
@@ -3698,8 +3681,8 @@ def phase_viewer_serve(s, g, cam_args, tmp, counts):
             if m["resolution_x"] else None for m in msgs]
     # one pair budget for every request, as the loop has: the largest of
     # their fitted budgets with the JAX loop's 1.2x headroom
-    n_pairs = [fit_budgets(g, c, SPARSE_BUDGET)[2] for c in cams if c is not None]
-    budget = -(-int(max(n_pairs) * SAT_HEADROOM) // CHUNK) * CHUNK
+    n_pairs = [probe_view(g, c, SPARSE_BUDGET)[2] for c in cams if c is not None]
+    budget = budgets.ceil_to(max(n_pairs) * budgets.KEPT_REGROW, CHUNK)
     mesh = MeshParams(tile_size=TILE, chunk_size=CHUNK, pair_budget=budget)
     bg = torch.zeros(3, device="cuda")
     root = Path(tmp) / "viewer_serve"

@@ -131,32 +131,12 @@ class MeshParams:
     chunk_size: int = 128        # pairs per compositing chunk
     capacity: int = 1 << 17      # initial Gaussian capacity (padded, static)
     pair_budget: int = 1 << 20   # max (Gaussian, tile) pairs per render (static)
-    kept_frac: float = -1.0      # post-sort stage sizing. -1 (default) =
-                                 # AUTO: the driver fits the kept-pair budget
-                                 # from n_pairs/n_culled telemetry (exploiting
-                                 # the tight tile cull; overflow regrows).
-                                 # 1 = no split; fractions in (0,1) size it as
-                                 # a fraction of pair_budget.
-    sat_frac: float = -1.0       # saturation bound cull: pairs behind a
-                                 # PROVABLE per-tile transmittance bound are
-                                 # cut before the attribute gather / kernels /
-                                 # backward (bit-identical image and
-                                 # gradients). -1 (default) = AUTO: the training
-                                 # loop starts with it off, probes n_sat
-                                 # telemetry every sat_probe_interval iters and
-                                 # enables the cull once it would cut >= 2x
-                                 # (density-proportional win; pure overhead on
-                                 # sparse scenes). 0 = off; > 0 = on, sizing
-                                 # the compacted survivor array as a fraction
-                                 # of pair_budget (regrown adaptively).
-    sat_probe_interval: int = 500  # iterations between auto-mode probes
-    contrib_frac: float = -1.0   # backward d-array / gradient-reduction
-                                 # sizing. -1 (default) = AUTO: fitted from
-                                 # n_contrib telemetry (only pairs composited
-                                 # before per-tile saturation carry gradient;
-                                 # overflow steps zero grads and regrow).
-                                 # 1 = worst-case; fractions in (0,1) size it
-                                 # as a fraction of pair_budget.
+    # the post-sort budgets' modes, whose rules render/budgets.py holds (sat:
+    # the saturation bound cull, bit-identical image and gradients)
+    kept_frac: float = -1.0      # -1 AUTO (fitted), 1 unsplit, (0, 1) of pair_budget
+    sat_frac: float = -1.0       # -1 AUTO (probed), 0 off, > 0 on, of pair_budget
+    sat_probe_interval: int = 500  # iterations between the AUTO cull's probes
+    contrib_frac: float = -1.0   # -1 AUTO (fitted), 1 worst case, (0, 1) of pair_budget
     shard_gaussians: bool = False  # ZeRO-style layout: Gaussian params, Adam
                                  # moments and densify accumulators sharded over
                                  # the data axis (large-N memory scaling); the
@@ -168,33 +148,6 @@ class MeshParams:
 PARAM_GROUPS = (ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams)
 
 Params = Tuple[ModelParams, OptimizationParams, PipelineParams, OtherParams, MeshParams]
-
-
-# the post-sort budgets' starting sizes from MeshParams' fractions (the
-# training loop and the mesh steps)
-def kept_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """kept_frac in (0, 1) sizes the post-sort stages as a fraction of the
-    pair budget; AUTO (< 0, the default) and 1 start unsplit (None)."""
-    if mesh.kept_frac >= 1.0 or mesh.kept_frac < 0:
-        return None
-    return max(int(budget * mesh.kept_frac), mesh.chunk_size)
-
-
-def sat_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """sat_frac > 0 turns the saturation bound cull on, its packed survivors
-    sized as that fraction of the pair budget; AUTO (< 0, the default) and 0
-    start with it off (None)."""
-    if mesh.sat_frac <= 0.0:
-        return None
-    return max(int(budget * mesh.sat_frac), mesh.chunk_size)
-
-
-def contrib_budget0(mesh: MeshParams, budget: int) -> Optional[int]:
-    """contrib_frac in (0, 1) sizes the backward d-table as a fraction of the
-    pair budget; AUTO and 1 start at the worst case (None)."""
-    if mesh.contrib_frac >= 1.0 or mesh.contrib_frac < 0:
-        return None
-    return max(int(budget * mesh.contrib_frac), 512)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

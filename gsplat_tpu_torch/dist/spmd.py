@@ -56,12 +56,12 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from gsplat_tpu_torch import spans
-from gsplat_tpu_torch.config import (MeshParams, OptimizationParams, contrib_budget0,
-                                     kept_budget0, sat_budget0)
+from gsplat_tpu_torch.config import MeshParams, OptimizationParams
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
 from gsplat_tpu_torch.dist import collectives as C
 from gsplat_tpu_torch.dist.mesh import Mesh
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.render.project import Projection, project_gaussians
 from gsplat_tpu_torch.render.render import render, render_projected
 from gsplat_tpu_torch.train.densify import add_densification_stats
@@ -113,15 +113,6 @@ def _band_lead(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
         return counts[:mesh.t].sum()
 
     return lead
-
-
-def _budgets(mp: MeshParams, pair_budget, contrib_budget, sat_budget, kept_budget):
-    budget = pair_budget if pair_budget is not None else mp.pair_budget
-    kept = kept_budget if kept_budget is not None else kept_budget0(mp, budget)
-    contrib = contrib_budget if contrib_budget is not None else contrib_budget0(mp, budget)
-    sat = sat_budget if sat_budget is not None else sat_budget0(mp, budget)
-    return dict(tile_size=mp.tile_size, chunk=mp.chunk_size, pair_budget=budget,
-                kept_budget=kept, contrib_budget=contrib, sat_budget=sat)
 
 
 def _reduce_counts(mesh: Mesh, loss: torch.Tensor, out) -> tuple:
@@ -195,7 +186,8 @@ def make_spmd_train_step(
     band_h = _band_height(height, n_tile, mp.tile_size)
     region = (mesh.t * band_h, band_h)
     lr_fns = make_lr_fns(opt, spatial_lr_scale)
-    kw = _budgets(mp, pair_budget, contrib_budget, sat_budget, kept_budget)
+    kw = dict(tile_size=mp.tile_size, chunk=mp.chunk_size, **budgets.resolve(
+        mp, pair_budget, kept_budget, contrib_budget, sat_budget).kwargs())
 
     def train_step(g: Gaussians, opt_state: AdamState, cams: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None,
@@ -261,7 +253,8 @@ def make_sharded_spmd_train_step(
     band_h = _band_height(height, n_tile, mp.tile_size)
     region = (mesh.t * band_h, band_h)
     lr_fns = make_lr_fns(opt, spatial_lr_scale)
-    kw = _budgets(mp, pair_budget, contrib_budget, sat_budget, kept_budget)
+    kw = dict(tile_size=mp.tile_size, chunk=mp.chunk_size, **budgets.resolve(
+        mp, pair_budget, kept_budget, contrib_budget, sat_budget).kwargs())
 
     def train_step(g: Gaussians, opt_state: AdamState, cams: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None,

@@ -14,10 +14,9 @@ contiguous for the kernel's staging load):
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c | 5..7 rgb |
   8 opacity | 9 the row's gid as an f32 value | 10..15 zero.
 The compositors take the rows and the (P,) int32 sorted gids and read pair
-i's attributes as row gid[i]: no (P, 16) pair table is gathered. Without
-gids they read a table's rows in order (a gathered table is the rows of
-gids arange(P)). The backward's d-table has the same row layout: d{mean x,
-mean y, conic a, b, c, r, g, b, opacity} | the gid key | zero.
+i's attributes as row gid[i]: no (P, 16) pair table is gathered. The
+backward's d-table has the same row layout: d{mean x, mean y, conic a, b,
+c, r, g, b, opacity} | the gid key | zero.
 
 The packed rows (`attr_pack`, raster_pallas.py:238-304 of the reference):
 (N+1, 8) float32, one 32-byte row per Gaussian:
@@ -165,14 +164,6 @@ def _table_width(attrs: torch.Tensor, what: str) -> bool:
     return attrs.shape[1] == PACKED_IN_DIM
 
 
-def _gids(attrs: torch.Tensor, gid: Optional[torch.Tensor]) -> torch.Tensor:
-    """The gids a compositor reads its rows through: `gid`, or a gathered
-    table's own order (arange)."""
-    if gid is None:
-        return torch.arange(attrs.shape[0], dtype=torch.int32, device=attrs.device)
-    return gid
-
-
 def _check_gids(gid: torch.Tensor, attrs: torch.Tensor, chunk: int, what: str) -> None:
     if gid.dtype != torch.int32 or gid.dim() != 1 or not gid.is_contiguous() \
             or gid.device != attrs.device:
@@ -181,13 +172,12 @@ def _check_gids(gid: torch.Tensor, attrs: torch.Tensor, chunk: int, what: str) -
         raise ValueError(f"gids {gid.shape[0]} are not a multiple of chunk {chunk}")
 
 
-def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid=None):
+def composite_fwd_plain(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid):
     """Plain PyTorch version of the composite_fwd kernel (same signature),
     over _PLAIN_TILE_BATCH tiles at a time, pair i's row read as
     attrs[gid[i]]. Within a chunk the exclusive transmittance is a cumprod
     of (1 - alpha) against the chunk's entry T, as in the reference. Packed
     (N+1, 8) rows composite their unpacked values."""
-    gid = _gids(attrs, gid)
     if attrs.shape[1] == PACKED_IN_DIM:
         attrs = unpack_rows(attrs)
     dev = attrs.device
@@ -306,11 +296,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3
              + [ctypes.c_void_p] * 3)
 
 
-def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid=None
+def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """attrs (N+1, 16) attribute rows, or (N+1, 8) packed, read through gid
-    (P,) int32 sorted gids (None: attrs is a gathered (P, 16) or (P, 8)
-    table, read in order); tile_start/tile_count (num_tiles,) int32 segments
+    (P,) int32 sorted gids; tile_start/tile_count (num_tiles,) int32 segments
     of the P pairs -> (tiles (num_tiles, 4, tile_size^2) rgb accumulation +
     final T, nproc (num_tiles,) int32 chunks composited before the
     whole-tile early exit). A tile with no pairs comes out (0, 0, 0, T=1);
@@ -323,7 +312,6 @@ def composite_fwd(attrs, tile_start, tile_count, *, tw, tile_size, chunk, gid=No
     if attrs.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on cuda or cpu, not {attrs.device}")
     packed = _table_width(attrs, "composite_fwd")
-    gid = _gids(attrs, gid)
     _check_gids(gid, attrs, chunk, "composite_fwd")
     npix = tile_size * tile_size
     for tab in (tile_start, tile_count):
@@ -372,7 +360,7 @@ def _conic_mean_grads(dU, mxl, myl, ca, cb, cc):
 
 
 def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
-                        g_tiles, *, tw, tile_size, chunk, p_out, gid=None):
+                        g_tiles, *, tw, tile_size, chunk, p_out, gid):
     """Plain PyTorch version of the composite_bwd kernel (same signature),
     over _PLAIN_TILE_BATCH tiles at a time: the reference's per-chunk
     backward (raster_pallas.py::_bwd_kernel) with exact-f32 sums over the
@@ -385,7 +373,6 @@ def composite_bwd_plain(attrs, tile_start, tile_count, comp_start, nproc, tiles,
     which keeps the algebra's cancellation at tile 64's. Pair i's row is
     attrs[gid[i]]; packed (N+1, 8) rows replay their unpacked values (the
     d-table is the same)."""
-    gid = _gids(attrs, gid)
     if attrs.shape[1] == PACKED_IN_DIM:
         attrs = unpack_rows(attrs)
     dev = attrs.device
@@ -485,13 +472,12 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] *
 
 
 def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_tiles,
-                  *, tw, tile_size, chunk, p_out, gid=None) -> torch.Tensor:
+                  *, tw, tile_size, chunk, p_out, gid) -> torch.Tensor:
     """The backward sweep of composite_fwd: attrs (N+1, 16) attribute rows
     (or (N+1, 8) packed: launches counted in packed_bwd_count) read through
-    gid (P,) int32 sorted gids, as composite_fwd reads them (None: a
-    gathered table read in order), tile_start/tile_count (num_tiles,)
-    int32, comp_start/nproc (num_tiles,) int32 (each tile's region offset
-    and its chunks to replay), tiles (the
+    gid (P,) int32 sorted gids, as composite_fwd reads them,
+    tile_start/tile_count (num_tiles,) int32, comp_start/nproc (num_tiles,)
+    int32 (each tile's region offset and its chunks to replay), tiles (the
     forward's output) and g_tiles (their cotangent), both (num_tiles, 4,
     tile_size^2) f32 -> (p_out, 16) d-table: each replayed chunk's rows at
     [comp_start[t] + j*chunk, +chunk) hold d{mean x, mean y, conic a, b, c,
@@ -523,7 +509,6 @@ def composite_bwd(attrs, tile_start, tile_count, comp_start, nproc, tiles, g_til
             raise ValueError("tiles and their cotangent must be contiguous float32 "
                              "(num_tiles, 4, tile_size^2) on the rows' device")
     d = d_table_prefilled(p_out, attrs.device)
-    gid = _gids(attrs, gid)
     _check_gids(gid, attrs, chunk, "composite_bwd")
     lib = _build.load("composite_bwd")
     fn = lib.composite_bwd_launch

@@ -29,7 +29,8 @@ import torch
 from gsplat_tpu_torch import spans
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians
-from gsplat_tpu_torch.render.binning import bin_gaussians, out_budget, tile_grid
+from gsplat_tpu_torch.render.binning import bin_gaussians, tile_grid
+from gsplat_tpu_torch.render.budgets import Budgets, for_render
 from gsplat_tpu_torch.render.bounds import segment_ends
 from gsplat_tpu_torch.render.project import Projection, project_fwd, project_gaussians
 from gsplat_tpu_torch.render.raster import (ATTR_DIM, KEY_COL, composite_bwd, composite_fwd,
@@ -252,20 +253,15 @@ def render_projected(
 
     tight_cull drops bounding-rect pairs whose max alpha in the tile is
     provably < 1/255 (the image is unchanged; fewer chunks to composite).
-    kept_budget (< pair_budget) sizes the compositor's gid table by the
-    cull's survivors instead of the expansion slots; kept overflow shows up
-    in n_dropped like slot overflow. contrib_budget sizes the backward's
-    d-table by the pairs composited before each tile's early exit
-    (n_contrib); it defaults to a size that cannot overflow, and when the
-    replayed rows exceed it the step's gradient is zeroed (the caller sees
-    n_contrib > contrib_budget). sat_budget (needs tight_cull; at most
-    pair_budget) turns on the saturation bound cull: each tile's pairs are
-    cut at the first chunk boundary where a conservative transmittance bound
-    proves the compositor's whole-tile exit, and the compositor and the
-    backward run on the sat_budget packed survivors. Image, nproc
-    and gradients are bit-identical to the render without it; n_sat reports
-    the rows needed, and an overflow zeroes the gradient and shows in
-    n_dropped. Budgets are rounded up to whole chunks.
+    The kept, contrib and sat budgets size the buffers after the sort
+    (render/budgets.py: what each and None mean, the chunk rounding and
+    caps). A kept or sat overflow shows in n_dropped, a contrib one as
+    n_contrib > contrib_budget; each zeroes the step's gradient. sat_budget
+    (needs tight_cull) turns on the saturation bound cull: each tile's pairs
+    are cut at the first chunk boundary where a conservative transmittance
+    bound proves the whole-tile exit; image, nproc and gradients are
+    bit-identical to the render without it, and n_sat reports the rows
+    needed.
 
     attr_pack composites the packed (N+1, 8) rows (render/raster.py):
     32-byte rows with rgb and opacity rounded to bfloat16, in the image and
@@ -289,35 +285,28 @@ def render_projected(
             f"capacity {n} exceeds the 2^24 exact-f32-id limit of the attribute rows"
         )
     tw, th = tile_grid(width, height, tile_size)
-    pair_budget = -(-pair_budget // chunk) * chunk
-    if kept_budget is None:
-        kept_budget = pair_budget
-    kept_budget = min(-(-kept_budget // chunk) * chunk, pair_budget)
-    if contrib_budget is None:
-        contrib_budget = out_budget(kept_budget, tw * th, chunk)
-    contrib_budget = -(-contrib_budget // chunk) * chunk
-    if sat_budget is not None:
-        if not tight_cull:
-            raise ValueError("sat_budget requires tight_cull=True")
-        sat_budget = min(-(-sat_budget // chunk) * chunk, pair_budget)
+    b = for_render(Budgets(pair_budget, kept_budget, contrib_budget, sat_budget), chunk,
+                   tw * th)
+    if b.sat is not None and not tight_cull:
+        raise ValueError("sat_budget requires tight_cull=True")
 
     binning = bin_gaussians(
         proj.mean2d.detach(), proj.radius, proj.depth.detach(),
         width=width, height=height, tile_size=tile_size, chunk=chunk,
-        pair_budget=pair_budget,
+        pair_budget=b.pair,
         cull_conic=proj.conic.detach() if tight_cull else None,
         cull_opacity=proj.opacity.detach() if tight_cull else None,
-        kept_budget=kept_budget, sat_budget=sat_budget, key_tiles=key_tiles,
+        kept_budget=b.kept, sat_budget=b.sat, key_tiles=key_tiles,
         lead=band_lead, on_stage=on_stage,
     )
 
     # every post-sort stage reads the kept prefix of the sorted pairs or,
     # under the saturation cull, the packed survivors
-    gid_post = binning.gid_s[:kept_budget] if sat_budget is None else binning.gid_s
+    gid_post = binning.gid_s[:b.kept] if b.sat is None else binning.gid_s
     tiles, nproc = _Rasterize.apply(
         _attr_rows(proj), gid_post, binning.tile_start,
         binning.tile_count, binning.grad_ok,
-        (tw, tile_size, chunk, contrib_budget, attr_pack), on_stage)
+        (tw, tile_size, chunk, b.contrib, attr_pack), on_stage)
     with spans.span("untile", on_stage):
         rgb, transmittance = untile_image(tiles, tw, th, tile_size, width, height)
         image = rgb + transmittance[..., None] * bg.to(rgb.device)[None, None, :]

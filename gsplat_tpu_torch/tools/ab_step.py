@@ -2,11 +2,11 @@
 
 Port of scripts/ab_step.py. The bench scene (tools/bench_scene.py) is
 binned once at the pair budget with the tight cull on, to fit the pair and
-kept budgets (the pairs rounded up a chunk, plus a chunk), and stepped once
-with the d-table at the size that cannot overflow, to fit the contrib budget
-(rounded up to 512, plus 512); then the forward + backward at those budgets
-is timed: the best of --iters synced steps, and 10 steps queued back to back
-between two synchronisations (the loop's cadence). It prints one JSON line.
+kept budgets, and stepped once with the d-table at the size that cannot
+overflow, to fit the contrib budget (render/budgets.py's rules); then the
+forward + backward at those budgets is timed: the best of --iters synced
+steps, and 10 steps queued back to back between two synchronisations (the
+loop's cadence). It prints one JSON line.
 The JAX script's A/B levers are environment variables of its kernels; the
 port has none, so the levers here are --chunk and --tile_size.
 
@@ -26,6 +26,7 @@ from typing import List, Optional
 import torch
 
 from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.tools.bench_scene import fwd_bwd, scene_on_device
 
 
@@ -46,9 +47,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="default: the CUDA card; 'cpu' names the CPU")
     ns = ap.parse_args(argv)
 
-    from gsplat_tpu_torch.render.binning import bin_gaussians
-    from gsplat_tpu_torch.render.project import project_gaussians
-
     device = resolve_device(ns.device)
     cuda = device.type == "cuda"
     w, h = ns.size
@@ -62,21 +60,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             torch.cuda.synchronize(device)
 
     print("probing...", file=sys.stderr, flush=True)
-    with torch.no_grad():
-        p = project_gaussians(g, cam)
-        b = bin_gaussians(p.mean2d, p.radius, p.depth, width=w, height=h,
-                          tile_size=ns.tile_size, chunk=chunk, pair_budget=ns.pair_budget,
-                          cull_conic=p.conic, cull_opacity=p.opacity,
-                          kept_budget=ns.pair_budget - chunk)
-        n_pairs, n_culled = int(b.n_pairs), int(b.n_culled)
-    del p, b
-    pair_fit = -(-n_pairs // chunk) * chunk + chunk
-    kept = -(-(n_pairs - n_culled + chunk) // chunk) * chunk
+    n_pairs, n_culled = budgets.probe_pairs(g, cam, ns.pair_budget, tile_size=ns.tile_size,
+                                            chunk=chunk)
+    pair_fit = budgets.chunk_fit(n_pairs, chunk)
+    kept = budgets.fit_kept(n_pairs, n_culled, chunk)
     kw = dict(tile_size=ns.tile_size, chunk=chunk, pair_budget=pair_fit, kept_budget=kept)
 
     print("probing contrib...", file=sys.stderr, flush=True)
     _, out, _ = fwd_bwd(g, cam, bg, **kw)
-    contrib = -(-int(out.n_contrib) // 512) * 512 + 512
+    contrib = budgets.fit_contrib(out.n_contrib)
     kw["contrib_budget"] = contrib
 
     loss, out, grads = fwd_bwd(g, cam, bg, **kw)

@@ -8,11 +8,11 @@ D-SSIM at lambda 0.2, the gradients of every group) in up to three passes:
 
 - plain: the scene's pair budget, the tight tile cull as bench.py asks;
 - kept: the pair, kept and contrib budgets fitted from the plain pass's
-  counts and a binning probe's culled count (`fit_budgets`), where the
-  probe culled any pair;
+  counts and a binning probe's culled count, where the probe culled any
+  pair;
 - sat: the saturation bound cull at a budget fitted from a probe render's
-  survivor rows (`fit_sat`), where they fall a chunk short of the kept
-  budget.
+  survivor rows, where they fall a chunk short of the kept budget
+  (render/budgets.py holds bench.py's fits).
 
 Each pass is timed synced (the best of `iters` steps, each ended by
 torch.cuda.synchronize) and pipelined (10 steps queued back to back between
@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.tools.bench_scene import fwd_bwd, scene_on_device
 from gsplat_tpu_torch.tools.serving_bench import power_limit
 
@@ -90,31 +91,6 @@ TIMED = ("train_step_ms", "step_ms", "plain_step_ms", "kept_step_ms", "sat_step_
 def device_key(key: str) -> str:
     """The `_device_ms` partner of a timed key."""
     return key[:-len("_ms")] + "_device_ms"
-
-
-def fit_budgets(n_pairs: int, n_culled: int, n_contrib: int, pair_budget: int,
-                chunk: int):
-    """bench.py:237-241: the kept pass's budgets from the plain pass's pairs
-    and composited slots and the probe's culled pairs -> (pair budget, kept
-    budget, contrib budget). The pair budget is the pairs rounded up to a
-    chunk, plus a chunk, unless the plain pass filled its budget (then the
-    true total is unknown and the budget stays)."""
-    pair_fit = pair_budget
-    if n_pairs < pair_budget:
-        pair_fit = -(-n_pairs // chunk) * chunk + chunk
-    kept = -(-(n_pairs - n_culled + chunk) // chunk) * chunk
-    contrib = -(-n_contrib // 512) * 512 + 512
-    return pair_fit, kept, contrib
-
-
-def fit_sat(n_sat: int, n_dropped: int, kept: int, chunk: int) -> Optional[int]:
-    """bench.py:284-285: the saturation pass's budget (the probe's survivor
-    rows rounded up to a chunk, plus a chunk), or None where the pass is
-    skipped: the probe dropped pairs, or its survivors are not a chunk
-    short of the kept budget."""
-    if n_dropped != 0 or n_sat + chunk >= kept:
-        return None
-    return -(-n_sat // chunk) * chunk + chunk
 
 
 def time_pass(step: Callable[[], object], iters: int, device: torch.device) -> Dict:
@@ -174,8 +150,6 @@ def run_config(n, width, height, *, tile_size, chunk, pair_budget, iters, device
     with the pass times under bench.py's names (a pass that did not run
     None), the counts, the sparse loss and first_call_s, n_dropped and
     peak_memory_bytes."""
-    from gsplat_tpu_torch.render.binning import bin_gaussians
-    from gsplat_tpu_torch.render.project import project_gaussians
     from gsplat_tpu_torch.render.render import render
 
     cuda = device.type == "cuda"
@@ -207,19 +181,14 @@ def run_config(n, width, height, *, tile_size, chunk, pair_budget, iters, device
 
     n_sat = 0
     if auto_kept:
-        # the culled count: bin with kept_budget < pair_budget, which turns
-        # the cull on where the plain pass's budget left it off
-        with torch.no_grad():
-            p = project_gaussians(g, cam)
-            b = bin_gaussians(p.mean2d, p.radius, p.depth, width=width, height=height,
-                              tile_size=tile_size, chunk=chunk, pair_budget=pair_budget,
-                              cull_conic=p.conic, cull_opacity=p.opacity,
-                              kept_budget=pair_budget - chunk)
-            n_culled = int(b.n_culled)
-            del p, b
+        # the culled count: the probe turns the cull on where the plain
+        # pass's budget left it off
+        _, n_culled = budgets.probe_pairs(g, cam, pair_budget, tile_size=tile_size,
+                                          chunk=chunk)
     if auto_kept and n_culled > 0:
-        pair_fit, kept, contrib = fit_budgets(n_pairs, n_culled, n_contrib, pair_budget,
-                                              chunk)
+        pair_fit = budgets.fit_pair_bench(n_pairs, pair_budget, chunk)
+        kept = budgets.fit_kept(n_pairs, n_culled, chunk)
+        contrib = budgets.fit_contrib(n_contrib)
         fitted = dict(pair_budget=pair_fit, kept_budget=kept, contrib_budget=contrib)
         print(f"kept-budget pass (pair_budget={pair_fit}, kept={kept}, contrib={contrib})",
               file=sys.stderr, flush=True)
@@ -233,7 +202,7 @@ def run_config(n, width, height, *, tile_size, chunk, pair_budget, iters, device
                            sat_budget=pair_fit, **fitted)
             n_sat, probe_dropped = int(probe.n_sat), int(probe.n_dropped)
             del probe
-        sat = fit_sat(n_sat, probe_dropped, kept, chunk)
+        sat = budgets.fit_sat_bench(n_sat, probe_dropped, kept, chunk)
         if sat is not None:
             print(f"sat-cull pass (sat={sat} of kept={kept})", file=sys.stderr, flush=True)
             sat_step = step(tight_cull=True, sat_budget=sat, **fitted)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.render import budgets
 
 IMAGE_ATOL, GRAD_RTOL, KEPT_ATOL = 2e-4, 5e-3, 3e-4
 
@@ -74,7 +75,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the budget scales with n (~82 pairs a Gaussian covers the default
     # scene's splats): dropped pairs would truncate the image and zero the
     # gradients, a harness artefact and not a kernel difference
-    budget = max(1 << 14, -(-82 * ns.n // 128) * 128)
+    budget = max(1 << 14, budgets.ceil_to(82 * ns.n, 128))
     kw = dict(tile_size=ns.tile_size, chunk=128, pair_budget=budget)
 
     def grads_of(image_fn):

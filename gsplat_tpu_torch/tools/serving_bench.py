@@ -8,7 +8,8 @@ for read-only inference). For the sparse (2.25 tile pairs a Gaussian) and
 dense (33) scenes of tools/bench_scene.py at tile 32, chunk 128, it fits
 the budgets by the reference's probes (the kept count from a binning at
 the scene's pair budget, then the saturation cull's survivors at that kept
-budget, the cull used where they are fewer than half the kept pairs), then
+budget, the cull used where they are fewer than half the kept pairs; the
+fits are render/budgets.py's), then
 times synced frames (the best of --iters, each ended by a read of one
 pixel) and pipelined frames (10 renders queued, then one read; their mean).
 
@@ -33,6 +34,7 @@ from typing import List, Optional
 import torch
 
 from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.tools.bench_scene import scene_on_device
 
 TILE, CHUNK = 32, 128
@@ -52,26 +54,19 @@ def power_limit() -> Optional[str]:
     return lines[0].strip() if out.returncode == 0 and lines else None
 
 
-def fit_budgets(g, cam, budget, chunk=CHUNK):
-    """The reference's two probe binnings -> (pair budget, kept budget, sat
-    budget or None, pairs, kept pairs, sat survivors)."""
+def sat_survivors(g, cam, pair_budget, kept):
+    """The reference's second probe binning: the saturation cull's survivor
+    rows at the fitted pair budget, with a sat budget of the kept one."""
     from gsplat_tpu_torch.render.binning import bin_gaussians
     from gsplat_tpu_torch.render.project import project_gaussians
 
     with torch.no_grad():
         p = project_gaussians(g, cam)
-        kw = dict(width=cam.width, height=cam.height, tile_size=TILE, chunk=chunk,
-                  cull_conic=p.conic, cull_opacity=p.opacity)
-        b = bin_gaussians(p.mean2d, p.radius, p.depth, pair_budget=budget,
-                          kept_budget=budget - chunk, **kw)
-        n_pairs, n_culled = int(b.n_pairs), int(b.n_culled)
-        pair_fit = min(-(-n_pairs // chunk) * chunk + chunk, budget)
-        kept = -(-(n_pairs - n_culled + chunk) // chunk) * chunk
-        b = bin_gaussians(p.mean2d, p.radius, p.depth, pair_budget=pair_fit,
-                          kept_budget=kept, sat_budget=kept, **kw)
-        n_sat = int(b.n_sat)
-    sat = -(-n_sat // chunk) * chunk + chunk if 2 * n_sat < n_pairs - n_culled else None
-    return pair_fit, kept, sat, n_pairs, n_pairs - n_culled, n_sat
+        b = bin_gaussians(p.mean2d, p.radius, p.depth, width=cam.width, height=cam.height,
+                          tile_size=TILE, chunk=CHUNK, cull_conic=p.conic,
+                          cull_opacity=p.opacity, pair_budget=pair_budget, kept_budget=kept,
+                          sat_budget=kept)
+        return int(b.n_sat)
 
 
 def time_render(cam, g, bg, *, iters, **kw):
@@ -122,7 +117,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         g, cam = scene_on_device(ns.n, w, h, target_pairs_per_gaussian=ppg, tile_size=TILE,
                                  device=device)
         bg = torch.zeros(3, dtype=torch.float32, device=device)
-        pair_fit, kept, sat, n_pairs, n_kept, n_sat = fit_budgets(g, cam, budget)
+        n_pairs, n_culled = budgets.probe_pairs(g, cam, budget, tile_size=TILE, chunk=CHUNK)
+        pair_fit, kept = budgets.fit_pair(n_pairs, budget, CHUNK), budgets.fit_kept(
+            n_pairs, n_culled, CHUNK)
+        n_kept = n_pairs - n_culled
+        n_sat = sat_survivors(g, cam, pair_fit, kept)
+        sat = budgets.fit_sat(n_sat, n_kept, CHUNK)
         print(f"{name}: pairs {n_pairs} kept {n_kept} sat {n_sat}", file=sys.stderr,
               flush=True)
         best, pipe = time_render(cam, g, bg, iters=ns.iters, pair_budget=pair_fit,

@@ -7,9 +7,9 @@ per-group Adam -> densification statistics. `train` is the reference's
 single-device driver, its events in the reference's order each iteration:
 the network GUI's pending requests (and its pause); SH annealing every 1000
 iterations; the camera pick from Python's global
-`random`; the random background; the step; the adaptive pair, sat, kept and
-contrib budgets, read back every 10 iterations only; the saturation cull's
-AUTO probe and enable; logging and metrics; evaluation; PLY saves;
+`random`; the random background; the step; the adaptive budgets (read back
+every 10 iterations only) and the saturation cull's AUTO probe and enable,
+as render/budgets.py decides them; logging and metrics; evaluation; PLY saves;
 densify/prune with capacity growth; the opacity reset; the checkpoint, last.
 A KeyboardInterrupt saves an interrupt checkpoint; checkpoints carry the
 loop's state for an exact resume.
@@ -78,8 +78,7 @@ from gsplat_tpu_torch._device import resolve_device
 from gsplat_tpu_torch.ckpt import (load_checkpoint, load_checkpoint_extras, save_checkpoint,
                                    save_ply)
 from gsplat_tpu_torch.config import (MeshParams, ModelParams, OptimizationParams, OtherParams,
-                                     PipelineParams, cfg_args_string, contrib_budget0,
-                                     kept_budget0, print_params, sat_budget0)
+                                     PipelineParams, cfg_args_string, print_params)
 from gsplat_tpu_torch.core.camera import Camera
 from gsplat_tpu_torch.core.gaussians import Gaussians, grow_capacity
 from gsplat_tpu_torch.dist import collectives
@@ -89,6 +88,7 @@ from gsplat_tpu_torch.dist.mesh import backend_banner, make_mesh, world_info
 from gsplat_tpu_torch.dist.spmd import make_sharded_spmd_train_step, make_spmd_train_step
 from gsplat_tpu_torch.network_gui import (GuiRequest, NetworkGUIServer, camera_from_request,
                                           image_to_bytes)
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.render.filter3d import camera_table, filter3d
 from gsplat_tpu_torch.render.render import render
 from gsplat_tpu_torch.scene import Scene
@@ -160,12 +160,7 @@ def make_train_step(
     "densify_stats") so a caller can time them: each stage is a span of
     gsplat_tpu_torch.spans under the step's root span ("step")."""
     lr_fns = make_lr_fns(opt, spatial_lr_scale)
-    budget = pair_budget if pair_budget is not None else mesh.pair_budget
-    kept = kept_budget if kept_budget is not None else kept_budget0(mesh, budget)
-    if contrib_budget is None:
-        contrib_budget = contrib_budget0(mesh, budget)
-    if sat_budget is None:
-        sat_budget = sat_budget0(mesh, budget)
+    b = budgets.resolve(mesh, pair_budget, kept_budget, contrib_budget, sat_budget)
 
     def train_step(g: Gaussians, opt_state: AdamState, cam: Camera, bg: torch.Tensor,
                    step: int, ema, on_stage: Optional[Callable[[str], None]] = None):
@@ -176,9 +171,8 @@ def make_train_step(
                                  requires_grad=True)
             with torch.enable_grad():
                 out = render(cam, g.replace(**params), bg, tile_size=mesh.tile_size,
-                             chunk=mesh.chunk_size, pair_budget=budget, kept_budget=kept,
-                             contrib_budget=contrib_budget, sat_budget=sat_budget,
-                             mean2d_offset=offset, on_stage=on_stage)
+                             chunk=mesh.chunk_size, mean2d_offset=offset, on_stage=on_stage,
+                             **b.kwargs())
                 with spans.span("loss", on_stage):
                     loss = photometric_loss(out.image, cam.image, opt.lambda_dssim)
                 with spans.span("backward", on_stage, adopt=True):
@@ -369,9 +363,7 @@ def train(
     mip_cams = camera_table(train_cams, device) if model.mip_splatting else None
     if mip_cams is not None:
         g = mip_filter(g, mip_cams)
-    pair_budget = mesh.pair_budget
-    if "pair_budget" in resume_extras:  # resume with the grown budget, no re-ramp
-        pair_budget = max(pair_budget, int(resume_extras["pair_budget"]))
+    policy = budgets.BudgetPolicy(mesh, resume_extras)
     spmd = mesh.data_axis * mesh.tile_axis > 1
     sharded = spmd and mesh.shard_gaussians
     if mesh.shard_gaussians and not spmd:
@@ -410,46 +402,16 @@ def train(
         """The model's capacity (a shard holds 1 / data_axis of it)."""
         return g_.capacity * (mesh.data_axis if sharded else 1)
 
-    # AUTO budgets (kept_frac / contrib_frac / sat_frac = -1, the defaults):
-    # start unsplit / worst-case and fit from telemetry. Manual fractions and
-    # explicit 0/1 keep their fixed semantics.
-    kept_auto = mesh.kept_frac < 0.0
-    kept_budget = kept_budget0(mesh, pair_budget)  # None in auto/off modes
-    if "kept_budget" in resume_extras:
-        if kept_budget is not None:
-            kept_budget = max(kept_budget, int(resume_extras["kept_budget"]))
-        elif kept_auto:
-            kept_budget = int(resume_extras["kept_budget"])
-    contrib_auto = mesh.contrib_frac < 0.0
-    contrib_budget = contrib_budget0(mesh, pair_budget)
-    if "contrib_budget" in resume_extras:
-        if contrib_budget is not None:
-            contrib_budget = max(contrib_budget, int(resume_extras["contrib_budget"]))
-        elif contrib_auto:
-            contrib_budget = int(resume_extras["contrib_budget"])
-    sat_auto = mesh.sat_frac < 0.0
-    sat_budget = sat_budget0(mesh, pair_budget)
-    if "sat_budget" in resume_extras:
-        if sat_budget is not None:
-            sat_budget = max(sat_budget, int(resume_extras["sat_budget"]))
-        elif sat_auto:  # auto mode had enabled the cull before the checkpoint
-            sat_budget = int(resume_extras["sat_budget"])
-
-    def build_step(budget, contrib, sat, kept):
-        kw = dict(pair_budget=budget, contrib_budget=contrib, sat_budget=sat,
-                  kept_budget=kept)
+    def build_step(b: budgets.Budgets):
         if sharded:
             return make_sharded_spmd_train_step(dev_mesh, opt, mesh, g.spatial_lr_scale,
-                                                w, h, **kw)
+                                                w, h, **b.kwargs())
         if spmd:
-            return make_spmd_train_step(dev_mesh, opt, mesh, g.spatial_lr_scale, w, h, **kw)
-        return make_train_step(opt, mesh, g.spatial_lr_scale, w, h, **kw)
+            return make_spmd_train_step(dev_mesh, opt, mesh, g.spatial_lr_scale, w, h,
+                                        **b.kwargs())
+        return make_train_step(opt, mesh, g.spatial_lr_scale, w, h, **b.kwargs())
 
-    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-    low_usage_streak = 0
-    low_contrib_streak = 0
-    low_sat_streak = 0
-    low_kept_streak = 0
+    train_step = built = None       # the step, and the budgets it was built at
 
     metrics = MetricsLogger(model.model_path if is_main else None)
     # the live viewer and the SIBR network GUI on --ip/--port: best-effort,
@@ -469,7 +431,8 @@ def train(
     ema_loss = torch.zeros((), dtype=torch.float32, device=device)
     # exact resume: restore every loop-level generator and cursor the step
     # sequence depends on: the torch generator, Python's `random` state that
-    # drives the camera shuffles, the unconsumed camera order, EMA, streak
+    # drives the camera shuffles, the unconsumed camera order, EMA (the
+    # budgets and their streak: the policy)
     if resume_extras:
         if "torch_rng" in resume_extras:
             rng.set_state(torch.from_numpy(np.array(resume_extras["torch_rng"], np.uint8)))
@@ -483,24 +446,18 @@ def train(
         if "ema_loss" in resume_extras:
             ema_loss = torch.tensor(float(resume_extras["ema_loss"]), dtype=torch.float32,
                                     device=device)
-        if "low_usage_streak" in resume_extras:
-            low_usage_streak = int(resume_extras["low_usage_streak"])
         if "py_random" in resume_extras:
             random.setstate(pickle.loads(resume_extras["py_random"].tobytes()))
 
     def loop_extras() -> dict:
+        extras = policy.extras()
+        streak = extras.pop("low_usage_streak")
         return {
             "torch_rng": rng.get_state().numpy(),
             "ema_loss": np.asarray(float(ema_loss), np.float32),
-            "pair_budget": np.asarray(pair_budget, np.int64),
-            **({"contrib_budget": np.asarray(contrib_budget, np.int64)}
-               if contrib_budget is not None else {}),
-            **({"kept_budget": np.asarray(kept_budget, np.int64)}
-               if kept_budget is not None else {}),
-            **({"sat_budget": np.asarray(sat_budget, np.int64)}
-               if sat_budget is not None else {}),
+            **extras,
             "cam_order": np.asarray(cam_order, np.int64),
-            "low_usage_streak": np.asarray(low_usage_streak, np.int64),
+            "low_usage_streak": streak,
             "py_random": np.frombuffer(pickle.dumps(random.getstate()), np.uint8).copy(),
         }
 
@@ -524,7 +481,7 @@ def train(
                                 continue
                             viewer.training_paused = False
                             break
-                        _serve_gui_request(viewer, req, g, bg, mesh, pair_budget)
+                        _serve_gui_request(viewer, req, g, bg, mesh, policy.pair)
                         viewer.training_paused = not req.do_training and req.keep_alive
 
                 # SH degree annealing every 1000 iters (reference gaussian_model.cpp:307-313)
@@ -559,160 +516,28 @@ def train(
                     profiler = None
                     printer.print(f"profiler trace written to {trace}")
 
+                if policy.budgets != built:
+                    built = policy.budgets
+                    train_step = build_step(built)
                 (g, opt_state, loss, ema_loss, n_pairs, n_dropped, n_culled,
                  n_contrib, n_sat) = train_step(
                     g, opt_state, global_camera_batch(dev_mesh, picks) if spmd else cam,
                     step_bg, iteration, ema_loss)
 
-                # --- adaptive pair budget: every gather/sort in the render
-                # pipeline scales with the budget. Checked every 10 iters only:
-                # scalar readbacks are host syncs; a short lag of dropped-pair
-                # steps is harmless ---
-                if iteration % 10 != 0:
-                    pass
-                elif sat_budget is not None and int(n_sat) > sat_budget:
-                    # sat overflow zeroed this step's gradients (and truncated the
-                    # image); regrow first: its excess also lands in n_dropped,
-                    # so a premature pair-budget doubling must not fire on it
-                    sat_budget = max(sat_budget * 2,
-                                     -(-int(n_sat) // mesh.chunk_size) * mesh.chunk_size)
-                    printer.print(
-                        f"[iter {iteration}] sat budget -> {sat_budget} "
-                        f"({int(n_sat)} survivor slots; recompiling)"
-                    )
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                    low_sat_streak = 0
-                elif (kept_budget is not None and int(n_dropped) > 0
-                      and int(n_pairs) < pair_budget):
-                    # n_pairs < pair_budget means the expansion fit: the drop is
-                    # a KEPT-budget overflow (grad_ok zeroed this step); regrow to
-                    # the observed demand (kept + dropped) with 20% headroom
-                    kept_budget = min(pair_budget, max(
-                        kept_budget * 2,
-                        -(-int((kept_budget + int(n_dropped)) * 1.2)
-                          // mesh.chunk_size) * mesh.chunk_size,
-                    ))
-                    printer.print(
-                        f"[iter {iteration}] kept budget -> {kept_budget} "
-                        f"({int(n_dropped)} kept pairs dropped; recompiling)"
-                    )
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                    low_kept_streak = 0
-                elif int(n_dropped) > 0:
-                    pair_budget *= 2
-                    if contrib_budget is not None:
-                        contrib_budget *= 2
-                    printer.print(
-                        f"[iter {iteration}] pair budget {pair_budget // 2} -> {pair_budget} "
-                        f"({int(n_dropped)} pairs dropped; recompiling)"
-                    )
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                    low_usage_streak = 0
-                elif contrib_budget is not None and int(n_contrib) > contrib_budget:
-                    # contrib overflow zeroed this step's gradients (the image is
-                    # still exact); regrow the compaction budget
-                    contrib_budget = max(contrib_budget * 2, -(-int(n_contrib) // 512) * 512)
-                    printer.print(
-                        f"[iter {iteration}] contrib budget -> {contrib_budget} "
-                        f"({int(n_contrib)} compacted rows; recompiling)"
-                    )
-                    train_step = build_step(pair_budget, contrib_budget, sat_budget, kept_budget)
-                    low_contrib_streak = 0
-                elif int(n_pairs) * 4 < pair_budget and pair_budget > mesh.pair_budget:
-                    low_usage_streak += 1
-                    if low_usage_streak >= 20:  # 20 checks x 10 iters = 200 iterations
-                        pair_budget //= 2
-                        printer.print(f"[iter {iteration}] pair budget shrink -> {pair_budget}")
-                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                kept_budget)
-                        low_usage_streak = 0
-                else:
-                    low_usage_streak = 0
-                    if (contrib_budget is not None
-                            and int(n_contrib) * 4 < contrib_budget
-                            and contrib_budget > (contrib_budget0(mesh, pair_budget) or 512)):
-                        low_contrib_streak += 1
-                        if low_contrib_streak >= 20:
-                            contrib_budget //= 2
-                            printer.print(
-                                f"[iter {iteration}] contrib budget shrink -> {contrib_budget}")
-                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                    kept_budget)
-                            low_contrib_streak = 0
-                    elif (contrib_auto and contrib_budget is None
-                            and int(n_contrib) * 2 < (kept_budget or pair_budget)):
-                        # AUTO contrib (contrib_frac=-1): bootstrap the backward
-                        # compaction once the composited-pair count is provably
-                        # far below the worst-case d-table
-                        low_contrib_streak += 1
-                        if low_contrib_streak >= 20:
-                            contrib_budget = max(-(-int(int(n_contrib) * 1.5) // 512) * 512, 512)
-                            printer.print(
-                                f"[iter {iteration}] contrib budget fit -> "
-                                f"{contrib_budget} ({int(n_contrib)} composited "
-                                f"rows; recompiling)"
-                            )
-                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                    kept_budget)
-                            low_contrib_streak = 0
-                    else:
-                        low_contrib_streak = 0
-                    if (sat_budget is not None
-                            and int(n_sat) * 4 < sat_budget
-                            and sat_budget > (sat_budget0(mesh, pair_budget) or mesh.chunk_size)):
-                        low_sat_streak += 1
-                        if low_sat_streak >= 20:
-                            sat_budget //= 2
-                            printer.print(f"[iter {iteration}] sat budget shrink -> {sat_budget}")
-                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                    kept_budget)
-                            low_sat_streak = 0
-                    else:
-                        low_sat_streak = 0
-                    # AUTO kept budget (kept_frac=-1): bootstrap/refit the
-                    # post-sort split from the kept-pair telemetry
-                    fitted_kept = max(int(n_pairs) - int(n_culled), 0)
-                    kept_target = -(-int(fitted_kept * 1.5 + mesh.chunk_size)
-                                    // mesh.chunk_size) * mesh.chunk_size
-                    if kept_auto and kept_target * 2 < (kept_budget or pair_budget):
-                        low_kept_streak += 1
-                        if low_kept_streak >= 20:
-                            kept_budget = max(kept_target, mesh.chunk_size)
-                            printer.print(
-                                f"[iter {iteration}] kept budget fit -> "
-                                f"{kept_budget} (kept {fitted_kept} of "
-                                f"{int(n_pairs)} pairs; recompiling)"
-                            )
-                            train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                    kept_budget)
-                            low_kept_streak = 0
-                    else:
-                        low_kept_streak = 0
-
-                # --- AUTO saturation cull (default, sat_frac=-1): probe n_sat
-                # every sat_probe_interval iters while off; enable once the cull
-                # would provably cut the post-sort pair stages >= 2x. The cull is
-                # bit-identical by construction, so enabling it mid-run changes
-                # nothing but step time. Guards: the sat key packing needs gid <
-                # 2^24 and an exact int32 quanta cumsum (kept < 2^25). ---
-                if (sat_auto and sat_budget is None
-                        and iteration % mesh.sat_probe_interval == 0
-                        and pair_budget < (1 << 25) and capacity(g) < (1 << 24)):
-                    ns_p, np_p, nc_p, nd_p = _agree(dev_mesh, device, *_sat_probe(
+                # --- the adaptive budgets, checked every 10 iterations only:
+                # the counters' one read is a host sync; a short lag of
+                # dropped-pair steps is harmless. A change rebuilds the step ---
+                lines = []
+                if iteration % 10 == 0:
+                    lines = policy.check(iteration, *torch.stack([c.to(torch.int64) for c in (
+                        n_pairs, n_dropped, n_culled, n_contrib, n_sat)]).tolist())
+                if (iteration % mesh.sat_probe_interval == 0
+                        and policy.probes_sat(capacity(g))):
+                    lines += policy.sat_probe(iteration, *_agree(dev_mesh, device, *_sat_probe(
                         to_host_view(g), cam, bg, tile_size=mesh.tile_size,
-                        chunk=mesh.chunk_size, pair_budget=pair_budget))
-                    kept_live = int(np_p) - int(nc_p)
-                    if int(nd_p) == 0 and 2 * int(ns_p) < kept_live:
-                        sat_budget = (-(-int(ns_p) // mesh.chunk_size) * mesh.chunk_size
-                                      + mesh.chunk_size)
-                        printer.print(
-                            f"[iter {iteration}] saturation cull AUTO-ENABLED: "
-                            f"{int(ns_p)} survivor slots of {kept_live} kept pairs "
-                            f"(sat budget {sat_budget}; recompiling)"
-                        )
-                        train_step = build_step(pair_budget, contrib_budget, sat_budget,
-                                                kept_budget)
-                        low_sat_streak = 0
+                        chunk=mesh.chunk_size, pair_budget=policy.pair)))
+                for line in lines:
+                    printer.print(line)
 
                 # --- logging / eval / save before densify/reset (upstream order:
                 # an eval or save on an opacity-reset iteration sees the
@@ -723,7 +548,7 @@ def train(
                     if viewer is not None and viewer.url:
                         viewer.publish(eval_render(
                             g, train_cams[0], bg, tile_size=mesh.tile_size,
-                            chunk=mesh.chunk_size, pair_budget=pair_budget))
+                            chunk=mesh.chunk_size, pair_budget=policy.pair))
                     printer.print(
                         f"iter {iteration}/{opt.iterations} loss {float(loss):.5f} "
                         f"ema {float(ema_loss):.5f} gaussians {int(g.n_live)} "
@@ -742,7 +567,7 @@ def train(
                     g_eval = to_host_view(g)       # a collective: every rank gathers
                     if is_main:
                         evaluate(scene, g_eval, bg, opt, mesh, printer, iteration, metrics,
-                                 pair_budget=pair_budget)
+                                 pair_budget=policy.pair)
                     del g_eval
 
                 if iteration in other.save_iterations:

@@ -98,7 +98,7 @@ def tables():
         gathered, ts, tc = pair_tables(F.make_scene(**kw))
         p = packed(gathered)
         tiles, nproc = traster.composite_fwd(p, ts, tc, tw=TW, tile_size=F.TILE,
-                                             chunk=F.CHUNK)
+                                             chunk=F.CHUNK, gid=F.table_gids(p))
         g = np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32)
         out[name] = (p, ts, tc, tiles, nproc, torch.from_numpy(g))
     return out
@@ -121,7 +121,8 @@ def test_composite_bwd_packed_matches_jax(tables, name):
     p_out = out_budget(p.shape[0], ts.shape[0], F.CHUNK)
     np_c, comp_start, _ = contrib_regions(nproc, F.CHUNK, p_out)
     got = traster.composite_bwd(p, ts, tc, comp_start, np_c, tiles, g, tw=TW,
-                                tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out).numpy()
+                                tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out,
+                                gid=F.table_gids(p)).numpy()
     want = np.asarray(jr.composite_bwd(
         jnp.asarray(p.numpy().T), jnp.asarray(ts.numpy()), jnp.asarray(tc.numpy()),
         jnp.asarray(comp_start.numpy()), jnp.asarray(np_c.numpy()), jnp.asarray(tiles.numpy()),
@@ -136,7 +137,8 @@ def test_composite_bwd_packed_matches_jax(tables, name):
     assert (got[rows, traster.KEY_COL + 1:] == 0).all()
     # the d-table of the packed table is the f32 table's of the same values
     same = traster.composite_bwd(traster.unpack_rows(p), ts, tc, comp_start, np_c, tiles, g,
-                                 tw=TW, tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out)
+                                 tw=TW, tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out,
+                                 gid=F.table_gids(p))
     np.testing.assert_array_equal(bits(got), bits(same.numpy()))
 
 

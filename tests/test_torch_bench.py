@@ -8,8 +8,8 @@ a subprocess (importing it points JAX's compile cache at a directory and
 installs kernel cache keys for the whole process), and writes its arrays to
 an .npz. No JAX render runs.
 
-The tool on the CPU (the kernels' plain versions): the budget fits against
-cases worked by hand from bench.py's formulas; `main`'s JSON line (bench.py's
+The tool on the CPU (the kernels' plain versions; its budget fits are
+tested in test_torch_budgets.py): `main`'s JSON line (bench.py's
 keys, renamed and added as the tool's docstring says) at a tiny scene, its
 counts equal to a direct render's; the three passes of `run_config` on a
 scene where all three run; and `main` without a card.
@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from gsplat_tpu_torch.core.gaussians import pad_fill
+from gsplat_tpu_torch.render import budgets
 from gsplat_tpu_torch.render.binning import bin_gaussians
 from gsplat_tpu_torch.render.project import project_gaussians
 from gsplat_tpu_torch.render.render import render
@@ -105,42 +106,6 @@ def test_build_scene_matches_bench_py(jax_scenes, aniso, ppg):
     p = project_gaussians(g, cam)
     assert not bool(g.live_mask[N:].any())
     assert int((p.radius[N:] != 0).sum()) == 0 and int((p.radius[:N] > 0).sum()) > 0
-
-
-# (pairs, culled, contrib, pair budget, chunk) -> (pair budget, kept, contrib),
-# each worked from bench.py:237-241 by hand
-FIT_CASES = [
-    # the sparse scene's counts in BENCH_r05.json: 2,105,855 pairs = 16,451
-    # chunks + 127 -> 16,452 chunks + 1; 1,917,886 + 128 kept -> 14,985
-    # chunks; 1,606,016 contrib = 3,136.75 x 512 -> 3,137 x 512 + 512
-    ((2_105_855, 187_969, 1_606_016, 5 << 19, 128), (2_105_984, 1_918_080, 1_606_656)),
-    # a whole number of chunks still gains one; contrib a multiple of 512 too
-    ((1024, 0, 512, 4096, 128), (1152, 1152, 1024)),
-    # the plain pass filled its budget: the pair budget stays
-    ((4096, 100, 1000, 4096, 128), (4096, 4224, 1536)),
-    # one pair short of the budget: rounded up, past it
-    ((4095, 95, 1, 4096, 128), (4224, 4224, 1024)),
-    ((300, 299, 0, 1 << 14, 32), (352, 64, 512)),
-]
-# (n_sat, n_dropped, kept, chunk) -> sat budget or None (bench.py:284-285)
-SAT_CASES = [
-    ((2_176_896, 0, 1_918_080, 128), None),    # the sparse scene: more survivors than kept
-    ((1_823_232, 0, 25_948_160, 128), 1_823_360),   # 14,244 chunks exactly, plus one
-    ((1000, 0, 1128, 128), None),              # n_sat + chunk == kept
-    ((999, 0, 1128, 128), 1152),               # one row less: the pass runs
-    ((10, 3, 4096, 128), None),                # the probe dropped pairs
-    ((0, 0, 4096, 32), 32),
-]
-
-
-@pytest.mark.parametrize("args, want", FIT_CASES)
-def test_fit_budgets(args, want):
-    assert bench.fit_budgets(*args) == want
-
-
-@pytest.mark.parametrize("args, want", SAT_CASES)
-def test_fit_sat(args, want):
-    assert bench.fit_sat(*args) == want
 
 
 def expected_keys():
@@ -223,14 +188,15 @@ def test_run_config_three_passes(monkeypatch):
                       chunk=chunk, pair_budget=budget, cull_conic=p.conic,
                       cull_opacity=p.opacity, kept_budget=budget - chunk)
     assert res["culled"] == int(b.n_culled) > 0
-    pair_fit, kept, contrib_fit = bench.fit_budgets(pairs, int(b.n_culled), contrib, budget,
-                                                    chunk)
+    pair_fit = budgets.fit_pair_bench(pairs, budget, chunk)
+    kept = budgets.fit_kept(pairs, int(b.n_culled), chunk)
+    contrib_fit = budgets.fit_contrib(contrib)
     fitted = dict(tile_size=tile, chunk=chunk, pair_budget=pair_fit, kept_budget=kept,
                   contrib_budget=contrib_fit)
     with torch.no_grad():
         probe = render(cam, g, bg, sat_budget=pair_fit, **fitted)
     assert res["sat_kept"] == int(probe.n_sat)
-    sat = bench.fit_sat(int(probe.n_sat), int(probe.n_dropped), kept, chunk)
+    sat = budgets.fit_sat_bench(int(probe.n_sat), int(probe.n_dropped), kept, chunk)
     assert sat is not None
     for kw in ({}, {"sat_budget": sat}):
         loss, out, grads = fwd_bwd(g, cam, bg, **fitted, **kw)

@@ -29,14 +29,16 @@ CASES = {"kept": (False, False), "kept-packed": (False, True),
 
 class _TableRasterize(torch.autograd.Function):
     """_Rasterize reading a gathered pair table: the rows gathered through
-    the gids, K2 and K3 reading the table in order, the same reduction."""
+    the gids, K2 and K3 reading the table in order (through arange gids),
+    the same reduction."""
 
     @staticmethod
     def forward(ctx, attrs, gid_s, tile_start, tile_count, grad_ok, static, on_stage):
         tw, tile_size, chunk, _, attr_pack = static
         table = trender._gid_rows(attrs, attr_pack).index_select(0, gid_s)
         tiles, nproc = traster.composite_fwd(table, tile_start, tile_count, tw=tw,
-                                             tile_size=tile_size, chunk=chunk)
+                                             tile_size=tile_size, chunk=chunk,
+                                             gid=F.table_gids(table))
         ctx.save_for_backward(table, tile_start, tile_count, nproc, grad_ok, tiles)
         ctx.static, ctx.n_rows = static, attrs.shape[0]
         ctx.mark_non_differentiable(nproc)
@@ -49,7 +51,7 @@ class _TableRasterize(torch.autograd.Function):
         np_c, comp_start, overflow = trender.contrib_regions(nproc, chunk, c_budget)
         d = traster.composite_bwd(table, tile_start, tile_count, comp_start, np_c, tiles,
                                   g_tiles.contiguous(), tw=tw, tile_size=tile_size,
-                                  chunk=chunk, p_out=c_budget)
+                                  chunk=chunk, p_out=c_budget, gid=F.table_gids(table))
         d_attrs = trender.reduce_by_gid(d, ctx.n_rows)
         return (d_attrs * (grad_ok & ~overflow).to(d_attrs.dtype),
                 None, None, None, None, None, None)
@@ -92,7 +94,7 @@ def test_compositors_by_gid_equal_the_gathered_table(case, monkeypatch):
     ts, tc = b.tile_start, b.tile_count
     fwd = dict(tw=tw, tile_size=tile, chunk=chunk)
     tiles, nproc = traster.composite_fwd(rows, ts, tc, gid=gid, **fwd)
-    want_tiles, want_np = traster.composite_fwd(table, ts, tc, **fwd)
+    want_tiles, want_np = traster.composite_fwd(table, ts, tc, gid=F.table_gids(table), **fwd)
     assert torch.equal(bits(tiles), bits(want_tiles)) and torch.equal(nproc, want_np)
     assert int(nproc.sum()) > 0
     p_out = out_budget(gid.shape[0], tw * th, chunk)
@@ -100,7 +102,7 @@ def test_compositors_by_gid_equal_the_gathered_table(case, monkeypatch):
     cot = torch.from_numpy(np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32))
     args = (ts, tc, comp_start, np_c, tiles, cot)
     d = traster.composite_bwd(rows, *args, p_out=p_out, gid=gid, **fwd)
-    want_d = traster.composite_bwd(table, *args, p_out=p_out, **fwd)
+    want_d = traster.composite_bwd(table, *args, p_out=p_out, gid=F.table_gids(table), **fwd)
     assert torch.equal(bits(d), bits(want_d))
 
     # render and its gradients against the same render on a gathered table

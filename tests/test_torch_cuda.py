@@ -111,11 +111,12 @@ def test_expand_pairs_kernel_crafted_tables(cuda_device, case, mode):
 def test_composite_fwd_kernel_matches_plain(cuda_device, name):
     tw, _ = tb.tile_grid(F.W, F.H, F.TILE)
     tables = [t.to(cuda_device) for t in pair_tables(F.make_scene(**SCENES[name]))]
+    gid = F.table_gids(tables[0])
     want_tiles, want_np = traster.composite_fwd_plain(*tables, tw=tw, tile_size=F.TILE,
-                                                      chunk=F.CHUNK)
+                                                      chunk=F.CHUNK, gid=gid)
     before = traster.composite_fwd.launches
     got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=F.TILE,
-                                              chunk=F.CHUNK)
+                                              chunk=F.CHUNK, gid=gid)
     torch.cuda.synchronize()
     assert traster.composite_fwd.launches == before + 1
     np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(),
@@ -125,10 +126,12 @@ def test_composite_fwd_kernel_matches_plain(cuda_device, name):
 
 def assert_composite_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
     tables = [torch.from_numpy(a).to(device) for a in (attrs, ts, tc)]
+    gid = F.table_gids(tables[0])
     want_tiles, want_np = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile,
-                                                      chunk=chunk)
+                                                      chunk=chunk, gid=gid)
     before = traster.composite_fwd.launches
-    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk)
+    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk,
+                                              gid=gid)
     torch.cuda.synchronize()
     assert traster.composite_fwd.launches == before + 1
     np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(),
@@ -189,12 +192,13 @@ def bwd_inputs(name, device):
     tw, th = tb.tile_grid(F.W, F.H, F.TILE)
     gathered, ts, tc = pair_tables(F.make_scene(**SCENES[name]))
     tiles, nproc = traster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=F.TILE,
-                                         chunk=F.CHUNK)
+                                         chunk=F.CHUNK, gid=F.table_gids(gathered))
     p_out = tb.out_budget(gathered.shape[0], tw * th, F.CHUNK)
     np_c, comp_start, _ = contrib_regions(nproc, F.CHUNK, p_out)
     g = torch.from_numpy(np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32))
     args = [t.to(device) for t in (gathered, ts, tc, comp_start, np_c, tiles, g)]
-    return args, dict(tw=tw, tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out)
+    return args, dict(tw=tw, tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out,
+                      gid=F.table_gids(args[0]))
 
 
 def assert_d_tables_match(got, want):
@@ -229,13 +233,14 @@ def assert_bwd_matches_plain(device, attrs, ts, tc, tw, tile, chunk):
     from gsplat_tpu_torch.render.render import contrib_regions
 
     tables = [torch.from_numpy(a) for a in (attrs, ts, tc)]
-    tiles, nproc = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile, chunk=chunk)
+    tiles, nproc = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile, chunk=chunk,
+                                               gid=F.table_gids(tables[0]))
     p_out = tb.out_budget(attrs.shape[0], ts.shape[0], chunk)
     np_c, comp_start, _ = contrib_regions(nproc, chunk, p_out)
     g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
         size=tiles.shape).astype(np.float32))
     args = [t.to(device) for t in (*tables, comp_start, np_c, tiles, g)]
-    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out)
+    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out, gid=F.table_gids(args[0]))
     want = traster.composite_bwd_plain(*args, **kw)
     before = traster.composite_bwd.launches
     got = traster.composite_bwd(*args, **kw)
@@ -287,9 +292,11 @@ def assert_packed_kernels_match_plain(device, attrs, ts, tc, tw, tile, chunk):
     counts = (traster.composite_fwd, traster.composite_bwd, traster.packed_fwd_count,
               traster.packed_bwd_count)
     before = [c.launches for c in counts]
+    gid = F.table_gids(tables[0])
     want_tiles, want_np = traster.composite_fwd_plain(*tables, tw=tw, tile_size=tile,
-                                                      chunk=chunk)
-    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk)
+                                                      chunk=chunk, gid=gid)
+    got_tiles, got_np = traster.composite_fwd(*tables, tw=tw, tile_size=tile, chunk=chunk,
+                                              gid=gid)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got_tiles.cpu().numpy(), want_tiles.cpu().numpy(), rtol=0,
                                atol=ATOL)
@@ -299,7 +306,7 @@ def assert_packed_kernels_match_plain(device, attrs, ts, tc, tw, tile, chunk):
     g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
         size=want_tiles.shape).astype(np.float32)).to(device)
     args = (*tables, comp_start, np_c, want_tiles, g)
-    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out)
+    kw = dict(tw=tw, tile_size=tile, chunk=chunk, p_out=p_out, gid=gid)
     want = traster.composite_bwd_plain(*args, **kw)
     got = traster.composite_bwd(*args, **kw)
     again = traster.composite_bwd(*args, **kw)
@@ -372,7 +379,7 @@ def assert_by_gid_bit_equal(device, rows, gid, table, ts, tc, tw, tile, chunk):
     rows, gid, table, ts, tc = (torch.as_tensor(t).to(device) for t in (rows, gid, table, ts, tc))
     assert torch.equal(rows[gid.long()], table)
     fwd = dict(tw=tw, tile_size=tile, chunk=chunk)
-    want_tiles, want_np = traster.composite_fwd(table, ts, tc, **fwd)
+    want_tiles, want_np = traster.composite_fwd(table, ts, tc, gid=F.table_gids(table), **fwd)
     tiles, nproc = traster.composite_fwd(rows, ts, tc, gid=gid, **fwd)
     torch.cuda.synchronize()
     assert torch.equal(tiles.view(torch.int32), want_tiles.view(torch.int32))
@@ -382,7 +389,7 @@ def assert_by_gid_bit_equal(device, rows, gid, table, ts, tc, tw, tile, chunk):
     g = torch.from_numpy(np.random.default_rng(tile + chunk).normal(
         size=tiles.shape).astype(np.float32)).to(device)
     args = (ts, tc, comp_start, np_c, tiles, g)
-    want = traster.composite_bwd(table, *args, p_out=p_out, **fwd)
+    want = traster.composite_bwd(table, *args, p_out=p_out, gid=F.table_gids(table), **fwd)
     got = traster.composite_bwd(rows, *args, p_out=p_out, gid=gid, **fwd)
     again = traster.composite_bwd(rows, *args, p_out=p_out, gid=gid, **fwd)
     torch.cuda.synchronize()
@@ -889,12 +896,14 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     tscan.prefix_sum_small(torch.arange(9, dtype=torch.int32))
     tcompact.compact_runs(*compact_inputs(0, 8)[:4], 64, -1)
     tables = pair_tables(F.make_scene())
-    traster.composite_fwd(*tables, tw=4, tile_size=F.TILE, chunk=F.CHUNK)
+    traster.composite_fwd(*tables, tw=4, tile_size=F.TILE, chunk=F.CHUNK,
+                          gid=F.table_gids(tables[0]))
     args, kw = bwd_inputs("sparse", "cpu")
     traster.composite_bwd(*args, **kw)
     # the packed table too, with its own counts
     packed = packed_table(tables[0])
-    traster.composite_fwd(packed, *tables[1:], tw=4, tile_size=F.TILE, chunk=F.CHUNK)
+    traster.composite_fwd(packed, *tables[1:], tw=4, tile_size=F.TILE, chunk=F.CHUNK,
+                          gid=F.table_gids(packed))
     traster.composite_bwd(packed_table(args[0]), *args[1:], **kw)
     tbounds.segment_ends(torch.arange(8, dtype=torch.float32), 10)
     d, n_rows = crafted_d_table("long_segment")
@@ -912,7 +921,8 @@ def test_other_devices_raise():
     gathered, ts, tc = pair_tables(F.make_scene())
     with pytest.raises(ValueError, match="cuda or cpu"):
         traster.composite_fwd(gathered.to("meta"), ts.to("meta"), tc.to("meta"), tw=4,
-                              tile_size=F.TILE, chunk=F.CHUNK)
+                              tile_size=F.TILE, chunk=F.CHUNK,
+                              gid=F.table_gids(gathered.to("meta")))
     args, kw = bwd_inputs("sparse", "meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         traster.composite_bwd(*args, **kw)

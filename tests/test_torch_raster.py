@@ -27,7 +27,8 @@ def both(gathered, tile_start, tile_count, tw, tile, chunk):
         jnp.asarray(tile_count.numpy()), num_tiles=tile_start.shape[0], tw=tw,
         tile_size=tile, chunk=chunk, interpret=True)
     got_tiles, got_np = traster.composite_fwd(gathered, tile_start, tile_count, tw=tw,
-                                              tile_size=tile, chunk=chunk)
+                                              tile_size=tile, chunk=chunk,
+                                              gid=F.table_gids(gathered))
     np.testing.assert_allclose(got_tiles.numpy(), np.asarray(want_tiles), rtol=0,
                                atol=ATOL)
     np.testing.assert_array_equal(got_np.numpy(), np.asarray(want_np))
@@ -78,7 +79,8 @@ def test_early_exit_waits_for_pixels_below_the_image():
     assert float(T[:8].max()) < traster.T_EPS <= float(T[8:].max())
     # the same pairs into the in-image rows alone: saturated after chunk 1
     one, _ = traster.composite_fwd(attrs[:chunk], ts, torch.full((1,), chunk, dtype=torch.int32),
-                                   tw=1, tile_size=tile, chunk=chunk)
+                                   tw=1, tile_size=tile, chunk=chunk,
+                                   gid=F.table_gids(attrs[:chunk]))
     assert float(one[0, 3].reshape(tile, tile)[:8].max()) < traster.T_EPS
 
 
@@ -124,7 +126,8 @@ def test_composite_fwd_large_tiles_match_reference(tile, chunk, table):
         assert float(tiles[0, 3].max()) < traster.T_EPS
         # the first group alone saturates the first band and leaves the others
         part, _ = traster.composite_fwd(attrs, ts, torch.tensor([m], dtype=torch.int32),
-                                        tw=1, tile_size=tile, chunk=chunk)
+                                        tw=1, tile_size=tile, chunk=chunk,
+                                        gid=F.table_gids(attrs))
         T = part[0, 3].reshape(tile, tile)
         T = (T.T if axis else T).reshape(4, tile // 4, tile).amax((1, 2))
         assert float(T[0]) < traster.T_EPS < float(T[1:].min())

@@ -32,7 +32,7 @@ def inputs():
     for name, kw in SCENES.items():
         gathered, ts, tc = pair_tables(F.make_scene(**kw))
         tiles, nproc = traster.composite_fwd(gathered, ts, tc, tw=TW, tile_size=F.TILE,
-                                             chunk=F.CHUNK)
+                                             chunk=F.CHUNK, gid=F.table_gids(gathered))
         g = np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32)
         out[name] = (gathered, ts, tc, tiles, nproc, torch.from_numpy(g))
     return out
@@ -46,7 +46,8 @@ def both(gathered, ts, tc, tiles, g, comp_start, np_c, p_out, tw=TW, tile=F.TILE
         jnp.asarray(tiles.numpy()), jnp.asarray(g.numpy()), num_tiles=ts.shape[0], tw=tw,
         tile_size=tile, chunk=chunk, p_out=p_out, interpret=True)
     got = traster.composite_bwd(gathered, ts, tc, comp_start, np_c, tiles, g, tw=tw,
-                                tile_size=tile, chunk=chunk, p_out=p_out)
+                                tile_size=tile, chunk=chunk, p_out=p_out,
+                                gid=F.table_gids(gathered))
     return got.numpy(), np.asarray(want).T
 
 
@@ -138,7 +139,8 @@ def test_composite_bwd_skip_edges_match_reference(chunk):
     warp) has d-values exactly 0; the near-threshold pairs do not."""
     tile = 16
     attrs, ts, tc = map(torch.from_numpy, skip_edge_tile(tile, chunk))
-    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=1, tile_size=tile, chunk=chunk)
+    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=1, tile_size=tile, chunk=chunk,
+                                         gid=F.table_gids(attrs))
     p_out = out_budget(attrs.shape[0], 1, chunk)
     np_c, comp_start, overflow = contrib_regions(nproc, chunk, p_out)
     assert not bool(overflow) and int(np_c[0]) >= 1
@@ -178,7 +180,8 @@ def test_composite_bwd_large_tiles_match_reference(tile, chunk, table):
         attrs, ts, tc = map(torch.from_numpy,
                             banded_tile(tile, chunk, int(table == "columns"))[:3])
         tw = 1
-    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=tw, tile_size=tile, chunk=chunk)
+    tiles, nproc = traster.composite_fwd(attrs, ts, tc, tw=tw, tile_size=tile, chunk=chunk,
+                                         gid=F.table_gids(attrs))
     p_out = out_budget(attrs.shape[0], ts.shape[0], chunk)
     np_c, comp_start, overflow = contrib_regions(nproc, chunk, p_out)
     assert not bool(overflow)

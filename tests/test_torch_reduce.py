@@ -71,13 +71,14 @@ def scene_d_table(name):
     cotangent, and the table's row count for its Gaussians (capacity + 1)."""
     tw, th = tile_grid(F.W, F.H, F.TILE)
     gathered, ts, tc = pair_tables(F.make_scene(**SCENES[name]))
+    gid = F.table_gids(gathered)
     tiles, nproc = traster.composite_fwd(gathered, ts, tc, tw=tw, tile_size=F.TILE,
-                                         chunk=F.CHUNK)
+                                         chunk=F.CHUNK, gid=gid)
     p_out = out_budget(gathered.shape[0], tw * th, F.CHUNK)
     np_c, comp_start, _ = contrib_regions(nproc, F.CHUNK, p_out)
     g = torch.from_numpy(np.random.default_rng(3).normal(size=tiles.shape).astype(np.float32))
     d = traster.composite_bwd(gathered, ts, tc, comp_start, np_c, tiles, g, tw=tw,
-                              tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out)
+                              tile_size=F.TILE, chunk=F.CHUNK, p_out=p_out, gid=gid)
     return d.numpy(), F.make_scene().params["xyz"].shape[0] + 1
 
 

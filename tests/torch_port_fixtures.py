@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import pytest
+import torch
 
 from gsplat_tpu_torch.render.raster import ATTR_DIM, KEY_COL, KEY_INVALID, N_DCOLS
 
@@ -162,6 +163,12 @@ def pair_tables(scene, width=W, height=H, tile=TILE, chunk=CHUNK):
     the compositors read in order, tile_start, tile_count)."""
     rows, gid, ts, tc = gid_tables(scene, width, height, tile, chunk)
     return rows.index_select(0, gid), ts, tc
+
+
+def table_gids(table):
+    """The gids through which the compositors read a gathered (P, 16) or
+    (P, 8) pair table in order: arange(P), int32 on the table's device."""
+    return torch.arange(table.shape[0], dtype=torch.int32, device=table.device)
 
 
 def crafted_tiles(tw, th, tile, chunk, seed=0):
