@@ -233,9 +233,9 @@ Phases (any failure exits nonzero, and the final ok line is not printed):
            n_dropped 0, GUI render errors 0, an HTTP GET on the same port
            returns the page; K1 and K2 against their plain versions at
            1920x1080 and 1237x691. Printed: the round trip ms a request at
-           each size (median, min, max), split into render device ms, the
-           device-to-host copy, the bytes and the socket; K1 and K2 launches
-           a request
+           each size (median, min, max), split into render device ms,
+           image_to_bytes (quantise and the copy into pinned memory) and the
+           socket; K1 and K2 launches a request
   train cli with the viewer (sparse, full width)  the train cli phase's run
            from start.npz without --quiet (the viewer on a free port,
            progress_every 10): a SIBR client renders a view before the
@@ -3737,7 +3737,7 @@ def phase_viewer_serve(s, g, cam_args, tmp, counts):
     by_size = {}
     for i, ((label, _, w, h, sm), m, cam) in enumerate(zip(VIEWER_VIEWS, msgs, cams)):
         rows = by_size.setdefault(label, dict(rtt=[], server=[], socket=[], render=[],
-                                              copy=[], bytes=[], k1=[], k2=[], equal=[],
+                                              to_bytes=[], k1=[], k2=[], equal=[],
                                               verify=[], dropped=[]))
         ref, dropped = b"", 0
         if cam is not None:
@@ -3747,19 +3747,12 @@ def phase_viewer_serve(s, g, cam_args, tmp, counts):
                          scaling_modifier=sm)
             e1.record()
             torch.cuda.synchronize()
-            ref = network_gui.image_to_bytes(out.image)
-            q = (torch.clamp(out.image, 0.0, 1.0) * 255).to(torch.uint8)
-            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            host = q.cpu()
-            t1 = time.perf_counter()
-            memoryview(host.numpy().reshape(-1))     # what image_to_bytes returns
-            t2 = time.perf_counter()
+            ref = network_gui.image_to_bytes(out.image)
+            rows["to_bytes"].append((time.perf_counter() - t0) * 1e3)
             dropped = int(out.n_dropped)
             rows["render"].append(e0.elapsed_time(e1))
-            rows["copy"].append((t1 - t0) * 1e3)
-            rows["bytes"].append((t2 - t1) * 1e3)
-            del out, q, host
+            del out
         for r in range(VIEWER_ROUNDS):
             img, verify, rtt = got.get((r, i), (None, None, float("nan")))
             sv = served[r * len(msgs) + i] if r * len(msgs) + i < len(served) else {}
@@ -3776,9 +3769,8 @@ def phase_viewer_serve(s, g, cam_args, tmp, counts):
                 f"viewer {label}: {len(rows['equal'])} replies bit-equal to image_to_bytes of "
                 f"the render apart {sum(rows['equal'])}, verify string {sum(rows['verify'])}, "
                 f"n_dropped {rows['dropped']}")
-        split = (f"render device ms {ms_stats(rows['render'])}, device-to-host copy ms "
-                 f"{ms_stats(rows['copy'])}, bytes ms {ms_stats(rows['bytes'])}, "
-                 if rows["render"] else "")
+        split = (f"render device ms {ms_stats(rows['render'])}, image_to_bytes ms "
+                 f"{ms_stats(rows['to_bytes'])}, " if rows["render"] else "")
         print(f"  viewer {label}: round trip ms {ms_stats(rows['rtt'])}; the loop's serve ms "
               f"{ms_stats(rows['server'])}; {split}socket and queue ms "
               f"{ms_stats(rows['socket'])}; K1, K2 launches a request {rows['k1']}, "

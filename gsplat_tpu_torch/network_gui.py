@@ -30,8 +30,9 @@ renders that raised (the loop replies without an image and trains on).
 Where the port differs: `camera_from_request` builds the port's Camera on a
 given device; `image_to_bytes` also takes a torch tensor, which it
 quantises on its own device before one copy of the bytes to the host (the
-same float32 arithmetic as the numpy path, so the same bytes), returned as
-a memoryview. Under a profiler the three are spans of
+same float32 arithmetic as the numpy path, so the same bytes; from the
+card into cached page-locked memory), returned as a memoryview. Under a
+profiler the three are spans of
 gsplat_tpu_torch.spans ("gui.parse", "gui.camera", "gui.to_bytes" with its
 "gui.to_bytes.quantize" and "gui.to_bytes.copy"), and a queued request
 carries its receipt time (`received_ns`) for the loop's "gui.request".
@@ -261,12 +262,29 @@ def image_to_bytes(image: Union[np.ndarray, torch.Tensor]) -> Union[bytes, memor
     clip, times 255, truncated (no rounding, unlike the preview and the
     render CLI's PNGs). A tensor comes back as a flat memoryview of its one
     host copy (sendall takes it as it is: a 1080p frame's 6.2 MB are not
-    copied again)."""
+    copied again).
+
+    A CUDA frame is copied into page-locked memory from torch's caching
+    host allocator, not into a fresh pageable allocation: the copy is a
+    plain DMA, and only the current stream is waited on. Each reply owns
+    its block (the memoryview holds the host tensor through the numpy
+    array's base), so replies held at once, one a viewer, keep their bytes;
+    a block returns to the allocator's cache when its reply is dropped.
+    Under a profiler the copy's span counts `pinned` (1 there, 0 for a host
+    tensor)."""
     with spans.span("gui.to_bytes"):
         if isinstance(image, torch.Tensor):
             with spans.span("gui.to_bytes.quantize"):
                 q = (torch.clamp(image.detach(), 0.0, 1.0) * 255).to(torch.uint8)
-            with spans.span("gui.to_bytes.copy"):
-                return memoryview(q.cpu().numpy().reshape(-1))
+            with spans.span("gui.to_bytes.copy") as sp:
+                if q.is_cuda:
+                    host = torch.empty(q.shape, dtype=torch.uint8, pin_memory=True)
+                    host.copy_(q, non_blocking=True)
+                    torch.cuda.current_stream(q.device).synchronize()
+                else:
+                    host = q
+                if sp is not None:
+                    sp.count(pinned=int(q.is_cuda))
+                return memoryview(host.numpy().reshape(-1))
         arr = (np.clip(np.asarray(image), 0.0, 1.0) * 255).astype(np.uint8)
         return arr.tobytes()

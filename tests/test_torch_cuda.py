@@ -24,7 +24,11 @@ each group's max of the CPU's, and two gradient passes of one train step
 bit-equal in every parameter group; render_cli's PNGs equal to the
 render of each camera. K2 and K3 reading each pair's row through its gid
 give the bits they give on the gathered pair table (every variant, f32
-and packed), K3 the same bits twice."""
+and packed), K3 the same bits twice. The viewer's image_to_bytes copies a
+CUDA frame into page-locked host blocks: the quantised bytes at 1080p,
+75x53 and 1x1, replies held at once each keeping their own, `pinned` == 1
+on the copy's span and no pageable copy, no new pinned allocation in
+steady state."""
 
 import numpy as np
 import pytest
@@ -1204,6 +1208,72 @@ def test_network_gui_request_on_gpu(cuda_device, tmp_path):
     assert int(out.n_dropped) == 0
     assert req._image == network_gui.image_to_bytes(out.image)
     assert len(req._image) == 75 * 53 * 3
+
+
+def _frame(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((*shape, 3), generator=g, device=device) * 1.4 - 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1080, 1920), (53, 75), (1, 1)])
+def test_image_to_bytes_pinned_bytes(cuda_device, shape):
+    """A CUDA frame's reply holds the bytes of (clamp(x,0,1)*255).to(uint8)
+    copied to the host, from a page-locked host block."""
+    from gsplat_tpu_torch import network_gui
+    x = _frame(shape, 1, cuda_device)
+    got = network_gui.image_to_bytes(x)
+    want = (torch.clamp(x, 0, 1) * 255).to(torch.uint8).cpu()
+    assert isinstance(got, memoryview) and got.nbytes == x.numel()
+    assert got == want.numpy().tobytes()
+    assert torch.from_numpy(got.obj).is_pinned()
+
+
+@pytest.mark.cuda
+def test_image_to_bytes_replies_held_at_once(cuda_device):
+    """Three replies of three images held together each keep their own bytes
+    after all three calls: no block is shared or reused while a reply
+    lives (two viewers' frames may be in flight at once)."""
+    from gsplat_tpu_torch import network_gui
+    imgs = [_frame((1080, 1920), s, cuda_device) for s in (2, 3, 4)]
+    replies = [network_gui.image_to_bytes(x) for x in imgs]
+    for x, r in zip(imgs, replies):
+        assert r == (torch.clamp(x, 0, 1) * 255).to(torch.uint8).cpu().numpy().tobytes()
+    assert len({r.obj.ctypes.data for r in replies}) == 3
+
+
+@pytest.mark.cuda
+def test_image_to_bytes_counts_pinned_and_copies_device_to_pinned(cuda_device):
+    """Under the profiler the copy span counts pinned == 1, and the card's
+    one device-to-host copy lands in pinned memory, not pageable."""
+    from torch.profiler import ProfilerActivity, profile
+    from gsplat_tpu_torch import network_gui, spans
+    x = _frame((53, 75), 5, cuda_device)
+    network_gui.image_to_bytes(x)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        network_gui.image_to_bytes(x)
+    (copy,) = [r for r in spans.records() if r.name == "gui.to_bytes.copy"]
+    assert copy.counters == {"pinned": 1}
+    dtoh = [e.key for e in prof.key_averages() if e.key.startswith("Memcpy DtoH")]
+    assert dtoh and all("Pinned" in k for k in dtoh), dtoh
+
+
+@pytest.mark.cuda
+def test_image_to_bytes_reuses_cached_pinned_blocks(cuda_device):
+    """After a warm-up, 50 replies dropped one by one make no new pinned
+    allocation: the caching host allocator serves each from its blocks."""
+    from gsplat_tpu_torch import network_gui
+    stats = torch.cuda.host_memory_stats()
+    if "num_host_alloc" not in stats:
+        pytest.skip("this torch's host_memory_stats() has no num_host_alloc")
+    x = _frame((1080, 1920), 6, cuda_device)
+    for _ in range(3):
+        network_gui.image_to_bytes(x)
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    for _ in range(50):
+        network_gui.image_to_bytes(x)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
 
 
 @pytest.mark.cuda

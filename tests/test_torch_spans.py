@@ -13,7 +13,8 @@ torch.profiler's CPU tracing, at the fixtures' 64x48 scene.
 - the exported Chrome trace holds `gsplat.*` annotations inside the step;
 - without a profiler nothing records and no record_function is entered;
 - the ring keeps its bound; parents across threads (the autograd engine's
-  device threads on CUDA); the viewer's spans;
+  device threads on CUDA); the viewer's spans, a host frame's copy
+  counting pinned == 0;
 - on_stage receives the stage names it received before spans, pinned.
 """
 
@@ -291,6 +292,23 @@ def test_viewer_spans():
         assert s[n].parent is None and s[n].root == s[n].id
     for n in ("gui.to_bytes.quantize", "gui.to_bytes.copy"):
         assert s[n].parent == s["gui.to_bytes"].id
+
+
+def test_viewer_copy_not_pinned_on_host(monkeypatch):
+    """A host tensor's copy span counts pinned == 0 and makes no CUDA call;
+    a numpy frame has no copy span."""
+    def no_card(*a, **kw):
+        raise AssertionError("a host frame reached for the card")
+
+    monkeypatch.setattr(torch.cuda, "current_stream", no_card)
+    x = torch.rand(4, 5, 3)
+    want = (x * 255).to(torch.uint8).numpy().tobytes()
+    data, recs, _ = recorded(lambda: network_gui.image_to_bytes(x))
+    s = by_name(recs)
+    assert data == want
+    assert s["gui.to_bytes.copy"].counters == {"pinned": 0}
+    data, recs, _ = recorded(lambda: network_gui.image_to_bytes(x.numpy()))
+    assert data == want and {r.name for r in recs} == {"gui.to_bytes"}
 
 
 # the stage names every on_stage caller received before the spans

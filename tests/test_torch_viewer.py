@@ -5,7 +5,8 @@ train() on the CPU.
 - the SIBR wire format: parse_message field by field, the framing bytes of
   read_message/send_reply over a socket pair, camera_from_request's
   matrices bit-equal, image_to_bytes's bytes (truncation, no rounding) on
-  values below 0, above 1 and at every half step of 1/255;
+  values below 0, above 1 and at every half step of 1/255; on the host
+  paths at 1x1 and 75x53 and with replies held at once;
 - the servers: the browser page, preview.png (decodes to the rounded image
   handed to publish) and /metrics served, a port conflict soft; HTTP on the
   SIBR port, a first segment split in two, a connect-then-close probe, and
@@ -170,6 +171,30 @@ def test_image_to_bytes_matches_jax():
     assert tgui.image_to_bytes(torch.from_numpy(img)) == want
     # truncation: 0.5/255 -> 0 and 1.5/255 -> 1, where the preview rounds to 1 and 2
     assert want[21] == 0 and want[23] == 1
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (53, 75), (4, 5)])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_first"])
+def test_image_to_bytes_host_paths(shape, layout):
+    """A host tensor (laid out either way) and a numpy array give the bytes
+    of (clamp(x, 0, 1) * 255).to(uint8) in (H, W, 3) order."""
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).uniform(
+        -0.2, 1.2, (*shape, 3)).astype(np.float32))
+    if layout == "channels_first":
+        x = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        assert x.is_contiguous() == (shape == (1, 1))
+    want = (torch.clamp(x, 0.0, 1.0) * 255).to(torch.uint8).contiguous().numpy().tobytes()
+    assert tgui.image_to_bytes(x.numpy()) == want
+    assert tgui.image_to_bytes(x) == want
+
+
+def test_image_to_bytes_host_replies_held_at_once():
+    """Three replies of three images, held together, each keep their own
+    bytes after all three calls (the multi-viewer lifetime)."""
+    imgs = [torch.full((6, 7, 3), v) for v in (0.1, 0.5, 0.9)]
+    replies = [tgui.image_to_bytes(im) for im in imgs]
+    for im, r in zip(imgs, replies):
+        assert r == (im * 255).to(torch.uint8).numpy().tobytes()
 
 
 # ---------------------------------------------------------------- servers
